@@ -1,0 +1,99 @@
+"""BasicBlock ResNet-18/34 written by hand (counterpart of
+`shapeclipper_tpu/models/resnet.py`; torchvision is not a dependency).
+
+Parameter names are torchvision's (`conv1`, `bn1`, `layer{i}.{j}.conv1`,
+`layer{i}.{j}.downsample.{0,1}`, `fc`), so converted ImageNet state_dicts
+(`scripts/convert_weights.py`) load as they are. The public layout is the JAX
+package's NHWC: images enter as [B, H, W, 3] and are permuted to NCHW here.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import lecun_normal_
+
+
+def _conv(in_ch, out_ch, k, stride, padding, generator):
+    conv = nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=padding,
+                     bias=False)
+    # flax variance_scaling(2.0, "fan_out", "normal")
+    nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu",
+                            generator=generator)
+    return conv
+
+
+def _bn(ch):
+    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_ch, filters, stride=1, generator=None):
+        super().__init__()
+        self.conv1 = _conv(in_ch, filters, 3, stride, 1, generator)
+        self.bn1 = _bn(filters)
+        self.conv2 = _conv(filters, filters, 3, 1, 1, generator)
+        self.bn2 = _bn(filters)
+        self.downsample = None
+        if in_ch != filters or stride != 1:
+            self.downsample = nn.Sequential(
+                _conv(in_ch, filters, 1, stride, 0, generator), _bn(filters))
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """BasicBlock ResNet on NHWC images in [0, 1]. `num_classes=None` returns
+    the pooled 512-d features."""
+
+    def __init__(self, stage_sizes, num_classes=1000, generator=None):
+        super().__init__()
+        self.conv1 = _conv(3, 64, 7, 2, 3, generator)
+        self.bn1 = _bn(64)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        in_ch = 64
+        for i, count in enumerate(stage_sizes):
+            filters = 64 * 2 ** i
+            blocks = []
+            for j in range(count):
+                stride = 2 if (i > 0 and j == 0) else 1
+                blocks.append(BasicBlock(in_ch, filters, stride, generator))
+                in_ch = filters
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        self.num_stages = len(stage_sizes)
+        self.fc = None
+        if num_classes is not None:
+            self.fc = nn.Linear(in_ch, num_classes)
+            lecun_normal_(self.fc.weight, generator)
+            nn.init.zeros_(self.fc.bias)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2).contiguous()             # NHWC -> NCHW
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+        x = x.mean(dim=(2, 3))                              # [B, 512]
+        return x if self.fc is None else self.fc(x)
+
+
+def resnet18(num_classes=None, generator=None):
+    return ResNet((2, 2, 2, 2), num_classes=num_classes, generator=generator)
+
+
+def resnet34(num_classes=None, generator=None):
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, generator=generator)
+
+
+def make_encoder(opt, generator=None):
+    """Image encoder with fc sized to the shape + rgb latent dims."""
+    out_dim = opt.arch.latent_dim_shape + opt.arch.latent_dim_rgb
+    if opt.arch.enc_network == "resnet34":
+        return resnet34(num_classes=out_dim, generator=generator)
+    if opt.arch.enc_network == "resnet18":
+        return resnet18(num_classes=out_dim, generator=generator)
+    raise ValueError(opt.arch.enc_network)

@@ -1,0 +1,308 @@
+"""Fused SDF-MLP forward (+ forward-mode point gradient): the plain PyTorch
+version and the wrapper of the Hopper kernel `csrc/fused_sdf_fwd.cu`.
+
+Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
+  * `prepare_fused_params`: the latent folded into per-sample biases and the
+    skip kernels pre-scaled by 1/sqrt(2) -- a small matmul outside the
+    kernel, as in JAX.
+  * `fused_sdf_forward_reference`: `sdf_fwdmode_xla` in plain torch (rows =
+    [primal; t_x; t_y; t_z] through the same products), with the kernel's
+    activation formulation (`_act_pair`).
+  * `fused_sdf_forward`: CPU tensors take the plain version; CUDA tensors
+    launch the kernel (K1 with `compute_grad`, K3 without) or raise. There is
+    no fallback from CUDA to the plain version.
+
+The library builds at first use from this package's own source into
+`build/` at the repository root (`nvcc`, plain C interface, loaded with
+ctypes). No gradient flows through the kernel: its backward (the TPU
+package's `_backward_call`) is not ported yet, so the wrapper raises when
+one is required; serving runs under `torch.inference_mode()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+INV_SQRT2 = 0.7071067811865476
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_sdf_fwd.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+
+# the architecture the kernel is written for (options/pix3d/config.yaml)
+KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
+                   latent_dim=64)
+NUM_WEIGHTS = 28032
+BIAS_WIDTH = 5 * 64 + 65
+
+
+def _coord_masks(n_freqs, device=None):
+    """[3, 3 + 6F] 0/1 rows: which posenc features depend on coordinate d."""
+    eye = torch.eye(3, device=device)
+    return torch.cat([eye] + [eye, eye] * n_freqs, dim=1)
+
+
+def _arch(sdf_network):
+    return (sdf_network.posenc_res, tuple(sdf_network.skip_in),
+            sdf_network.n_hidden)
+
+
+def prepare_fused_params(sdf_network, latent):
+    """-> (kernels, biases): kernels a list of (Ka, Kb or None), each [in, out]
+    (the flax layout); biases a list of [B, out] with the latent folded in."""
+    n_freqs, skip_in, n_hidden = _arch(sdf_network)
+    pe_dim = 3 + 6 * n_freqs
+    kernels, biases = [], []
+    for l in range(n_hidden + 1):
+        lin = getattr(sdf_network, f"lin{l}")
+        K = lin.weight.t()
+        b = lin.bias
+        if l == 0:
+            Kpe, Klat = K[:pe_dim], K[pe_dim:]
+            kernels.append((Kpe, None))
+            biases.append(b[None] + latent @ Klat)
+        elif l in skip_in:
+            C = K.shape[0] - pe_dim - latent.shape[-1]
+            Kh = K[:C] * INV_SQRT2
+            Kpe = K[C:C + pe_dim] * INV_SQRT2
+            Klat = K[C + pe_dim:] * INV_SQRT2
+            kernels.append((Kh, Kpe))
+            biases.append(b[None] + latent @ Klat)
+        else:
+            kernels.append((K, None))
+            biases.append(b[None].expand(latent.shape[0], b.shape[0]))
+    return kernels, biases
+
+
+def pack_fused_params(kernels, biases):
+    """-> (weights [28032], biases [B, 385]): the kernel's packed layout
+    (`csrc/fused_sdf_fwd.cu`), every layer kernel [in, out] row-major."""
+    weights = torch.cat([k.reshape(-1) for pair in kernels for k in pair
+                         if k is not None]).contiguous()
+    bias = torch.cat(biases, dim=1).contiguous()
+    assert weights.numel() == NUM_WEIGHTS and bias.shape[1] == BIAS_WIDTH
+    return weights, bias
+
+
+def _act_pair(prim):
+    """(softplus(100x)/100, sigmoid(100x)) sharing one exp, as the kernel."""
+    z = 100.0 * prim
+    e = torch.exp(-z.abs())
+    inv = 1.0 / (1.0 + e)
+    sig = torch.where(z >= 0, inv, 1.0 - inv)
+    act = (torch.clamp(z, min=0.0) + torch.log1p(e)) / 100.0
+    return act, sig
+
+
+def _forward_plain(kernels, biases, points, n_freqs, skip_in, n_hidden,
+                   compute_grad, force_symmetry):
+    x = points
+    if force_symmetry:
+        sign0 = torch.where(x[..., :1] < 0, -1.0, 1.0)
+        x = torch.cat([x[..., :1].abs(), x[..., 1:]], dim=-1)
+    pe_parts = [x]
+    dpe_parts = [torch.ones_like(x)] if compute_grad else None
+    for k in range(n_freqs):
+        f = 2.0 ** k
+        xf = x * f
+        s, c = torch.sin(xf), torch.cos(xf)
+        pe_parts += [s, c]
+        if compute_grad:
+            dpe_parts += [f * c, -f * s]
+    pe = torch.cat(pe_parts, dim=-1)                           # [B,N,D]
+    if compute_grad:
+        dpe = torch.cat(dpe_parts, dim=-1)
+        m = _coord_masks(n_freqs, pe.device).to(pe.dtype)      # [3,D]
+        tangents = dpe[:, None] * m[None, :, None]             # [B,3,N,D]
+        rows = torch.cat([pe[:, None], tangents], dim=1)       # [B,4,N,D]
+    else:
+        rows = pe[:, None]                                     # [B,1,N,D]
+
+    h = out = prim = None
+    for l in range(n_hidden + 1):
+        Ka, Kb = kernels[l]
+        if l == 0:
+            out = rows @ Ka                                    # [B,R,N,W]
+        elif l in skip_in:
+            out = h @ Ka + rows @ Kb
+        else:
+            out = h @ Ka
+        prim = out[:, 0] + biases[l][:, None]                  # [B,N,W]
+        if l < n_hidden:
+            act, sig = _act_pair(prim)
+            if compute_grad:
+                h = torch.cat([act[:, None], out[:, 1:] * sig[:, None]], dim=1)
+            else:
+                h = act[:, None]
+
+    sdf, feat = prim[..., :1], prim[..., 1:]
+    grad = None
+    if compute_grad:
+        g = out[:, 1:, :, 0].movedim(1, -1)                    # [B,N,3]
+        if force_symmetry:
+            g = torch.cat([g[..., :1] * sign0, g[..., 1:]], dim=-1)
+        grad = g
+    return sdf, feat, grad
+
+
+def fused_sdf_forward_reference(sdf_network, points, latent,
+                                compute_grad=False):
+    """Plain torch version of the kernel, on any device. points [B, N, 3],
+    latent [B, C] -> (sdf [B,N,1], feat [B,N,C'], grad [B,N,3] or None)."""
+    n_freqs, skip_in, n_hidden = _arch(sdf_network)
+    kernels, biases = prepare_fused_params(sdf_network, latent)
+    return _forward_plain(kernels, biases, points, n_freqs, skip_in,
+                          n_hidden, compute_grad, sdf_network.force_symmetry)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _find_nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the fused SDF kernel needs the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class FusedSdfKernel:
+    """The built library and its launch counts. `launches` counts launches
+    of each instantiation ('grad' = K1, 'nograd' = K3); it is incremented
+    where the kernel is launched and nowhere else."""
+
+    def __init__(self, source=_SOURCE, build_dir=_BUILD_DIR):
+        self.source = source
+        self.build_dir = build_dir
+        self.lib = None
+        self.build_seconds = None
+        self.ptxas_log = None
+        self.launches = {"grad": 0, "nograd": 0}
+
+    def library_path(self):
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        return os.path.join(self.build_dir, f"libscl_fused_sdf_{digest}.so")
+
+    def build(self):
+        """Compile the source (once per content hash) and load it."""
+        if self.lib is not None:
+            return self.lib
+        path = self.library_path()
+        t0 = time.perf_counter()
+        if not os.path.isfile(path):
+            os.makedirs(self.build_dir, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+            os.close(fd)
+            cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                   "-Xcompiler", "-fPIC", "-o", tmp, self.source]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            self.ptxas_log = proc.stderr
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        fn = lib.scl_fused_sdf_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.scl_fused_sdf_num_weights.argtypes = []
+        lib.scl_fused_sdf_num_weights.restype = ctypes.c_int
+        if lib.scl_fused_sdf_num_weights() != NUM_WEIGHTS:
+            raise RuntimeError("fused SDF library packs a different layout")
+        self.build_seconds = time.perf_counter() - t0
+        self.lib = lib
+        return lib
+
+    def launch(self, points, weights, biases, compute_grad, force_symmetry):
+        """points [B,N,3], weights [28032], biases [B,385] (float32,
+        contiguous, one CUDA device) -> (sdf [B,N], feat [B,N,64],
+        grad [B,N,3] or None)."""
+        lib = self.build()
+        B, N, _ = points.shape
+        dev = points.device
+        sdf = torch.empty(B, N, device=dev, dtype=torch.float32)
+        feat = torch.empty(B, N, 64, device=dev, dtype=torch.float32)
+        grad = (torch.empty(B, N, 3, device=dev, dtype=torch.float32)
+                if compute_grad else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.scl_fused_sdf_fwd(
+                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                sdf.data_ptr(), feat.data_ptr(),
+                grad.data_ptr() if compute_grad else None,
+                B, N, int(bool(compute_grad)), int(bool(force_symmetry)),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"fused SDF kernel launch failed: cudaError "
+                               f"{err}")
+        self.launches["grad" if compute_grad else "nograd"] += 1
+        return sdf, feat, grad
+
+
+KERNEL = FusedSdfKernel()
+
+
+def _check_cuda_inputs(sdf_network, points, latent):
+    n_freqs, skip_in, n_hidden = _arch(sdf_network)
+    a = KERNEL_ARCH
+    if (n_freqs, skip_in, n_hidden) != (a["n_freqs"], a["skip_in"],
+                                        a["n_hidden"]) \
+            or sdf_network.n_channels != a["width"] \
+            or sdf_network.proj_latent_dim != a["latent_dim"]:
+        raise ValueError(f"the fused SDF kernel is built for {a}; got posenc "
+                         f"{n_freqs}, skips {skip_in}, {n_hidden} hidden x "
+                         f"{sdf_network.n_channels}")
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"points must be [B, N, 3], got {tuple(points.shape)}")
+    if latent.dim() != 2 or latent.shape[0] != points.shape[0]:
+        raise ValueError(f"latent must be [B, C] with B = {points.shape[0]}, "
+                         f"got {tuple(latent.shape)}")
+    if not points.is_contiguous():
+        raise ValueError("points must be contiguous")
+    for name, t in (("points", points), ("latent", latent)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != points.device:
+            raise ValueError(f"{name} is on {t.device}, points on "
+                             f"{points.device}")
+    for p in sdf_network.parameters():
+        if p.device != points.device or p.dtype != torch.float32:
+            raise ValueError("SDF network parameters must be float32 on "
+                             f"{points.device}")
+
+
+def fused_sdf_forward(sdf_network, points, latent, compute_grad=False):
+    """points [B, N, 3], latent [B, C] -> (sdf [B,N,1], feat [B,N,64],
+    grad [B,N,3] or None). CPU tensors take the plain version; CUDA tensors
+    run the Hopper kernel."""
+    if points.device.type == "cpu":
+        return fused_sdf_forward_reference(sdf_network, points, latent,
+                                           compute_grad)
+    if points.device.type != "cuda":
+        raise ValueError(f"no fused SDF path for device {points.device}")
+    if torch.is_grad_enabled() and (
+            points.requires_grad or latent.requires_grad
+            or any(p.requires_grad for p in sdf_network.parameters())):
+        raise RuntimeError("fused_sdf_forward has no backward yet; call it "
+                           "under torch.inference_mode() / torch.no_grad()")
+    _check_cuda_inputs(sdf_network, points, latent)
+    weights, bias = pack_fused_params(
+        *prepare_fused_params(sdf_network, latent))
+    sdf, feat, grad = KERNEL.launch(points, weights, bias,
+                                    compute_grad, sdf_network.force_symmetry)
+    return sdf[..., None], feat, grad
