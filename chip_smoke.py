@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases (each one succeeds or raises; any failure exits non-zero, and there is
 no CPU fallback):
-  1. set-up: versions, the card, the TF32 switches (both off: fp32 serving),
-     and the build of the fused SDF kernel from `shapeclipper_torch/csrc/`
-     into `build/`;
-  2. the kernel against its plain PyTorch version at the serving shapes:
-     N = 262,144 render points with gradients (64x64 rays x 64 samples),
-     N = 274,625 and 1,030,301 grid points without (vox 64 and vox 100);
-     max abs error against the stated tolerance, CUDA-event timings;
-  3. four single-image requests through the port's Runner at the full width
-     of options/pix3d/config.yaml (ResNet34 at 224^2, ResNet18 estimator,
-     64x64x64 render, vox-64 grid, host marching tetrahedra, 8-view
-     turntable), with the kernel's launch counts reset just before and read
-     just after; outputs finite, mesh non-empty, request 0 held against the
-     same graph run on the CPU through the plain path; then the CLI
-     (`shapeclipper_torch.infer`) once on request 0's image;
-  4. the kernel summary line, the card line and the result line.
+  1. set-up: versions, the card, the TF32 switches (both off: fp32), and the
+     build of both fused SDF libraries from `shapeclipper_torch/csrc/` into
+     `build/` (two nvcc runs at once);
+  2. K1 / K3 (forward) against their plain PyTorch version at the serving
+     shapes: N = 262,144 render points with gradients, N = 274,625 and
+     1,030,301 grid points without; K1 again at the training shape;
+  3. K2 (backward) against plain autograd of the plain version at
+     B x N = 12 x 32,768 (render), 12 x 1,024 (eikonal), a ragged 2 x 300
+     and 2 x 300 with points on the x = 0 plane; CUDA-event times of K2
+     alone, of the K1 + K2 pair and of the plain forward + backward;
+  4. four single-image requests through the port's Runner at the full width
+     of options/pix3d/config.yaml (the serving path), launch counts reset
+     just before and read just after, request 0 held against the CPU plain
+     path, then the CLI once;
+  5. training steps at the flagship config (options/pix3d/config.yaml with
+     bench.py's overrides: synthetic data, batch 12, 224^2) on one
+     pre-collated batch: step 0 (camera phase) and six full steps, launch
+     counts per step (K1 3 / K2 1, then K1 3 / K2 3), every loss finite,
+     per-step times, peak memory, one step under torch.profiler; then the
+     first full step at batch 4 on the card and on the CPU plain path from
+     the same weights, optimizer state and draws;
+  6. convergence: 200 steps of options/synthetic/config.yaml with
+     scripts/validate_training.py's overrides through the loader;
+  7. the kernel summary line, the card line and the result line.
 
 Weights are the port's seeded initialisation (no trained checkpoints exist);
-images are shaded ellipsoids drawn with numpy from a seed.
+images are drawn with numpy from a seed.
 """
 
 import copy
@@ -39,14 +49,41 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "options", "pix3d", "config.yaml")
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 SOURCE = "shapeclipper_torch/csrc/fused_sdf_fwd.cu"
+SOURCE_BWD = "shapeclipper_torch/csrc/fused_sdf_bwd.cu"
 REPLACES = "shapeclipper_tpu/ops/fused_sdf.py:311"
+REPLACES_BWD = "shapeclipper_tpu/ops/fused_sdf.py:617"
 
-# tests/test_fused_sdf.py:24-27 (sdf, feature) and :41-43 (gradient)
+# tests/test_fused_sdf.py:24-27 (sdf, feature), :41-43 (gradient) and
+# :143-147 (training gradients: atol 3e-5 * max|ref|, rtol 2e-4)
 SDF_TOL = dict(atol=2e-5, rtol=0.0)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-3)
+BWD_ATOL, BWD_RTOL = 3e-5, 2e-4
 N_REQUESTS = 4
 N_VIEWS = 8
 SEED = 0
+N_FULL_STEPS = 6
+N_CONVERGE = 200
+# the card-vs-CPU training step: norm-relative gradient limits, 0.1 for the
+# encoders (train-mode BatchNorm), MLP_GRAD_TOL for the modules without it
+MLP_ROOTS = ("sdf_network", "rgb_network", "density")
+MLP_GRAD_TOL = 1e-2
+
+# roofline of one H100 SXM (NVIDIA data sheet, 700 W): fp32 outside the
+# tensor cores and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Multiply-adds a point needs (the function's, not the kernels' dense rows).
+# Without tangents every weight is used once: 28,032. With tangents, a
+# posenc tangent row is non-zero at 13 of its 39 entries (K0, K1pe, K2pe:
+# 39 + 3 x 13 rows of 64 each), the hidden products take all four rows
+# (4 x 4,096 each of K1h, K2h, K3, K4), and the output layer's tangent rows
+# need only the sdf column (64 x 65 + 3 x 64): 84,864.
+MAC_TANGENT = 3 * (39 + 3 * 13) * 64 + 4 * 4 * 4096 + 64 * 65 + 3 * 64
+FLOP_K1 = 2 * MAC_TANGENT        # per point, with tangents: 169,728
+FLOP_K3 = 2 * 28032              # per point, without
+# K2: the recompute, then per layer the input cotangent and the weight
+# gradient, each with the same non-zero pattern as the forward product
+FLOP_K2 = 3 * FLOP_K1            # per point: 509,184
 
 
 def log(msg):
@@ -77,6 +114,12 @@ def cuda_ms(fn, runs=10, warmup=3):
     return statistics.median(times)
 
 
+def bound(flop, nbytes):
+    """(least ms on the card, 'operations' or 'bytes')."""
+    t_op, t_b = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
 def within(got, want, atol, rtol):
     err = (got - want).abs()
     return float(err.max()), bool((err <= atol + rtol * want.abs()).all())
@@ -105,7 +148,7 @@ def render_points(opt_e, device):
                                 one, one)
     cam, ray = camera.get_center_and_ray(opt_e, pose, intr=intr)
     dirs = _safe_normalize(ray)
-    z = sample_z_vals(opt_e, dirs.shape[1], one)
+    z, _ = sample_z_vals(opt_e, dirs.shape[1], one)
     pts = cam[:, :, None, :] + z[..., None] * dirs[:, :, None, :]
     return pts.reshape(1, -1, 3).contiguous()
 
@@ -125,16 +168,21 @@ def phase_kernels(opt):
     latent = (torch.randn(1, 64, generator=g) * 0.3).to(dev)
     opt_e = opt.deepcopy()
     opt_e.H, opt_e.W = opt.eval.image_size
-    shapes = [("grad", True, render_points(opt_e, dev))]
+    shapes = [("grad", True, render_points(opt_e, dev), latent)]
+    # the training render's shape: batch 12 x 512 rays x 64 samples
+    gp = torch.Generator().manual_seed(SEED + 1)
+    shapes.append(("grad", True,
+                   (torch.rand(12, 32768, 3, generator=gp) * 2 - 1).to(dev),
+                   (torch.randn(12, 64, generator=gp) * 0.3).to(dev)))
     for vox in (64, 100):
         shapes.append(("nograd", False, dense_grid_points(opt, vox, dev)[None]
-                       .contiguous()))
+                       .contiguous(), latent))
     results = {"grad": [], "nograd": []}
     with torch.inference_mode():
-        kernels, biases = F.prepare_fused_params(net, latent)
-        weights, bias = F.pack_fused_params(kernels, biases)
-        for name, cg, pts in shapes:
-            N = pts.shape[1]
+        for name, cg, pts, latent in shapes:
+            kernels, biases = F.prepare_fused_params(net, latent)
+            weights, bias = F.pack_fused_params(kernels, biases)
+            B, N = pts.shape[:2]
             k = F.fused_sdf_forward(net, pts, latent, compute_grad=cg)
             torch.cuda.synchronize()
             r = F.fused_sdf_forward_reference(net, pts, latent,
@@ -154,7 +202,7 @@ def phase_kernels(opt):
                                                  True))
             plain_ms = cuda_ms(lambda: F._forward_plain(
                 kernels, biases, pts, *F._arch(net), cg, True))
-            log(f"[kernel] N={N} compute_grad={cg}: max abs err "
+            log(f"[kernel] B={B} N={N} compute_grad={cg}: max abs err "
                 + ", ".join(f"{p}={e:.3e}" for p, e in errs.items())
                 + f" (tol sdf/feat {SDF_TOL}, grad {GRAD_TOL}); kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms "
@@ -162,8 +210,16 @@ def phase_kernels(opt):
             if not ok:
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version at N={N}: {errs}")
-            results[name].append(dict(N=N, err=max(errs.values()), ms=ms,
-                                      plain_ms=plain_ms))
+            flop = (FLOP_K1 if cg else FLOP_K3) * B * N
+            nbytes = 4 * (B * N * (3 + 65 + (3 if cg else 0))
+                          + F.NUM_WEIGHTS + B * F.BIAS_WIDTH)
+            bound_ms, bound_by = bound(flop, nbytes)
+            log(f"[kernel]   bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{100 * bound_ms / ms:.1f}% of it reached); "
+                f"{flop / ms / 1e9:.1f} TFLOP/s of the function's FLOPs")
+            results[name].append(dict(B=B, N=N, err=max(errs.values()), ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by))
     return results
 
 
@@ -218,29 +274,37 @@ def serve(runner, opt, image, stages=None):
     return var, level, mesh
 
 
-def profile_request(runner, opt, image):
-    """One more request under torch.profiler: device busy share and the
-    kernels that take the device time."""
+def profiled(tag, what, fn, n_top):
+    """Run `fn` once under torch.profiler and log its wall time, the device
+    busy time (kernels, copies and sets; user-annotation ranges such as
+    `Optimizer.step#Adam.step` span kernels already counted and are left
+    out), the busy share and the top device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(runner, opt, image)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-    total = sum(busy.values())
+    busy, ranges = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        into = ranges if e.is_user_annotation else busy
+        into[e.key] = (e.self_device_time_total / 1e3, e.count)
+    total = sum(v[0] for v in busy.values())
     if total <= 0:
-        log("[profile] no device time in the trace: busy share not measured")
+        log(f"[{tag}] no device time in the trace: busy share not measured")
         return
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[profile] one request under the profiler: wall {wall_ms:.1f} ms, "
-        f"device busy {total:.1f} ms ({100 * total / wall_ms:.1f}%); top: "
-        + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    top = sorted(busy.items(), key=lambda kv: -kv[1][0])[:n_top]
+    log(f"[{tag}] {what} under the profiler: wall {wall_ms:.1f} ms, device "
+        f"busy {total:.1f} ms ({100 * total / wall_ms:.1f}%); top: "
+        + "; ".join(f"{k[:50]} {v:.2f} ms x{c}" for k, (v, c) in top)
+        + "; annotation ranges left out: "
+        + (", ".join(f"{k[:40]} {v:.2f} ms" for k, (v, _) in ranges.items())
+           or "none"))
 
 
 def phase_serve(opt):
@@ -260,6 +324,7 @@ def phase_serve(opt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     F.KERNEL.launches = {"grad": 0, "nograd": 0}
+    F.BACKWARD.launches = 0
     latencies, outputs, stages = [], [], {}
     for i, image in enumerate(images):
         before = dict(F.KERNEL.launches)
@@ -274,6 +339,8 @@ def phase_serve(opt):
                                  f"expected {per_request}")
         outputs.append((var, level, mesh))
     launches = dict(F.KERNEL.launches)
+    if F.BACKWARD.launches:
+        raise AssertionError("serving launched the backward kernel")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     H, W = opt.eval.image_size
@@ -331,7 +398,8 @@ def phase_serve(opt):
 
     log("[serve] steady stages (median of requests 2-4): " + ", ".join(
         f"{k} {statistics.median(v):.1f} ms" for k, v in stages.items()))
-    profile_request(runner, opt, images[1])
+    profiled("profile", "one request", lambda: serve(runner, opt, images[1]),
+             6)
     util_vis.dump_images(opt, var0.idx, "image_input", images[0],
                          folder="serve")
     util_vis.dump_meshes(opt, var0.idx, "mesh", [mesh0], folder="serve")
@@ -363,6 +431,346 @@ def phase_cli(opt, image):
         f"{time.perf_counter() - t0:.1f} s (model build included)")
 
 
+# --------------------------------------------------------------- phase 3
+def phase_backward():
+    """K2 (through the K1 + K2 autograd Function) against plain autograd of
+    the plain version: parameter, latent and point gradients of
+    <cotangents, (sdf, feat, grad)>."""
+    import torch
+    from shapeclipper_torch.models.implicit import SDFNetwork
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+
+    def grads(pts, lat, cots, kernel):
+        net.zero_grad()
+        p = pts.clone().requires_grad_(True)
+        lt = lat.clone().requires_grad_(True)
+        if kernel:
+            out = F.fused_sdf_train(net, p, lt)
+        else:
+            kk, bb = F.prepare_fused_params(net, lt)
+            out = F._forward_plain(kk, bb, p, *F._arch(net), True, True)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        res = {n: q.grad.clone() for n, q in net.named_parameters()}
+        res.update(points=p.grad.clone(), latent=lt.grad.clone())
+        return res
+
+    cases = [("render", 12, 32768, False), ("eikonal", 12, 1024, False),
+             ("ragged", 2, 300, False), ("x=0 plane", 2, 300, True)]
+    worst, main = 0.0, None
+    for label, B, N, plane in cases:
+        pts = torch.rand(B, N, 3, generator=g) * 2 - 1
+        if plane:
+            pts[:, ::3, 0] = 0.0
+        lat = torch.randn(B, 64, generator=g) * 0.3
+        cots = [torch.randn(B, N, c, generator=g) for c in (1, 64, 3)]
+        pts, lat = pts.to(dev), lat.to(dev)
+        cots = [c.to(dev) for c in cots]
+        got = grads(pts, lat, cots, True)
+        want = grads(pts, lat, cots, False)
+        torch.cuda.synchronize()
+        errs, bad = {}, []
+        for k, w in want.items():
+            scale = max(float(w.abs().max()), 1e-3)
+            errs[k], ok = within(got[k], w, BWD_ATOL * scale, BWD_RTOL)
+            if not ok or not torch.isfinite(got[k]).all():
+                bad.append(k)
+        top = max(errs, key=errs.get)
+        log(f"[k2] {label} B={B} N={N}: max abs err {errs[top]:.3e} "
+            f"({top}), points {errs['points']:.3e}, latent "
+            f"{errs['latent']:.3e} (tol atol {BWD_ATOL} x max|ref|, rtol "
+            f"{BWD_RTOL})")
+        if bad:
+            raise AssertionError(f"K2 disagrees with plain autograd at "
+                                 f"{label}: {bad}")
+        worst = max(worst, max(errs.values()))
+        if main is None:
+            main = (pts, lat, cots)
+
+    # times at the render shape
+    pts, lat, cots = main
+    B, N = pts.shape[:2]
+    with torch.no_grad():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    sbar, fbar, gbar = (cots[0][..., 0].contiguous(), cots[1], cots[2])
+    k2_ms = cuda_ms(lambda: F.BACKWARD.launch(pts, weights, bias, sbar, fbar,
+                                              gbar, True))
+    p = pts.clone().requires_grad_(True)
+
+    def pair():
+        out = F.fused_sdf_train(net, p, lat)
+        torch.autograd.backward(out, cots)
+
+    def plain():
+        kk, bb = F.prepare_fused_params(net, lat)
+        out = F._forward_plain(kk, bb, p, *F._arch(net), True, True)
+        torch.autograd.backward(out, cots)
+
+    pair_ms = cuda_ms(pair)
+    plain_pair_ms = cuda_ms(plain)
+    # the plain backward alone: autograd of one kept plain forward
+    kk, bb = F.prepare_fused_params(net, lat)
+    out = F._forward_plain(kk, bb, p, *F._arch(net), True, True)
+    plain_ms = cuda_ms(lambda: torch.autograd.backward(out, cots,
+                                                       retain_graph=True))
+    del out
+    flop = FLOP_K2 * B * N
+    nbytes = 4 * (B * N * (3 + 68 + 3) + 2 * F.NUM_WEIGHTS
+                  + 2 * B * F.BIAS_WIDTH)
+    bound_ms, bound_by = bound(flop, nbytes)
+    log(f"[k2] B={B} N={N}: K2 alone {k2_ms:.4f} ms ({flop / k2_ms / 1e9:.1f}"
+        f" TFLOP/s of the function's FLOPs; bound {bound_ms:.4f} ms, "
+        f"{bound_by}, {100 * bound_ms / k2_ms:.1f}% of it reached), plain backward "
+        f"{plain_ms:.4f} ms ({plain_ms / k2_ms:.2f}x); K1 + K2 pair "
+        f"{pair_ms:.4f} ms, plain forward + backward {plain_pair_ms:.4f} ms "
+        f"({plain_pair_ms / pair_ms:.2f}x)")
+    net.zero_grad()
+    return dict(err=worst, ms=k2_ms, plain_ms=plain_ms, pair_ms=pair_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# --------------------------------------------------------------- phase 5
+def flagship_opt(batch_size=None):
+    """options/pix3d/config.yaml with bench.py's overrides: synthetic data,
+    224^2, batch 12 (or `batch_size`), seed 0, fp32, no TensorBoard."""
+    from shapeclipper_torch.config import options
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    opt = options.load_options(CONFIG)
+    if batch_size:
+        opt.batch_size = batch_size
+    opt.H, opt.W = opt.image_size
+    opt.data.dataset = "synthetic"
+    opt.data.num_workers = 0
+    opt.data.max_img_cat = opt.batch_size
+    opt.data.synthetic = edict(azim_range=[-180, 180], elev_range=[-90, 90],
+                               theta_range=[-90, 90])
+    opt.seed = SEED
+    opt.tb = False
+    opt.resume, opt.load = False, None
+    opt.output_path = os.path.join(OUT_DIR, f"train_b{opt.batch_size}")
+    return opt
+
+
+def one_batch(opt, noise_images=False):
+    """One pre-collated batch of the synthetic dataset (as bench.py), with
+    uniform-noise input images when `noise_images`."""
+    from shapeclipper_torch.data import synthetic
+    from shapeclipper_torch.data.base import default_collate
+    ds = synthetic.Dataset(opt, split="train")
+    batch = default_collate([ds[i] for i in range(opt.batch_size)])
+    if noise_images:
+        rng = np.random.RandomState(SEED + 3)
+        for key in ("rgb_input_map", "rgb_input_map_NN"):
+            batch[key] = rng.uniform(0, 1, batch[key].shape).astype(
+                np.float32)
+    return batch
+
+
+def train_runner(opt, device):
+    from shapeclipper_torch.train.trainer import Runner
+    runner = Runner(opt, device)
+    runner.build_networks(opt)
+    runner.setup_optimizer(opt)
+    runner.restore_checkpoint(opt)
+    return runner
+
+
+def check_loss(label, loss):
+    for k, v in loss.items():
+        if k != "finite" and not np.isfinite(float(v)):
+            raise AssertionError(f"{label}: loss {k} = {float(v)}")
+    if not bool(loss.finite):
+        raise AssertionError(f"{label}: loss.finite is False")
+
+
+def phase_train():
+    """Step 0 (camera) and N_FULL_STEPS full steps at the flagship config,
+    on one pre-collated batch, with the launch counts of each step."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.train.trainer import batch_to_var
+
+    opt = flagship_opt()
+    runner = train_runner(opt, "cuda")
+    var = batch_to_var(one_batch(opt), runner.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F.KERNEL.launches = {"grad": 0, "nograd": 0}
+    F.BACKWARD.launches = 0
+    times = []
+    for step in range(1 + N_FULL_STEPS):
+        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+        t0 = time.perf_counter()
+        loss = runner.train_iteration(opt, var)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = (F.KERNEL.launches["grad"] - k1, F.BACKWARD.launches - k2)
+        want = (3, 1) if step == 0 else (3, 3)
+        if got != want:
+            raise AssertionError(f"step {step}: launches K1/K2 {got}, "
+                                 f"expected {want}")
+        check_loss(f"step {step}", loss)
+        log(f"[train] step {step} ({'camera' if step == 0 else 'full'}): "
+            f"{times[-1]:.1f} ms, K1 {got[0]} / K2 {got[1]} launches, loss "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in loss.items()
+                        if k != "finite"))
+    launches = dict(k1=F.KERNEL.launches["grad"], k2=F.BACKWARD.launches,
+                    k3=F.KERNEL.launches["nograd"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(times[2:])
+    log(f"[train] flagship (batch {opt.batch_size}, {opt.H}x{opt.W}, "
+        f"{opt.render.rand_sample} rays x {opt.render.n_samples_uniform} "
+        f"samples, {opt.reg.n_views} NN view): camera step {times[0]:.1f} ms,"
+        f" first full step {times[1]:.1f} ms, steady full step (median of "
+        f"steps 2-{N_FULL_STEPS}) {steady:.1f} ms; peak device memory "
+        f"{peak_gib:.3f} GiB; launches {launches}")
+    profiled("train", "one full step",
+             lambda: runner.train_iteration(opt, var), 8)
+    return launches
+
+
+def _to(tree, device):
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    if isinstance(tree, list):
+        return [_to(t, device) for t in tree]
+    return edict({k: v.to(device) for k, v in tree.items()})
+
+
+def phase_gpu_vs_cpu_step():
+    """The first full step on the card and on the CPU plain path, from the
+    same weights, optimizer state and draws, at batch 4 with noise input
+    images. Tolerances as tests/test_torch_train.py's full step, with the
+    MLPs' and beta's gradients held to MLP_GRAD_TOL: train-mode BatchNorm
+    makes the encoders' gradients ill-conditioned in float32. At
+    batch 2 the latent projections' BatchNorm normalises two samples per
+    feature, and the two runs' encoder gradients differed by 2.8x their
+    norm, which says nothing about the code; batch 4 is the smallest batch
+    where the comparison means something."""
+    import torch
+    from shapeclipper_torch.train.trainer import batch_to_var
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+
+    opt = flagship_opt(batch_size=4)
+    gpu = train_runner(opt, "cuda")
+    cpu = train_runner(opt, "cpu")
+    cpu.graph.load_state_dict(gpu.graph.state_dict())
+    batch = one_batch(opt, noise_images=True)
+    B, R, S = opt.batch_size, opt.render.rand_sample, opt.render.n_samples_uniform
+    g = torch.Generator().manual_seed(SEED + 5)
+    lo, hi = opt.arch.impl_sdf.eikonal_sample_range
+    draws = edict(
+        render=edict(t_rand=torch.rand(B, R, S, generator=g),
+                     eik_idx=torch.randint(0, S, (B, R, 1), generator=g),
+                     eik_uniform=lo + (hi - lo) * torch.rand(
+                         B, R, 3, generator=g)),
+        render_NN=[edict(t_rand=torch.rand(B, R, S, generator=g))
+                   for _ in range(opt.reg.n_views)])
+    losses = {}
+    for role, r in (("gpu", gpu), ("cpu", cpu)):
+        r.it = 1   # a full step from fresh optimizer states
+        d = edict(render=_to(draws.render, r.device),
+                  render_NN=_to(draws.render_NN, r.device))
+        t0 = time.perf_counter()
+        losses[role] = r.train_iteration(opt, batch_to_var(batch, r.device),
+                                         draws=d)
+        torch.cuda.synchronize()
+        log(f"[step-cmp] {role} full step at batch {B} "
+            f"{1e3 * (time.perf_counter() - t0):.0f} ms")
+    lr = float(opt.optim.lr)
+    bad = []
+    loss_err = {}
+    for k, v in losses["cpu"].items():
+        if k == "finite":
+            continue
+        e = abs(float(losses["gpu"][k]) - float(v))
+        loss_err[k] = e / max(abs(float(v)), 1e-6)
+        if e > 2e-3 * abs(float(v)) + 1e-6:
+            bad.append(f"loss {k}")
+    gp = dict(gpu.graph.named_parameters())
+    grad_err, par_err, diffs = {}, {}, []
+    for name, p in cpu.graph.named_parameters():
+        q = gp[name]
+        grad_err[name] = float((q.grad.cpu() - p.grad).norm()
+                               / max(float(p.grad.norm()), 1e-30))
+        d = (q.detach().cpu() - p.detach()).abs()
+        par_err[name] = float(d.max()) / lr
+        diffs.append(d.flatten())
+        # the MLPs and beta see no BatchNorm: held 10x tighter
+        grad_tol = MLP_GRAD_TOL if name.split(".")[0] in MLP_ROOTS else 0.1
+        # + 1e-6: float32 rounding of parameter values up to ~8
+        if grad_err[name] > grad_tol or float(d.max()) > 2 * lr + 1e-6:
+            bad.append(name)
+    mean_d = float(torch.cat(diffs).mean()) / lr
+    if mean_d > 0.02:
+        bad.append("mean parameter difference")
+    gb = dict(gpu.graph.named_buffers())
+    bn_err = 0.0
+    for name, b in cpu.graph.named_buffers():
+        if "running" in name:
+            e = float((gb[name].cpu() - b).abs().max())
+            scale = max(float(b.abs().max()), 1e-6)
+            bn_err = max(bn_err, e / scale)
+            if e > 1e-3 * scale:
+                bad.append(name)
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
+    mlp = max(v for k, v in grad_err.items()
+              if k.split(".")[0] in MLP_ROOTS)
+    log(f"[step-cmp] first full step, GPU vs CPU plain path: loss terms max "
+        f"rel {max(loss_err.values()):.2e} (tol 2e-3); gradients max "
+        f"norm-rel {top[0][1]:.2e} (tol 0.1; worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in top)
+        + f"; SDF/RGB MLPs and beta {mlp:.2e}, tol {MLP_GRAD_TOL}); "
+        f"post-Adam parameters max "
+        f"{max(par_err.values()):.3f} lr (tol 2 lr), mean {mean_d:.4f} lr "
+        f"(tol 0.02 lr); BN running stats max rel {bn_err:.2e} (tol 1e-3)")
+    if bad:
+        raise AssertionError(f"GPU vs CPU step outside tolerance: {bad}")
+
+
+# --------------------------------------------------------------- phase 6
+def phase_converge():
+    """scripts/validate_training.py's run, N_CONVERGE steps, through
+    load_dataset's loader; the loss must fall."""
+    from shapeclipper_torch.config import options
+    from shapeclipper_torch.train.trainer import batch_to_var
+    opt = options.load_options(os.path.join(REPO, "options", "synthetic",
+                                            "config.yaml"))
+    opt.update(name="validate", seed=SEED, resume=False, load=None, tb=None,
+               batch_size=8, image_size=[64, 64], max_epoch=10 ** 6)
+    opt.H, opt.W = opt.image_size
+    opt.data.update(max_img_cat=32, num_workers=2)
+    opt.render.update(rand_sample=256, n_samples_uniform=32)
+    opt.eval.update(batch_size=2, image_size=[32, 32], vox_res=32,
+                    num_points=8192, n_vis=1)
+    opt.freq.update(scalar=10 ** 6, vis=10 ** 6, save_vis=10 ** 6,
+                    ckpt_latest=10 ** 6, eval=10 ** 6)
+    opt.output_path = os.path.join(OUT_DIR, "validate")
+    runner = train_runner(opt, "cuda")
+    runner.load_dataset(opt)
+    losses, epoch = [], 0
+    t0 = time.perf_counter()
+    while len(losses) < N_CONVERGE:
+        runner.train_loader.set_epoch(epoch)
+        for batch in runner.train_loader:
+            loss = runner.train_iteration(opt,
+                                          batch_to_var(batch, runner.device))
+            losses.append(float(loss.all))
+            if len(losses) >= N_CONVERGE:
+                break
+        epoch += 1
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"[converge] {N_CONVERGE} steps of options/synthetic/config.yaml "
+        f"(scripts/validate_training.py overrides) in "
+        f"{time.perf_counter() - t0:.1f} s: loss_first10 {first:.4f} -> "
+        f"loss_last10 {last:.4f} (the JAX record, bf16 and flax's "
+        f"initialisation: 0.883 -> 0.341; compare the direction only)")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -380,33 +788,53 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    t_start = time.perf_counter()
     log(f"[setup] torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"python {sys.version.split()[0]}")
     log(f"[setup] device {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
     log(f"[setup] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    F.KERNEL.build()
-    log(f"[setup] fused SDF kernel built from {SOURCE} in "
-        f"{F.KERNEL.build_seconds:.2f} s -> {F.KERNEL.library_path()}")
-    if F.KERNEL.ptxas_log:
-        log(F.KERNEL.ptxas_log.strip())
+    t0 = time.perf_counter()
+    F.build_kernels()
+    log(f"[setup] fused SDF kernels built from {SOURCE} and {SOURCE_BWD} "
+        f"(two nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
+    for lib in (F.KERNEL, F.BACKWARD):
+        if lib.ptxas_log:
+            log(lib.ptxas_log.strip())
 
     opt = load_opt()
     kern = phase_kernels(opt)                           # phase 2
-    launches, _, image0 = phase_serve(opt)              # phase 3
+    bwd = phase_backward()                              # phase 3
+    serve_launches, _, image0 = phase_serve(opt)        # phase 4
     phase_cli(opt, image0)
+    train_launches = phase_train()                      # phase 5
+    phase_gpu_vs_cpu_step()
+    phase_converge()                                    # phase 6
 
-    summary = []
-    for name, key in (("fused_sdf_fwd (K1, compute_grad=True)", "grad"),
-                      ("fused_sdf_fwd (K3, compute_grad=False)", "nograd")):
-        main_shape = kern[key][0]
-        if launches[key] < 1:
-            raise AssertionError(f"{name} never launched on the main path")
-        summary.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES,
-            launches=launches[key],
-            max_abs_err=max(r["err"] for r in kern[key]),
-            ms=main_shape["ms"], plain_ms=main_shape["plain_ms"]))
+    k1, k3 = kern["grad"][1], kern["nograd"][0]
+    summary = [
+        dict(name="fused_sdf_fwd (K1, compute_grad=True)", route="cuda",
+             source=SOURCE, replaces=REPLACES,
+             launches=train_launches["k1"],
+             max_abs_err=max(r["err"] for r in kern["grad"]), ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="fused_sdf_fwd (K3, compute_grad=False)", route="cuda",
+             source=SOURCE, replaces=REPLACES,
+             launches=serve_launches["nograd"],
+             max_abs_err=max(r["err"] for r in kern["nograd"]), ms=k3["ms"],
+             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=None),
+        dict(name="fused_sdf_bwd (K2)", route="cuda", source=SOURCE_BWD,
+             replaces=REPLACES_BWD, launches=train_launches["k2"],
+             max_abs_err=bwd["err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+             bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+             library_ms=None),
+    ]
+    for k in summary:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on its path")
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

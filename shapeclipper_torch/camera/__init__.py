@@ -1,6 +1,6 @@
-"""Pose algebra on [..., 3, 4] extrinsics, dense-grid rays and intrinsics
-(counterpart of `shapeclipper_tpu/camera/__init__.py`, the parts the serving
-path uses: the dense ray grid, `ray_idx=None`).
+"""Pose algebra on [..., 3, 4] extrinsics, rays and intrinsics (counterpart
+of `shapeclipper_tpu/camera/__init__.py`): rays on the dense grid (serving)
+or only at the sampled pixels `ray_idx` (training).
 """
 
 from __future__ import annotations
@@ -59,6 +59,12 @@ def img2cam(X, cam_intr):
     return X @ torch.linalg.inv(cam_intr).transpose(-1, -2)
 
 
+def transform_normal(normals, p):
+    """Rotate normal vectors [B, N, 3] into the canonical frame (the
+    rotation of p only)."""
+    return cam2world(normals, pose(R=p[..., :3, :3]))
+
+
 # ---------------------------------------------------------------------------
 # angle -> rotation matrices ('rad', 'angle' (deg), 'trig' ([..., 2]))
 # ---------------------------------------------------------------------------
@@ -100,28 +106,41 @@ def roll_to_rotation_matrix(roll, representation="rad"):
 
 
 # ---------------------------------------------------------------------------
-# ray generation (dense grid)
+# ray generation
 # ---------------------------------------------------------------------------
 
-def pixel_grid_xy(H, W, model="perspective", device=None):
-    """[HW, 2] pixel coordinates: perspective pixel centres (col+0.5,
-    row+0.5), orthographic [-1, 1] ndc."""
+def pixel_grid_xy(H, W, model="perspective", ray_idx=None, device=None):
+    """2-D pixel coordinates: the full [HW, 2] grid, or [..., R, 2] at the
+    flat row-major indices `ray_idx`. Perspective: pixel centres (col+0.5,
+    row+0.5); orthographic: [-1, 1] ndc."""
+    if ray_idx is None:
+        if model == "perspective":
+            y = torch.arange(H, dtype=torch.float32, device=device) + 0.5
+            x = torch.arange(W, dtype=torch.float32, device=device) + 0.5
+        else:
+            assert H == W
+            y = torch.linspace(-1.0, 1.0, H, device=device)
+            x = torch.linspace(-1.0, 1.0, W, device=device)
+        Y, X = torch.meshgrid(y, x, indexing="ij")
+        return torch.stack([X, Y], dim=-1).reshape(-1, 2)
+    row = torch.div(ray_idx, W, rounding_mode="floor").to(torch.float32)
+    col = (ray_idx % W).to(torch.float32)
     if model == "perspective":
-        y = torch.arange(H, dtype=torch.float32, device=device) + 0.5
-        x = torch.arange(W, dtype=torch.float32, device=device) + 0.5
+        x, y = col + 0.5, row + 0.5
     else:
         assert H == W
-        y = torch.linspace(-1.0, 1.0, H, device=device)
-        x = torch.linspace(-1.0, 1.0, W, device=device)
-    Y, X = torch.meshgrid(y, x, indexing="ij")
-    return torch.stack([X, Y], dim=-1).reshape(-1, 2)
+        x = -1.0 + 2.0 * col / (W - 1)
+        y = -1.0 + 2.0 * row / (H - 1)
+    return torch.stack([x, y], dim=-1)
 
 
-def get_camera_grid(opt, batch_size, intr=None, device=None):
-    """Camera-frame locations of every pixel on the d=1 plane."""
+def get_camera_grid(opt, batch_size, intr=None, ray_idx=None, device=None):
+    """Camera-frame locations of every pixel (or of the pixels `ray_idx`
+    [B, R]) on the d=1 plane."""
     model = opt.camera.model
-    xy = pixel_grid_xy(opt.H, opt.W, model=model, device=device)
-    xy_grid = xy[None].expand(batch_size, *xy.shape)            # [B,HW,2]
+    xy = pixel_grid_xy(opt.H, opt.W, model=model, ray_idx=ray_idx,
+                       device=device)
+    xy_grid = xy[None].expand(batch_size, *xy.shape) if ray_idx is None else xy
     if model == "perspective":
         grid_3D = img2cam(to_hom(xy_grid), intr)
     elif model == "orthographic":
@@ -131,12 +150,13 @@ def get_camera_grid(opt, batch_size, intr=None, device=None):
     return xy_grid, grid_3D
 
 
-def get_center_and_ray(opt, p, intr=None):
+def get_center_and_ray(opt, p, intr=None, ray_idx=None):
     """Camera centres and (unnormalized) ray directions in world coordinates
-    for the dense H x W grid. Perspective centres are [B, 1, 3]."""
+    for the dense H x W grid or the sampled pixels `ray_idx` [B, R].
+    Perspective centres are [B, 1, 3]."""
     batch_size = p.shape[0]
     xy_grid, grid_3D = get_camera_grid(opt, batch_size, intr=intr,
-                                       device=p.device)
+                                       ray_idx=ray_idx, device=p.device)
     if opt.camera.model == "perspective":
         center_3D = torch.zeros(batch_size, 1, 3, dtype=grid_3D.dtype,
                                 device=p.device)

@@ -1,10 +1,23 @@
-"""Serving graph: encoder -> latents -> pose -> render (counterpart of
-`shapeclipper_tpu/models/graph.py`, the `training=False`, `get_loss=False`
-path with sequential encoders).
+"""Computation graph: encoder -> latents -> pose -> render (-> losses)
+(counterpart of `shapeclipper_tpu/models/graph.py`).
 
 `Graph` is an `nn.Module` holding every parameter under the state_dict
 names that `bridge.py` produces. Inputs use the JAX package's layouts: images
-[B, H, W, 3], poses [B, 3, 4].
+[B, H, W, 3], poses [B, 3, 4], neighbour stacks [B, K, ...].
+
+Two paths: serving (`training=False`, eval-mode BatchNorm) and the training
+forward (`training=True`) with the JAX package's SEQUENTIAL semantics, i.e.
+every `tpu.merge_*` flag false: query encode, estimator, render, then per
+neighbour view encode, estimator and render, so the BatchNorm running
+statistics update query first, then each view. BatchNorm follows the
+module's mode: `graph.train()` for full steps, `graph.eval()` for the
+camera phase (the JAX `bn_eval`). The port computes in float32 and ignores
+`tpu.merge_*`, `tpu.sdf_grad_mode`, `tpu.fold_eikonal`,
+`tpu.remat_renderer` and the bf16 dtypes.
+
+Random draws (stratified jitter, eikonal points, the Gumbel noise of the
+neighbour selection) are optional inputs in `draws`; an absent one is drawn
+from `generator`.
 """
 
 from __future__ import annotations
@@ -15,11 +28,12 @@ import torch
 from torch import nn
 
 from .. import camera
+from .. import losses as L
 from ..render import renderer as renderlib
 from ..utils.easydict import EasyDict as edict
 from .estimator import Estimator
 from .implicit import Density, RGBNetwork, SDFNetwork
-from .layers import LatentProjection
+from .layers import LatentProjection, batch_stats_frozen
 from .resnet import make_encoder
 
 # canonical-frame permutation applied after Rz Rx Ry (reference
@@ -65,6 +79,9 @@ class Graph(nn.Module):
         self.sdf_network = SDFNetwork.from_opt(opt, generator=g)
         self.rgb_network = RGBNetwork.from_opt(opt, generator=g)
         self.density = Density(opt.arch.impl_sdf.beta_init)
+        if opt.loss_weight.get("category_reg") is not None:
+            raise NotImplementedError("loss_weight.category_reg (the "
+                                      "category centres) is not ported")
 
     def with_opt(self, opt):
         """A Graph that shares every parameter and buffer with this one but
@@ -88,22 +105,39 @@ class Graph(nn.Module):
                                     est.scale_dist)
         return pose, intr, est
 
-    def render(self, pose, intr, scale_dist, proj_sdf, proj_rgb):
+    def render(self, pose, intr, scale_dist, proj_sdf, proj_rgb,
+               ray_idx=None, training=False, compute_eikonal=None,
+               draws=None, generator=None):
         return renderlib.render(self.opt, self.sdf_network, self.rgb_network,
                                 self.density.beta, pose, intr, scale_dist,
-                                proj_sdf, proj_rgb)
+                                proj_sdf, proj_rgb, ray_idx=ray_idx,
+                                training=training,
+                                compute_eikonal=compute_eikonal, draws=draws,
+                                generator=generator)
 
-    def forward(self, var, training=False, get_loss=False):
+    def forward(self, var, training=False, get_loss=False, draws=None,
+                generator=None):
         """`var` is an EasyDict batch with `rgb_input_map` [B, H, W, 3];
-        returns it with the reconstruction fields added. Only the serving
-        path exists: training and losses come with a later slice."""
-        if training or get_loss:
-            raise NotImplementedError("the training forward is not ported")
+        returns it with the reconstruction fields added, and with
+        `get_loss` (training only) `(var, loss)`."""
+        if training:
+            return self._forward_train(var, get_loss, draws or edict(),
+                                       generator)
+        if get_loss:
+            raise NotImplementedError("eval losses are not ported")
         if any(m.training for m in self.children()):
             raise RuntimeError("call graph.eval() first: serving uses the "
                                "BatchNorm running statistics")
         opt = self.opt
         var = edict(var)
+        self._encode_and_pose(var)
+        out = self.render(var.pose, var.intr, var.scale_dist,
+                          var.proj_latent_sdf, var.proj_latent_rgb)
+        self._set_render_outputs(var, out)
+        self._set_maps(var)
+        return var
+
+    def _encode_and_pose(self, var):
         proj_sdf, proj_rgb, _ = self.encode(var.rgb_input_map)
         pose, intr, est = self.pred_pose(var.rgb_input_map)
         var.proj_latent_sdf, var.proj_latent_rgb = proj_sdf, proj_rgb
@@ -111,16 +145,205 @@ class Graph(nn.Module):
         var.trig_azim, var.trig_elev, var.trig_theta = (
             est.trig_azim, est.trig_elev, est.trig_theta)
         var.scale_focal = est.scale_focal
-        out = self.render(pose, intr, est.scale_dist, proj_sdf, proj_rgb)
+
+    @staticmethod
+    def _set_render_outputs(var, out):
         var.rgb_recon, var.mask_recon = out.rgb, out.mask
         var.mask_hard, var.depth_recon = out.mask_hard, out.depth
-        var.normal_recon = out.normal
+        var.normal_recon, var.grad_eikonal = out.normal, out.grad_eikonal
+
+    def _set_maps(self, var):
+        opt = self.opt
         B = var.rgb_recon.shape[0]
         var.rgb_recon_map = var.rgb_recon.reshape(B, opt.H, opt.W, 3)
         var.mask_recon_map = var.mask_recon.reshape(B, opt.H, opt.W, 1)
         var.mask_hard_map = var.mask_hard.reshape(B, opt.H, opt.W, 1)
         var.normal_recon_map = var.normal_recon.reshape(B, opt.H, opt.W, 3)
-        return var
+
+    # --------------------------------------------------------------- training
+    def _forward_train(self, var, get_loss, draws, generator):
+        """Reference `model/graph.py:68-112` with sequential encoders."""
+        opt = self.opt
+        var = edict(var)
+        ray_idx = var.get("ray_idx") if opt.render.rand_sample else None
+        lw = opt.loss_weight
+        nn_active = ((lw.get("nearest_img") is not None
+                      or lw.get("nearest_mask") is not None)
+                     and "rgb_input_map_NN" in var)
+        self._encode_and_pose(var)
+        normal_sup = var.get("normal_gt", var.get("normal_input"))
+        if normal_sup is not None:
+            var.normal_transformed = camera.transform_normal(normal_sup,
+                                                             var.pose)
+        out = self.render(var.pose, var.intr, var.scale_dist,
+                          var.proj_latent_sdf, var.proj_latent_rgb,
+                          ray_idx=ray_idx, training=True,
+                          draws=draws.get("render"), generator=generator)
+        self._set_render_outputs(var, out)
+        if nn_active:
+            self.forward_NN(var, draws, generator)
+        if not get_loss:
+            return var
+        return var, self.compute_loss(var)
+
+    def _nn_select(self, var, uniform=None, generator=None):
+        """IoU-weighted neighbour selection (reference
+        `model/graph.py:119-142`): stores idx_NN and input_NN_v in var and
+        returns the per-view inputs. With K == V (the loader pre-selected
+        the views, `data.preselect_NN`) the views are taken in order;
+        otherwise Gumbel top-k on the scores, the uniform noise [B, K] in
+        [1e-20, 1) given as `uniform` or drawn from `generator`."""
+        opt = self.opt
+        K = var.rgb_input_map_NN.shape[1]
+        V = opt.reg.n_views
+        assert V <= K
+        B = var.rgb_input_map.shape[0]
+        dev = var.rgb_input_map.device
+        if K == V:
+            idx_NN = torch.arange(V, device=dev)[None].expand(B, V)
+        else:
+            cur_masks = var.mask_input_NN.reshape(B, K, -1).detach()
+            inp_mask = var.mask_input.reshape(B, 1, -1).detach()
+            inter = (cur_masks * inp_mask).sum(dim=-1)
+            union = (cur_masks + inp_mask - cur_masks * inp_mask
+                     + 1e-8).sum(dim=-1)
+            scores = (1.0 - inter / union) ** opt.reg.sample_temp   # [B,K]
+            var.nn_scores = scores
+            if uniform is None:
+                if generator is None:
+                    raise ValueError("neighbour selection needs `uniform` "
+                                     "or a generator")
+                uniform = 1e-20 + (1.0 - 1e-20) * torch.rand(
+                    B, K, generator=generator, device=dev)
+            logp = torch.log(torch.clamp(scores, min=1e-20))
+            gumbel = -torch.log(-torch.log(uniform))
+            idx_NN = torch.topk(logp + gumbel, V, dim=1).indices    # [B,V]
+        var.idx_NN = idx_NN
+        rows = torch.arange(B, device=dev)
+        sels = []
+        for v in range(V):
+            sel = edict()
+            for key in ("rgb_input_map", "mask_input_map", "normal_input_map",
+                        "rgb_input", "mask_input", "normal_input"):
+                sel[key] = var[f"{key}_NN"][rows, idx_NN[:, v]]
+            if opt.render.rand_sample and "ray_idx_NN" in var:
+                sel.ray_idx = var.ray_idx_NN[rows, idx_NN[:, v]]
+            if "pose_gt_NN" in var:
+                sel.pose_gt = var.pose_gt_NN[rows, idx_NN[:, v]]
+            var[f"input_NN_{v}"] = sel
+            sels.append(sel)
+        return sels
+
+    def _nn_prepare(self, var, draws, generator):
+        """Neighbour selection + per-view encode and pose (reference
+        `model/graph.py:114-205`), in view order after the query's, so the
+        BatchNorm running statistics update as the JAX package's
+        sequential path composes them."""
+        opt = self.opt
+        sels = self._nn_select(var, draws.get("nn_uniform"), generator)
+        prep = []
+        for v, sel in enumerate(sels):
+            # the NN view's own RGB latent; the SDF latent stays the query's
+            latent_NN = self.encoder(sel.rgb_input_map)
+            proj_rgb_NN = self.latent_proj_rgb(
+                latent_NN[:, opt.arch.latent_dim_shape:])
+            var[f"proj_latent_rgb_NN_{v}"] = proj_rgb_NN
+            # reference parity: holds the LAST view's latent
+            var.proj_latent_rgb_NN = proj_rgb_NN
+            pose_NN, intr_NN, est_NN = self.pred_pose(sel.rgb_input_map)
+            var[f"pose_NN_{v}"] = pose_NN
+            var[f"intr_NN_{v}"] = intr_NN
+            var[f"scale_dist_NN_{v}"] = est_NN.scale_dist
+            prep.append(dict(pose=pose_NN, intr=intr_NN,
+                             scale_dist=est_NN.scale_dist,
+                             proj_rgb=proj_rgb_NN, ray_idx=sel.get("ray_idx")))
+        return prep
+
+    def forward_NN(self, var, draws, generator):
+        """CLIP nearest-neighbour consistency branch, one render per view
+        with the query's SDF latent (reference `model/graph.py:114-218`)."""
+        prep = self._nn_prepare(var, draws, generator)
+        render_draws = draws.get("render_NN") or [None] * len(prep)
+        for v, p in enumerate(prep):
+            # the NN views' eikonal gradients feed no loss
+            out = self.render(p["pose"], p["intr"], p["scale_dist"],
+                              var.proj_latent_sdf, p["proj_rgb"],
+                              ray_idx=p["ray_idx"], training=True,
+                              compute_eikonal=False, draws=render_draws[v],
+                              generator=generator)
+            var[f"rgb_recon_NN_{v}"] = out.rgb
+            var[f"mask_recon_NN_{v}"] = out.mask
+            var[f"depth_recon_NN_{v}"] = out.depth
+            var[f"normal_recon_NN_{v}"] = out.normal
+
+    def compute_loss(self, var):
+        """Training losses gated by opt.loss_weight.* (reference
+        `model/graph.py:220-265`)."""
+        opt = self.opt
+        lw = opt.loss_weight
+        loss = edict()
+        B = var.rgb_recon.shape[0]
+        cat_w = var.get("category_weight")
+        w3 = cat_w.reshape(B, 1, 1) if cat_w is not None else None
+        if lw.get("render") is not None:
+            target = var.get("rgb_gt", var.get("rgb_input"))
+            loss.render = L.mse_loss(var.rgb_recon, target, weight=w3)
+        if lw.get("mask") is not None:
+            target = var.get("mask_gt", var.get("mask_input"))
+            loss.mask = L.mask_loss(var.mask_recon, target,
+                                    mask_mse=opt.reg.mask_mse, weight=w3)
+        if lw.get("normal") is not None:
+            mask_sup = var.get("mask_gt", var.get("mask_input")) > 0.5
+            mask_pred = var.mask_recon > 0.5
+            loss.normal = L.normal_loss(
+                var.normal_recon, var.normal_transformed,
+                mask_sup & mask_pred, normal_l1=opt.reg.normal_l1,
+                weight=w3, tolerance=opt.reg.normal_tol)
+        if lw.get("eikonal") is not None:
+            loss.eikonal = L.mse_loss(
+                var.grad_eikonal.reshape(B, -1), 1.0,
+                weight=cat_w.reshape(B, 1) if cat_w is not None else None)
+        if lw.get("cam_margin") is not None:
+            loss.cam_margin = L.cam_margin_loss(opt, var.trig_elev,
+                                                var.trig_theta)
+        if lw.get("cam_uniform") is not None:
+            loss.cam_uniform = L.cam_uniform_loss(var.trig_azim,
+                                                  emd_p=opt.reg.emd_p)
+        if lw.get("cam_sym") is not None:
+            # the estimator on the horizontally flipped batch, with batch
+            # statistics in train mode; its running-stat update is dropped
+            # (reference `model/loss.py:114`)
+            with batch_stats_frozen(self.estimator):
+                est_f = self.estimator(var.rgb_input_map.flip(2))
+            loss.cam_sym = L.cam_sym_loss(
+                (var.trig_azim, var.trig_elev, var.trig_theta),
+                (est_f.trig_azim, est_f.trig_elev, est_f.trig_theta))
+        if lw.get("nearest_img") is not None and "rgb_recon_NN_0" in var:
+            loss.nearest_img = sum(
+                L.mse_loss(var[f"rgb_recon_NN_{v}"],
+                           var[f"input_NN_{v}"].rgb_input, weight=w3)
+                for v in range(opt.reg.n_views))
+        if lw.get("nearest_mask") is not None and "mask_recon_NN_0" in var:
+            loss.nearest_mask = sum(
+                L.mask_loss(var[f"mask_recon_NN_{v}"],
+                            var[f"input_NN_{v}"].mask_input,
+                            mask_mse=opt.reg.mask_mse, weight=w3)
+                for v in range(opt.reg.n_views))
+        if (lw.get("nearest_normal") is not None
+                and "normal_recon_NN_0" in var):
+            total = 0.0
+            for v in range(opt.reg.n_views):
+                sel = var[f"input_NN_{v}"]
+                mask_sup = sel.mask_input > 0.5
+                mask_pred = var[f"mask_recon_NN_{v}"] > 0.5
+                total = total + L.normal_loss(
+                    var[f"normal_recon_NN_{v}"],
+                    camera.transform_normal(sel.normal_input,
+                                            var[f"pose_NN_{v}"]),
+                    mask_sup & mask_pred, normal_l1=opt.reg.normal_l1,
+                    weight=w3, tolerance=opt.reg.normal_tol)
+            loss.nearest_normal = total
+        return loss
 
     def get_rotate_pose(self, n_views=50):
         """[n_views, 3, 4] azimuth-rotating poses for the turntable
@@ -144,3 +367,25 @@ class Graph(nn.Module):
         pose_cam = camera.pose(t=torch.tensor(
             [0.0, 0.0, float(opt.camera.dist)], device=dev))
         return camera.compose([pose, pose_cam.expand(pose.shape)])
+
+
+def summarize_loss(opt, loss, non_act_loss_keys=()):
+    """Weighted sum of the loss terms into `loss.all`; the keys in
+    `non_act_loss_keys` are computed and kept but left out of the sum
+    (reference `model/runner.py:294-305`). `loss.finite` is a bool tensor:
+    every weighted term finite."""
+    loss = edict(loss)
+    assert "all" not in loss
+    loss_all = 0.0
+    finite = None
+    for key in list(loss.keys()):
+        assert key in opt.loss_weight, key
+        if opt.loss_weight[key] is not None:
+            term = loss[key].mean()
+            ok = torch.isfinite(term)
+            finite = ok if finite is None else finite & ok
+            if key not in non_act_loss_keys:
+                loss_all = loss_all + float(opt.loss_weight[key]) * term
+    loss.all = loss_all
+    loss.finite = finite if finite is not None else torch.tensor(True)
+    return loss

@@ -71,7 +71,11 @@ def _torch_default_init(lin, generator=None):
 
 def _symmetric_posenc(points, posenc_res, force_symmetry):
     if force_symmetry:
-        points = torch.cat([points[..., :1].abs(), points[..., 1:]], dim=-1)
+        # |x0| as x0 * sign(x0) with sign(0) = 1: the JAX package's
+        # d|x|/dx at 0 is 1, torch's 0
+        x0 = points[..., :1]
+        points = torch.cat([x0 * torch.where(x0 < 0, -1.0, 1.0),
+                            points[..., 1:]], dim=-1)
     if posenc_res > 0:
         points = positional_encoding(points, posenc_res)
     return points

@@ -1,16 +1,19 @@
 """BottleneckLinear residual block and LatentProjection (counterpart of
 `shapeclipper_tpu/models/layers.py`).
 
-BatchNorm is plain `nn.BatchNorm1d` (the JAX package's `GroupBatchNorm` with
-`groups=1`); the grouped, merged-encoder paths are not ported.
+`BatchNorm` is the JAX package's `GroupBatchNorm` with `groups=1`; the
+grouped, merged-encoder paths are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 
 def lecun_normal_(weight, generator=None):
@@ -20,9 +23,60 @@ def lecun_normal_(weight, generator=None):
                            generator=generator)
 
 
-def batch_norm_1d(channels):
-    # flax momentum 0.9 == torch momentum 0.1
-    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(_BatchNorm):
+    """BatchNorm over [B, C] or [B, C, H, W] with `GroupBatchNorm`'s
+    (groups=1) semantics, under torch's state_dict names (weight, bias,
+    running_mean, running_var, num_batches_tracked).
+
+    * eval mode: the running statistics, exactly as `nn.BatchNorm*d`;
+    * train mode: the biased batch variance normalises, and the running
+      statistics take `0.9 * running + 0.1 * batch` with the BIASED batch
+      variance (`nn.BatchNorm*d` would use the unbiased one, n/(n-1) larger);
+    * train mode inside `batch_stats_frozen`: batch statistics, no update
+      (the flipped cam_sym estimator pass, whose update JAX discards).
+    """
+
+    def __init__(self, channels):
+        # flax momentum 0.9 == torch momentum 0.1
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.update_stats = True
+
+    def _check_input_dim(self, x):
+        if x.dim() not in (2, 4):
+            raise ValueError(f"expected a 2-D or 4-D input, got {x.dim()}-D")
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # GroupBatchNorm's arithmetic, so that train mode (forward and
+        # gradient) follows the JAX package also where var << mean^2
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(module):
+    """Train-mode BatchNorms under `module` normalise with their batch
+    statistics but leave the running statistics as they are."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class BottleneckLinear(nn.Module):
@@ -33,9 +87,9 @@ class BottleneckLinear(nn.Module):
     def __init__(self, n_channels, zero_init=False, generator=None):
         super().__init__()
         self.linear1 = nn.Linear(n_channels, n_channels, bias=False)
-        self.bn1 = batch_norm_1d(n_channels)
+        self.bn1 = BatchNorm(n_channels)
         self.linear2 = nn.Linear(n_channels, n_channels, bias=False)
-        self.bn2 = batch_norm_1d(n_channels)
+        self.bn2 = BatchNorm(n_channels)
         lecun_normal_(self.linear1.weight, generator)
         lecun_normal_(self.linear2.weight, generator)
         if zero_init:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import lecun_normal_
+from .layers import BatchNorm, lecun_normal_
 
 
 def _conv(in_ch, out_ch, k, stride, padding, generator):
@@ -25,7 +25,7 @@ def _conv(in_ch, out_ch, k, stride, padding, generator):
 
 
 def _bn(ch):
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    return BatchNorm(ch)
 
 
 class BasicBlock(nn.Module):

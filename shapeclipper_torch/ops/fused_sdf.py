@@ -1,5 +1,6 @@
-"""Fused SDF-MLP forward (+ forward-mode point gradient): the plain PyTorch
-version and the wrapper of the Hopper kernel `csrc/fused_sdf_fwd.cu`.
+"""Fused SDF-MLP forward (+ forward-mode point gradient) and its backward:
+the plain PyTorch version and the wrappers of the Hopper kernels
+`csrc/fused_sdf_fwd.cu` (K1 / K3) and `csrc/fused_sdf_bwd.cu` (K2).
 
 Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
   * `prepare_fused_params`: the latent folded into per-sample biases and the
@@ -8,15 +9,17 @@ Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
   * `fused_sdf_forward_reference`: `sdf_fwdmode_xla` in plain torch (rows =
     [primal; t_x; t_y; t_z] through the same products), with the kernel's
     activation formulation (`_act_pair`).
-  * `fused_sdf_forward`: CPU tensors take the plain version; CUDA tensors
-    launch the kernel (K1 with `compute_grad`, K3 without) or raise. There is
-    no fallback from CUDA to the plain version.
+  * `fused_sdf_forward` (no gradients; serving): CPU tensors take the plain
+    version; CUDA tensors launch the kernel (K1 with `compute_grad`, K3
+    without) or raise.
+  * `fused_sdf_train` (training): CPU tensors take plain autograd through
+    the plain version; CUDA tensors run K1 forward and K2 backward in one
+    `torch.autograd.Function`, or raise.
+There is no fallback from CUDA to the plain version.
 
-The library builds at first use from this package's own source into
+Each library builds at first use from this package's own source into
 `build/` at the repository root (`nvcc`, plain C interface, loaded with
-ctypes). No gradient flows through the kernel: its backward (the TPU
-package's `_backward_call`) is not ported yet, so the wrapper raises when
-one is required; serving runs under `torch.inference_mode()`.
+ctypes); `build_kernels` runs both compilations at once.
 """
 
 from __future__ import annotations
@@ -28,13 +31,16 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+from torch.autograd.function import once_differentiable
 
 INV_SQRT2 = 0.7071067811865476
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_sdf_fwd.cu")
+_SOURCE_BWD = os.path.join(_PKG_DIR, "csrc", "fused_sdf_bwd.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 
 # the architecture the kernel is written for (options/pix3d/config.yaml)
@@ -106,8 +112,9 @@ def _forward_plain(kernels, biases, points, n_freqs, skip_in, n_hidden,
                    compute_grad, force_symmetry):
     x = points
     if force_symmetry:
+        # |x0| as x0 * sign0: the JAX package's d|x|/dx at 0 is 1, torch's 0
         sign0 = torch.where(x[..., :1] < 0, -1.0, 1.0)
-        x = torch.cat([x[..., :1].abs(), x[..., 1:]], dim=-1)
+        x = torch.cat([x[..., :1] * sign0, x[..., 1:]], dim=-1)
     pe_parts = [x]
     dpe_parts = [torch.ones_like(x)] if compute_grad else None
     for k in range(n_freqs):
@@ -164,7 +171,7 @@ def fused_sdf_forward_reference(sdf_network, points, latent,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
 def _find_nvcc():
@@ -173,27 +180,27 @@ def _find_nvcc():
                               "bin", "nvcc")):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the fused SDF kernel needs the CUDA "
+    raise RuntimeError("nvcc not found: the fused SDF kernels need the CUDA "
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-class FusedSdfKernel:
-    """The built library and its launch counts. `launches` counts launches
-    of each instantiation ('grad' = K1, 'nograd' = K3); it is incremented
-    where the kernel is launched and nowhere else."""
+class _CudaLibrary:
+    """One `.cu` source built with nvcc (sm_90a, plain C interface) into
+    `build/`, once per content hash, and loaded with ctypes."""
 
-    def __init__(self, source=_SOURCE, build_dir=_BUILD_DIR):
-        self.source = source
+    stem = None
+    source = None
+
+    def __init__(self, build_dir=_BUILD_DIR):
         self.build_dir = build_dir
         self.lib = None
         self.build_seconds = None
         self.ptxas_log = None
-        self.launches = {"grad": 0, "nograd": 0}
 
     def library_path(self):
         with open(self.source, "rb") as f:
             digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        return os.path.join(self.build_dir, f"libscl_fused_sdf_{digest}.so")
+        return os.path.join(self.build_dir, f"lib{self.stem}_{digest}.so")
 
     def build(self):
         """Compile the source (once per content hash) and load it."""
@@ -211,11 +218,39 @@ class FusedSdfKernel:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
+                raise RuntimeError(f"nvcc failed on {self.source} "
+                                   f"({proc.returncode}):\n{proc.stdout}\n"
+                                   f"{proc.stderr}")
             self.ptxas_log = proc.stderr
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
+        self._bind(lib)
+        self.build_seconds = time.perf_counter() - t0
+        self.lib = lib
+        return lib
+
+
+def build_kernels():
+    """Build the forward and backward libraries, one thread (and so one
+    nvcc run) each, all started together."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for done in [pool.submit(k.build) for k in (KERNEL, BACKWARD)]:
+            done.result()
+
+
+class FusedSdfKernel(_CudaLibrary):
+    """The forward library and its launch counts. `launches` counts launches
+    of each instantiation ('grad' = K1, 'nograd' = K3); it is incremented
+    where the kernel is launched and nowhere else."""
+
+    stem = "scl_fused_sdf"
+    source = _SOURCE
+
+    def __init__(self, build_dir=_BUILD_DIR):
+        super().__init__(build_dir)
+        self.launches = {"grad": 0, "nograd": 0}
+
+    def _bind(self, lib):
         fn = lib.scl_fused_sdf_fwd
         fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -224,9 +259,6 @@ class FusedSdfKernel:
         lib.scl_fused_sdf_num_weights.restype = ctypes.c_int
         if lib.scl_fused_sdf_num_weights() != NUM_WEIGHTS:
             raise RuntimeError("fused SDF library packs a different layout")
-        self.build_seconds = time.perf_counter() - t0
-        self.lib = lib
-        return lib
 
     def launch(self, points, weights, biases, compute_grad, force_symmetry):
         """points [B,N,3], weights [28032], biases [B,385] (float32,
@@ -254,7 +286,64 @@ class FusedSdfKernel:
         return sdf, feat, grad
 
 
+class FusedSdfBackwardKernel(_CudaLibrary):
+    """The backward library (K2, `csrc/fused_sdf_bwd.cu`). `launches`
+    counts its launches, incremented where it is launched and nowhere
+    else."""
+
+    stem = "scl_fused_sdf_bwd"
+    source = _SOURCE_BWD
+
+    def __init__(self, build_dir=_BUILD_DIR):
+        super().__init__(build_dir)
+        self.launches = 0
+
+    def _bind(self, lib):
+        fn = lib.scl_fused_sdf_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.scl_fused_sdf_bwd_num_weights.argtypes = []
+        lib.scl_fused_sdf_bwd_num_weights.restype = ctypes.c_int
+        if lib.scl_fused_sdf_bwd_num_weights() != NUM_WEIGHTS:
+            raise RuntimeError("fused SDF backward packs a different layout")
+
+    def launch(self, points, weights, biases, sbar, fbar, gbar,
+               force_symmetry):
+        """points [B,N,3], weights [28032], biases [B,385] and the
+        cotangents sbar [B,N], fbar [B,N,64], gbar [B,N,3] (float32,
+        contiguous, one CUDA device) -> (d weights [28032], d biases
+        [B,385], d points [B,N,3])."""
+        lib = self.build()
+        B, N, _ = points.shape
+        dev = points.device
+        # one persistent block per SM (184 KB of shared memory each), never
+        # more blocks than 8-point tiles
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = min(sms, B * -(-N // 8))
+        with torch.cuda.device(dev):
+            f32 = dict(device=dev, dtype=torch.float32)
+            dpoints = torch.empty(B, N, 3, **f32)
+            dweights = torch.empty(NUM_WEIGHTS, **f32)
+            dbiases = torch.empty(B, BIAS_WIDTH, **f32)
+            dk_partial = torch.empty(grid, NUM_WEIGHTS, **f32)
+            db_partial = torch.empty(grid, B, BIAS_WIDTH, **f32)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.scl_fused_sdf_bwd(
+                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                sbar.data_ptr(), fbar.data_ptr(), gbar.data_ptr(),
+                dpoints.data_ptr(), dweights.data_ptr(), dbiases.data_ptr(),
+                dk_partial.data_ptr(), db_partial.data_ptr(), B, N, grid,
+                int(bool(force_symmetry)), stream)
+        if err != 0:
+            raise RuntimeError(f"fused SDF backward launch failed: cudaError "
+                               f"{err}")
+        self.launches += 1
+        return dweights, dbiases, dpoints
+
+
 KERNEL = FusedSdfKernel()
+BACKWARD = FusedSdfBackwardKernel()
 
 
 def _check_cuda_inputs(sdf_network, points, latent):
@@ -298,11 +387,63 @@ def fused_sdf_forward(sdf_network, points, latent, compute_grad=False):
     if torch.is_grad_enabled() and (
             points.requires_grad or latent.requires_grad
             or any(p.requires_grad for p in sdf_network.parameters())):
-        raise RuntimeError("fused_sdf_forward has no backward yet; call it "
-                           "under torch.inference_mode() / torch.no_grad()")
+        raise RuntimeError("fused_sdf_forward has no backward; call it under "
+                           "torch.inference_mode() / torch.no_grad(), or "
+                           "use fused_sdf_train for gradients")
     _check_cuda_inputs(sdf_network, points, latent)
     weights, bias = pack_fused_params(
         *prepare_fused_params(sdf_network, latent))
     sdf, feat, grad = KERNEL.launch(points, weights, bias,
                                     compute_grad, sdf_network.force_symmetry)
+    return sdf[..., None], feat, grad
+
+
+class _FusedSdfTrain(torch.autograd.Function):
+    """K1 (forward with tangents) and K2 (its VJP) as one autograd node over
+    the packed weights, the per-sample biases and the points. The latent
+    folding and skip scaling stay outside, in differentiable torch, as
+    `fused_sdf_train` does around its `custom_vjp` in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, weights, biases, points, force_symmetry):
+        sdf, feat, grad = KERNEL.launch(points, weights, biases, True,
+                                        force_symmetry)
+        ctx.save_for_backward(points, weights, biases)
+        ctx.force_symmetry = force_symmetry
+        return sdf, feat, grad
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, sbar, fbar, gbar):
+        points, weights, biases = ctx.saved_tensors
+        # unused outputs arrive as zeros (autograd materializes them)
+        dweights, dbiases, dpoints = BACKWARD.launch(
+            points, weights, biases, sbar.contiguous(), fbar.contiguous(),
+            gbar.contiguous(), ctx.force_symmetry)
+        return dweights, dbiases, dpoints, None
+
+
+def fused_sdf_train(sdf_network, points, latent, detach_latent=False):
+    """Differentiable (sdf [B,N,1], feat [B,N,64], grad [B,N,3]) for
+    points [B, N, 3] and latent [B, C]; gradients reach the SDF network's
+    parameters, the latent (unless `detach_latent`) and the points.
+
+    CPU tensors: plain autograd through `_forward_plain(compute_grad=True)`
+    (the counterpart of the JAX package's `sdf_fwdmode_xla`, and the plain
+    version of the K1 + K2 pair). CUDA tensors: K1 forward and K2 backward,
+    or an error; there is no fallback."""
+    if detach_latent:
+        latent = latent.detach()
+    n_freqs, skip_in, n_hidden = _arch(sdf_network)
+    if points.device.type == "cpu":
+        kernels, biases = prepare_fused_params(sdf_network, latent)
+        return _forward_plain(kernels, biases, points, n_freqs, skip_in,
+                              n_hidden, True, sdf_network.force_symmetry)
+    if points.device.type != "cuda":
+        raise ValueError(f"no fused SDF path for device {points.device}")
+    _check_cuda_inputs(sdf_network, points, latent)
+    weights, bias = pack_fused_params(
+        *prepare_fused_params(sdf_network, latent))
+    sdf, feat, grad = _FusedSdfTrain.apply(weights, bias, points,
+                                           sdf_network.force_symmetry)
     return sdf[..., None], feat, grad

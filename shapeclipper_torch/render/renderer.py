@@ -1,10 +1,17 @@
-"""VolSDF-style volume renderer, eval path (counterpart of
-`shapeclipper_tpu/render/renderer.py` with `training=False`, no eikonal
-points, `visualize=False`).
+"""VolSDF-style volume renderer (counterpart of
+`shapeclipper_tpu/render/renderer.py`, `visualize=False`).
 
-The SDF and its point gradient come from one call of
-`ops/fused_sdf.py::fused_sdf_forward(compute_grad=True)` -- the Hopper kernel
-on CUDA; volume normals are -density'(sdf) * grad sdf.
+The SDF and its point gradient come from one fused SDF call: at eval
+`fused_sdf_forward(compute_grad=True)` (K1 on CUDA, no gradients), in
+training `fused_sdf_train` (K1 forward, K2 backward on CUDA). Volume normals
+are -density'(sdf) * grad sdf. Training renders only the sampled rays
+`ray_idx`, jitters the depth samples, and evaluates the eikonal points (R
+uniform in the sample range, R near points one per ray) with the latent
+detached but not the points, which depend on the predicted pose.
+
+Random draws: each is an optional input (`draws.t_rand` [B,R,S],
+`draws.eik_idx` [B,R,1], `draws.eik_uniform` [B,R,3]); an absent one is
+drawn from `generator`, a `torch.Generator` on the render's device.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import torch
 
 from .. import camera
 from ..models.implicit import laplace_density, laplace_density_dsdf
-from ..ops.fused_sdf import fused_sdf_forward
+from ..ops.fused_sdf import fused_sdf_forward, fused_sdf_train
 
 
 class RenderOutputs(NamedTuple):
@@ -24,6 +31,7 @@ class RenderOutputs(NamedTuple):
     mask_hard: torch.Tensor   # [B, R, 1]
     depth: torch.Tensor       # [B, R, 1]
     normal: torch.Tensor      # [B, R, 3]
+    grad_eikonal: torch.Tensor | None = None   # [B, 2R] when computed
 
 
 def _safe_normalize(x, dim=-1, eps=1e-12):
@@ -33,16 +41,40 @@ def _safe_normalize(x, dim=-1, eps=1e-12):
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
-def sample_z_vals(opt, n_rays, scale_dist):
-    """Uniform depth samples in [dist*scale - 0.7, dist*scale + 0.7], without
-    jitter (eval) -> z_vals [B, R, S]."""
+def _draw(draws, key, generator, make):
+    if draws is not None and draws.get(key) is not None:
+        return draws[key]
+    if generator is None:
+        raise ValueError(f"no draw {key!r} given and no generator to draw "
+                         "it from")
+    return make(generator)
+
+
+def sample_z_vals(opt, n_rays, scale_dist, training=False, eikonal=False,
+                  draws=None, generator=None):
+    """Uniform depth samples in [dist*scale - 0.7, dist*scale + 0.7], with
+    stratified jitter when training -> (z_vals [B,R,S], z_eik [B,R,1] or
+    None): z_eik is one jittered sample per ray, for the eikonal points."""
     S = opt.render.n_samples_uniform
     B = scale_dist.shape[0]
+    dev = scale_dist.device
     near = opt.camera.dist * scale_dist[:, None, None] - 0.7   # [B,1,1]
     far = opt.camera.dist * scale_dist[:, None, None] + 0.7
-    t_vals = torch.linspace(0.0, 1.0, S, device=scale_dist.device)
-    z_vals = near * (1.0 - t_vals) + far * t_vals               # [B,1,S]
-    return z_vals.expand(B, n_rays, S)
+    t_vals = torch.linspace(0.0, 1.0, S, device=dev)
+    z_vals = (near * (1.0 - t_vals) + far * t_vals).expand(B, n_rays, S)
+    if training:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+        t_rand = _draw(draws, "t_rand", generator, lambda g: torch.rand(
+            B, n_rays, S, generator=g, device=dev))
+        z_vals = lower + (upper - lower) * t_rand
+    z_eik = None
+    if eikonal:
+        idx = _draw(draws, "eik_idx", generator, lambda g: torch.randint(
+            0, S, (B, n_rays, 1), generator=g, device=dev))
+        z_eik = torch.gather(z_vals, -1, idx.long())
+    return z_vals, z_eik
 
 
 def volume_rendering(z_vals, density):
@@ -59,10 +91,15 @@ def volume_rendering(z_vals, density):
 
 
 def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
-           proj_latent_sdf, proj_latent_rgb):
-    """Render the dense H x W rgb / mask / depth / normal maps.
+           proj_latent_sdf, proj_latent_rgb, ray_idx=None, training=False,
+           compute_eikonal=None, draws=None, generator=None):
+    """Render rgb / mask / depth / normal at the pixels `ray_idx` [B, R]
+    (the dense H x W grid when None), plus the eikonal gradient norms
+    [B, 2R] when `compute_eikonal` (default: `training`).
 
     pose [B, 3, 4], intr [B, 3, 3], scale_dist [B], latents [B, C]."""
+    if compute_eikonal is None:
+        compute_eikonal = training
     B = pose.shape[0]
     S = opt.render.n_samples_uniform
     if opt.render.sampler != "uniform" or opt.render.normal_model != "volume":
@@ -70,7 +107,8 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
                          "render.normal_model=volume only; got "
                          f"{opt.render.sampler!r}, {opt.render.normal_model!r}")
 
-    cam_loc, ray_raw = camera.get_center_and_ray(opt, pose, intr=intr)
+    cam_loc, ray_raw = camera.get_center_and_ray(opt, pose, intr=intr,
+                                                 ray_idx=ray_idx)
     ray_dirs = _safe_normalize(ray_raw)
     depth_fac = 1.0 / torch.sqrt(torch.clamp(
         (ray_raw * ray_raw).sum(dim=-1, keepdim=True), min=1e-24))  # [B,R,1]
@@ -78,12 +116,17 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
     if opt.camera.model == "perspective":
         cam_loc = cam_loc.expand(B, R, 3)
 
-    z_vals = sample_z_vals(opt, R, scale_dist)                       # [B,R,S]
+    z_vals, z_eik = sample_z_vals(opt, R, scale_dist, training,
+                                  compute_eikonal, draws, generator)
     points = cam_loc[:, :, None, :] + z_vals[..., None] * ray_dirs[:, :, None, :]
     points_flat = points.reshape(B, R * S, 3).contiguous()
 
-    sdf, sdf_feat, grad_sdf = fused_sdf_forward(
-        sdf_network, points_flat, proj_latent_sdf, compute_grad=True)
+    if training:
+        sdf, sdf_feat, grad_sdf = fused_sdf_train(
+            sdf_network, points_flat, proj_latent_sdf)
+    else:
+        sdf, sdf_feat, grad_sdf = fused_sdf_forward(
+            sdf_network, points_flat, proj_latent_sdf, compute_grad=True)
     density = laplace_density(sdf, beta).reshape(B, R, S)
     normal_flat = -laplace_density_dsdf(sdf, beta) * grad_sdf         # [B,RS,3]
 
@@ -102,5 +145,20 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
     rgb_output = rgb_values + (1.0 - acc_map[..., None]) * bg
     mask = acc_map[..., None]
     mask_hard = (mask > 0.5).to(rgb_output.dtype)
+
+    grad_eikonal = None
+    if compute_eikonal:
+        lo, hi = opt.arch.impl_sdf.eikonal_sample_range
+        eik_uniform = _draw(draws, "eik_uniform", generator,
+                            lambda g: lo + (hi - lo) * torch.rand(
+                                B, R, 3, generator=g, device=pose.device))
+        eik_near = cam_loc + z_eik * ray_dirs                        # [B,R,3]
+        eik_points = torch.cat([eik_uniform, eik_near], dim=1).contiguous()
+        _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,
+                                         proj_latent_sdf, detach_latent=True)
+        # sqrt(max(.)) keeps the gradient finite at a zero SDF gradient
+        grad_eikonal = torch.sqrt(torch.clamp(
+            (grad_eik * grad_eik).sum(dim=-1), min=1e-24))           # [B,2R]
     return RenderOutputs(rgb=rgb_output, mask=mask, mask_hard=mask_hard,
-                         depth=depth_values, normal=normal_values)
+                         depth=depth_values, normal=normal_values,
+                         grad_eikonal=grad_eikonal)

@@ -1,10 +1,11 @@
 """Checkpoint save/restore for the port (counterpart of
-`shapeclipper_tpu/utils/checkpoint.py`, the graph half).
+`shapeclipper_tpu/utils/checkpoint.py`).
 
 Files keep the JAX package's names with torch's suffix: `latest.pt` on every
-save, copied to `best.pt` on an improved eval. Payload: epoch, iter,
-best_val and `graph` (the Graph's state_dict). Optimizer states come with
-the training slice.
+save, copied to `best.pt` on an improved eval and to `checkpoint/ep{N}.pt`
+on a save that is not a `latest` one. Payload: epoch, iter, best_val,
+`graph` (the Graph's state_dict) and the optimizer states by name
+(`optim_full`, `optim_V`: `torch.optim.Adam` state_dicts).
 """
 
 from __future__ import annotations
@@ -18,40 +19,67 @@ import torch
 from .log import log
 
 
-def write_checkpoint(path, graph_state, ep=0, it=0, best_val=math.inf):
-    """Write one checkpoint file atomically; graph_state is a state_dict."""
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def write_checkpoint(path, graph_state, ep=0, it=0, best_val=math.inf,
+                     optim_states=None):
+    """Write one checkpoint file atomically; graph_state is a state_dict,
+    optim_states a dict of name -> optimizer state_dict."""
     payload = dict(epoch=int(ep), iter=int(it), best_val=float(best_val),
-                   graph={k: v.detach().cpu() for k, v in graph_state.items()})
+                   graph=_to_cpu(dict(graph_state)))
+    for name, state in (optim_states or {}).items():
+        payload[name] = _to_cpu(state)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
 
 
-def save_checkpoint(output_path, graph_state, ep=0, it=0, best_val=math.inf,
-                    best=False):
-    """`output_path/latest.pt`, copied to `best.pt` when `best`."""
-    os.makedirs(output_path, exist_ok=True)
+def save_checkpoint(output_path, graph_state, optim_states=None, ep=0, it=0,
+                    best_val=math.inf, latest=False, best=False):
+    """`output_path/latest.pt`; copied to `best.pt` when `best` and to
+    `checkpoint/ep{ep}.pt` unless `latest`."""
+    os.makedirs(os.path.join(output_path, "checkpoint"), exist_ok=True)
     latest_path = os.path.join(output_path, "latest.pt")
-    write_checkpoint(latest_path, graph_state, ep, it, best_val)
+    write_checkpoint(latest_path, graph_state, ep, it, best_val, optim_states)
     if best:
         shutil.copy(latest_path, os.path.join(output_path, "best.pt"))
+    if not latest:
+        shutil.copy(latest_path, os.path.join(output_path, "checkpoint",
+                                              f"ep{ep}.pt"))
 
 
-def restore_checkpoint(output_path, model, load_name=None, resume=False,
-                       best=False):
-    """Load a checkpoint into `model` -> (epoch, iter, best_val).
+def restore_checkpoint(output_path, model, optimizers=None, load_name=None,
+                       resume=False, best=False):
+    """Load a checkpoint into `model` (and, on resume, into `optimizers`, a
+    dict of name -> torch optimizer) -> (epoch, iter, best_val).
 
-    resume: `output_path/best.pt` when `best` (falling back to latest.pt),
-    else `output_path/latest.pt`; otherwise the file `load_name`. The load is
-    strict: a missing or unexpected key raises."""
-    assert (load_name is None) == bool(resume)
+    resume=True: `output_path/best.pt` when `best` (falling back to
+    latest.pt), else `output_path/latest.pt`; resume=N: `checkpoint/epN.pt`;
+    otherwise the file `load_name`, weights only. The graph load is strict:
+    a missing or unexpected key raises."""
+    assert (load_name is None) == (resume is not False)
     if resume:
-        load_name = os.path.join(output_path,
-                                 "best.pt" if best else "latest.pt")
-        if best and not os.path.exists(load_name):
-            log.warn("best.pt not found; falling back to latest.pt")
+        if best:
+            load_name = os.path.join(output_path, "best.pt")
+            if not os.path.exists(load_name):
+                log.warn("best.pt not found; falling back to latest.pt")
+                load_name = os.path.join(output_path, "latest.pt")
+        elif resume is True:
             load_name = os.path.join(output_path, "latest.pt")
-    # weights_only: the payload holds tensors and plain numbers only
+        else:
+            load_name = os.path.join(output_path, "checkpoint",
+                                     f"ep{resume}.pt")
+    # weights_only: the payload holds tensors and plain values only
     ckpt = torch.load(load_name, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["graph"], strict=True)
+    if resume and optimizers:
+        for name, optimizer in optimizers.items():
+            if name in ckpt:
+                optimizer.load_state_dict(ckpt[name])
     return ckpt.get("epoch"), ckpt.get("iter"), ckpt.get("best_val")

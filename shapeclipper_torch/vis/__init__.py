@@ -1,7 +1,7 @@
-"""PNG / GIF / PLY dumps used by the serving path (copied from
-`shapeclipper_tpu/vis/__init__.py`: `dump_images`, `dump_gifs`,
-`dump_meshes` and their helpers; the TensorBoard panels and pose overlays
-are not ported). Host-side numpy/PIL; images are NHWC float.
+"""PNG / GIF / PLY dumps (copied from `shapeclipper_tpu/vis/__init__.py`:
+`dump_images` with mask alpha and pose-axis overlays, `dump_gifs`,
+`dump_meshes` and their helpers; the TensorBoard panels are not ported).
+Host-side numpy/PIL; images are NHWC float.
 """
 
 from __future__ import annotations
@@ -40,11 +40,51 @@ def _ensure_rgb(images):
     return (_VIRIDIS[i] * (1 - t) + _VIRIDIS[i + 1] * t).astype(np.float32)
 
 
-def dump_images(opt, idx, name, images, from_range=(0, 1), folder="dump"):
-    """Per-sample PNG dumps (reference `utils/util_vis.py:54-65`)."""
+def draw_pose_axes(img_uint8, pose, intr=None, scale=0.3):
+    """Overlay projected xyz axes (r/g/b) of a [3,4] pose onto an HxWx3
+    uint8 image."""
+    H, W = img_uint8.shape[:2]
+    pose = np.asarray(pose)
+    if intr is None:
+        f = 4.0
+        intr = np.array([[f * W, 0, W / 2], [0, f * H, H / 2], [0, 0, 1]],
+                        dtype=np.float32)
+    else:
+        intr = np.asarray(intr)
+    pts_world = np.concatenate(
+        [np.zeros((1, 3)), np.eye(3) * scale], axis=0)    # [4, 3]
+    pts_cam = pts_world @ pose[:, :3].T + pose[:, 3]
+    uvw = pts_cam @ intr.T
+    uv = uvw[:, :2] / np.maximum(uvw[:, 2:], 1e-6)
+    out = img_uint8.copy()
+    colors = [(255, 60, 60), (60, 255, 60), (60, 60, 255)]
+    for axis in range(3):
+        _draw_line(out, uv[0], uv[axis + 1], colors[axis])
+    return out
+
+
+def _draw_line(img, p0, p1, color, n=64):
+    H, W = img.shape[:2]
+    for t in np.linspace(0, 1, n):
+        x = int(round(p0[0] * (1 - t) + p1[0] * t))
+        y = int(round(p0[1] * (1 - t) + p1[1] * t))
+        if 0 <= x < W and 0 <= y < H:
+            img[y, x] = color
+
+
+def dump_images(opt, idx, name, images, masks=None, from_range=(0, 1),
+                poses=None, folder="dump"):
+    """Per-sample PNG dumps (reference `utils/util_vis.py:54-65`): `masks`
+    composites on white, `poses` [B,3,4] overlays the pose axes."""
     os.makedirs(f"{opt.output_path}/{folder}", exist_ok=True)
     images = _ensure_rgb(np.asarray(images, np.float32))
     img = to_uint8(images, from_range)
+    if masks is not None:
+        m = np.asarray(masks, np.float32)
+        img = (img * m + 255 * (1 - m)).astype(np.uint8)
+    if poses is not None:
+        img = np.stack([draw_pose_axes(img[i], np.asarray(poses)[i])
+                        for i in range(img.shape[0])])
     for i, sample_id in enumerate(np.asarray(idx).reshape(-1)):
         PIL.Image.fromarray(img[i]).save(
             f"{opt.output_path}/{folder}/{int(sample_id)}_{name}.png")

@@ -1,5 +1,6 @@
-"""The fused SDF Hopper kernel (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`)
-against its plain PyTorch version, on the card.
+"""The fused SDF Hopper kernels (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`,
+K1 / K3, and `csrc/fused_sdf_bwd.cu`, K2) against their plain PyTorch
+version, on the card.
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
 imports torch and the port only (no JAX), so on a machine with the card
@@ -8,7 +9,8 @@ and without JAX it runs as
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances follow tests/test_fused_sdf.py: sdf / feature atol 2e-5; gradient
-atol 5e-4, rtol 5e-3 (sigmoid(100 z) amplifies rounding in the tangents).
+atol 5e-4, rtol 5e-3 (sigmoid(100 z) amplifies rounding in the tangents);
+K2's parameter, latent and point gradients atol 3e-5 * max|ref|, rtol 2e-4.
 """
 
 import numpy as np
@@ -87,3 +89,83 @@ def test_wrapper_refuses_gradients_and_bad_inputs(dev):
             F.fused_sdf_forward(net, pts.double(), lat)
         with pytest.raises(ValueError, match="parameters"):
             F.fused_sdf_forward(net.cpu(), pts, lat)
+
+
+# ---------------------------------------------------------------- K1 + K2
+def _train_grads(net, pts, lat, cots, kernel, detach_latent=False):
+    """Gradients of <cotangents, (sdf, feat, grad)> w.r.t. the parameters,
+    the points and the latent: through K1 + K2 (`fused_sdf_train`) or
+    through plain autograd of the plain version on the same device."""
+    net.zero_grad()
+    p = pts.clone().requires_grad_(True)
+    l = lat.clone().requires_grad_(True)
+    if kernel:
+        out = F.fused_sdf_train(net, p, l, detach_latent)
+    else:
+        kk, bb = F.prepare_fused_params(net, l.detach() if detach_latent
+                                        else l)
+        out = F._forward_plain(kk, bb, p, *F._arch(net), True,
+                               net.force_symmetry)
+    sum((o * c).sum() for o, c in zip(out, cots)).backward()
+    grads = {n: q.grad.clone() for n, q in net.named_parameters()}
+    grads["points"] = p.grad.clone()
+    grads["latent"] = (l.grad.clone() if l.grad is not None
+                       else torch.zeros_like(l))
+    return grads
+
+
+def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False):
+    g = torch.Generator().manual_seed(B * 1000 + N)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    pts = torch.rand(B, N, 3, generator=g) * 2 - 1
+    if plane:
+        pts[:, ::3, 0] = 0.0
+    lat = torch.randn(B, 64, generator=g) * 0.3
+    cots = [torch.randn(B, N, c, generator=g) for c in (1, 64, 3)]
+    if unused:   # the eikonal call: only the point gradient is read
+        cots[0].zero_()
+        cots[1].zero_()
+    pts, lat, cots = pts.to(dev), lat.to(dev), [c.to(dev) for c in cots]
+    before = dict(F.KERNEL.launches), F.BACKWARD.launches
+    got = _train_grads(net, pts, lat, cots, True, detach_latent)
+    assert F.KERNEL.launches["grad"] == before[0]["grad"] + 1
+    assert F.BACKWARD.launches == before[1] + 1
+    want = _train_grads(net, pts, lat, cots, False, detach_latent)
+    torch.cuda.synchronize()
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3)
+        torch.testing.assert_close(got[k], w, atol=3e-5 * scale, rtol=2e-4,
+                                   msg=k)
+    if detach_latent:
+        assert float(got["latent"].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (2, 300), (3, 1000), (12, 1024)])
+def test_backward_kernel_matches_plain(dev, B, N):
+    """Ragged N (tiles of 8 points), B > 1: K2's weight, bias (so latent)
+    and point gradients against plain autograd; one launch each of K1, K2."""
+    _k2_check(dev, B, N)
+
+
+def test_backward_kernel_symmetry_plane(dev):
+    """Points on x = 0, where the |x0| sign is +1 in both versions."""
+    _k2_check(dev, 2, 300, plane=True)
+
+
+def test_backward_kernel_detach_latent_and_unused_outputs(dev):
+    """The eikonal call: latent detached, sdf and feature unused."""
+    _k2_check(dev, 2, 257, detach_latent=True, unused=True)
+
+
+def test_training_call_launches_k1_and_k2(dev):
+    """A CUDA call with gradients runs K1 forward and K2 backward, or
+    raises: there is no fallback to the plain version."""
+    net, pts, lat = _case(dev, 40, True)
+    pts.requires_grad_(True)
+    k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+    s, f, g = F.fused_sdf_train(net, pts, lat)
+    assert (F.KERNEL.launches["grad"], F.BACKWARD.launches) == (k1 + 1, k2)
+    g.norm(dim=-1).sum().backward()
+    assert F.BACKWARD.launches == k2 + 1
+    with pytest.raises(TypeError, match="float32"):
+        F.fused_sdf_train(net, pts.double(), lat)
