@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each one succeeds or raises; any failure exits non-zero, and there is
 no CPU fallback):
   1. set-up: versions, the card, the TF32 switches (both off: fp32), and the
-     build of both fused SDF libraries from `shapeclipper_torch/csrc/` into
-     `build/` (two nvcc runs at once);
+     build of the three libraries from `shapeclipper_torch/csrc/` into
+     `build/` (three nvcc runs at once);
   2. K1 / K3 (forward) against their plain PyTorch version at the serving
      shapes: N = 262,144 render points with gradients, N = 274,625 and
      1,030,301 grid points without; K1 again at the training shape;
@@ -28,13 +28,34 @@ no CPU fallback):
      first full step at batch 4 on the card and on the CPU plain path from
      the same weights, optimizer state and draws;
   6. convergence: 200 steps of options/synthetic/config.yaml with
-     scripts/validate_training.py's overrides through the loader;
-  7. the kernel summary line, the card line and the result line.
+     scripts/validate_training.py's overrides through the loader, with
+     `Runner.evaluate` before and after (the Chamfer distance must fall);
+  7. K4 / K5 (nearest-neighbour sweep) against their plain PyTorch version:
+     ragged 2 x (1,000 vs 3,001), 4 x 8,192, identical clouds and duplicated
+     points, 1 x 100,000 x 100,000 and 1 x 100,000 x 2,048, with CUDA-event
+     times at both of those shapes beside the plain version, `torch.cdist`
+     as the library yardstick, and the bound;
+  8. `Runner.evaluate` at the full eval width of options/pix3d/config.yaml
+     (64^2 render, vox 64, 100,000 points, six F-score thresholds) over the
+     8 synthetic test samples with dumps: launch counts reset just before
+     and read just after, ms per sample, K4 / K5 against their plain
+     version on the clouds each sample handed to K4, a stage split of the
+     same path with each stage synchronised, the evaluation under the
+     profiler, and 2 samples at vox 32 / 8,192 points held against the CPU
+     plain path; then K5 through the differentiable chamfer API (forward +
+     backward, the gradient held against autograd of the plain version),
+     which no CLI path calls;
+  9. the train and evaluate CLIs (`python -m shapeclipper_torch.train` for
+     one tiny epoch, then `python -m shapeclipper_torch.evaluate --resume`);
+ 10. the kernel summary line, the card line and the result line.
+A warning from the guards that keep metric and visualization failures from
+stopping a training run fails the run.
 
 Weights are the port's seeded initialisation (no trained checkpoints exist);
 images are drawn with numpy from a seed.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -50,8 +71,11 @@ CONFIG = os.path.join(REPO, "options", "pix3d", "config.yaml")
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 SOURCE = "shapeclipper_torch/csrc/fused_sdf_fwd.cu"
 SOURCE_BWD = "shapeclipper_torch/csrc/fused_sdf_bwd.cu"
+SOURCE_NN = "shapeclipper_torch/csrc/chamfer.cu"
 REPLACES = "shapeclipper_tpu/ops/fused_sdf.py:311"
 REPLACES_BWD = "shapeclipper_tpu/ops/fused_sdf.py:617"
+REPLACES_K4 = "shapeclipper_tpu/ops/chamfer.py:155"
+REPLACES_K5 = "shapeclipper_tpu/ops/chamfer.py:93"
 
 # tests/test_fused_sdf.py:24-27 (sdf, feature), :41-43 (gradient) and
 # :143-147 (training gradients: atol 3e-5 * max|ref|, rtol 2e-4)
@@ -67,6 +91,23 @@ N_CONVERGE = 200
 # encoders (train-mode BatchNorm), MLP_GRAD_TOL for the modules without it
 MLP_ROOTS = ("sdf_network", "rgb_network", "density")
 MLP_GRAD_TOL = 1e-2
+# K4 / K5 against the plain version: the kernel fuses two of the three
+# squares into multiply-adds (a few ulps); an argmin may differ only where
+# the plain distance to the kernel's choice equals the plain minimum within
+# the same tolerance (a near-tie), and at most once per NN_TIES_PER rows
+# (tests/test_torch_cuda.py's cap)
+NN_TOL = dict(rtol=1e-5, atol=1e-7)
+NN_TIES_PER = 10_000            # at most one near-tie per 10,000 rows
+NN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+# elements of one [rows, N2] block of the plain version when timed on the card
+PLAIN_BLOCK_CARD = 1 << 26
+N_NN = 100_000
+NN_FLOP_PER_PAIR = 8            # 3 subtractions, 3 multiplies, 2 additions
+# the card-vs-CPU evaluation: per-sample CD rtol, F-score absolute
+EVAL_CD_RTOL, EVAL_F_ATOL = 1e-4, 1e-3
+# the guards that keep a failed metric or visualization from stopping
+# training (trainer.py, as the JAX package): a warning from one fails the run
+GUARD_WARNINGS = ("train-split metric eval failed", "rotating vis failed")
 
 # roofline of one H100 SXM (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores and HBM3 bandwidth
@@ -278,7 +319,8 @@ def profiled(tag, what, fn, n_top):
     """Run `fn` once under torch.profiler and log its wall time, the device
     busy time (kernels, copies and sets; user-annotation ranges such as
     `Optimizer.step#Adam.step` span kernels already counted and are left
-    out), the busy share and the top device events."""
+    out), the busy share and the top device events -> (wall ms, busy ms or
+    None when the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -297,7 +339,7 @@ def profiled(tag, what, fn, n_top):
     total = sum(v[0] for v in busy.values())
     if total <= 0:
         log(f"[{tag}] no device time in the trace: busy share not measured")
-        return
+        return wall_ms, None
     top = sorted(busy.items(), key=lambda kv: -kv[1][0])[:n_top]
     log(f"[{tag}] {what} under the profiler: wall {wall_ms:.1f} ms, device "
         f"busy {total:.1f} ms ({100 * total / wall_ms:.1f}%); top: "
@@ -305,6 +347,7 @@ def profiled(tag, what, fn, n_top):
         + "; annotation ranges left out: "
         + (", ".join(f"{k[:40]} {v:.2f} ms" for k, (v, _) in ranges.items())
            or "none"))
+    return wall_ms, total
 
 
 def phase_serve(opt):
@@ -733,7 +776,8 @@ def phase_gpu_vs_cpu_step():
 # --------------------------------------------------------------- phase 6
 def phase_converge():
     """scripts/validate_training.py's run, N_CONVERGE steps, through
-    load_dataset's loader; the loss must fall."""
+    load_dataset's loader, with `Runner.evaluate` (a training evaluation)
+    before and after; the loss and the Chamfer distance must fall."""
     from shapeclipper_torch.config import options
     from shapeclipper_torch.train.trainer import batch_to_var
     opt = options.load_options(os.path.join(REPO, "options", "synthetic",
@@ -750,6 +794,7 @@ def phase_converge():
     opt.output_path = os.path.join(OUT_DIR, "validate")
     runner = train_runner(opt, "cuda")
     runner.load_dataset(opt)
+    cd_init = runner.evaluate(opt, ep=0, training=True)
     losses, epoch = [], 0
     t0 = time.perf_counter()
     while len(losses) < N_CONVERGE:
@@ -761,14 +806,498 @@ def phase_converge():
             if len(losses) >= N_CONVERGE:
                 break
         epoch += 1
+    train_s = time.perf_counter() - t0
+    cd_final = runner.evaluate(opt, ep=1, training=True)
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     log(f"[converge] {N_CONVERGE} steps of options/synthetic/config.yaml "
-        f"(scripts/validate_training.py overrides) in "
-        f"{time.perf_counter() - t0:.1f} s: loss_first10 {first:.4f} -> "
-        f"loss_last10 {last:.4f} (the JAX record, bf16 and flax's "
-        f"initialisation: 0.883 -> 0.341; compare the direction only)")
+        f"(scripts/validate_training.py overrides) in {train_s:.1f} s: "
+        f"loss_first10 {first:.4f} -> loss_last10 {last:.4f}, CD "
+        f"{cd_init:.4f} -> {cd_final:.4f} (the JAX record, bf16 and flax's "
+        f"initialisation: loss 0.883 -> 0.341, CD 0.0947 -> 0.0496; compare "
+        f"the direction only)")
     if not all(np.isfinite(losses)) or not last < first:
         raise AssertionError(f"loss did not fall: {first} -> {last}")
+    if not np.isfinite(cd_final) or not cd_final < cd_init:
+        raise AssertionError(f"CD did not fall: {cd_init} -> {cd_final}")
+
+
+# --------------------------------------------------------------- phase 7
+def nn_case(label, x1, x2):
+    """K4 (distances) and K5 (with the argmin), both directions, against the
+    plain version on the card -> (max abs err K4, K5, argmin near-ties)."""
+    import torch
+    from shapeclipper_torch.ops import chamfer as C
+    with torch.no_grad():
+        d = C.chamfer_dists_sq(x1, x2)
+        k = C.chamfer_distance_sq(x1, x2)
+        plain = [C.nn_plain(x1, x2, True, PLAIN_BLOCK_CARD),
+                 C.nn_plain(x2, x1, True, PLAIN_BLOCK_CARD)]
+    torch.cuda.synchronize()
+    err4 = err5 = 0.0
+    ties = 0
+    for direction, (a, b) in enumerate(((x1, x2), (x2, x1))):
+        pd, pi = plain[direction]
+        for got, which in ((d[direction], 4), (k[direction], 5)):
+            if got.shape != pd.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"K{which} {label}: shape "
+                                     f"{tuple(got.shape)} or non-finite")
+            e, ok = within(got, pd, NN_TOL["atol"], NN_TOL["rtol"])
+            if not ok:
+                raise AssertionError(f"K{which} disagrees with its plain "
+                                     f"version at {label}: {e}")
+            err4, err5 = (max(err4, e), err5) if which == 4 else (
+                err4, max(err5, e))
+        idx = k[2 + direction]
+        differ = idx != pi
+        n_differ = int(differ.sum())
+        if n_differ > max(1, idx.numel() // NN_TIES_PER):
+            raise AssertionError(f"K5 {label}: {n_differ} argmins differ "
+                                 f"from the plain version's")
+        if n_differ:
+            chosen = torch.gather(b, 1, idx.long()[..., None].expand(-1, -1,
+                                                                      3))
+            d_chosen = ((a - chosen) ** 2).sum(-1)
+            _, ok = within(d_chosen[differ], pd[differ], NN_TOL["atol"],
+                           NN_TOL["rtol"])
+            if not ok:
+                raise AssertionError(f"K5 {label}: an argmin is not at a "
+                                     f"minimum")
+            ties += n_differ
+    return err4, err5, ties
+
+
+def cdist_min(a, b, rows=8192):
+    """The library yardstick: torch.cdist (the |a|^2 + |b|^2 - 2 a.b form
+    through a matrix product) and a min, over row chunks."""
+    import torch
+    return torch.cat([torch.cdist(a[:, s:s + rows], b).amin(2)
+                      for s in range(0, a.shape[1], rows)], dim=1)
+
+
+def phase_chamfer():
+    import torch
+    from shapeclipper_torch.ops import chamfer as C
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 11)
+
+    def clouds(B, N1, N2):
+        return (torch.randn(B, N1, 3, generator=g).to(dev),
+                torch.randn(B, N2, 3, generator=g).to(dev))
+
+    worst4 = worst5 = 0.0
+    for label, (B, N1, N2) in (("ragged 2 x (1,000 vs 3,001)", (2, 1000,
+                                                                3001)),
+                               ("4 x 8,192", (4, 8192, 8192))):
+        e4, e5, ties = nn_case(label, *clouds(B, N1, N2))
+        worst4, worst5 = max(worst4, e4), max(worst5, e5)
+        log(f"[k4/k5] {label}: max abs err K4 {e4:.3e}, K5 {e5:.3e}, argmin "
+            f"near-ties {ties} (tol {NN_TOL})")
+    # exact ties: identical clouds, then every point twice plus one point
+    # five more times
+    x, _ = clouds(2, 3000, 1)
+    with torch.no_grad():
+        d1, d2, i1, i2 = C.chamfer_distance_sq(x, x)
+        self_idx = torch.arange(3000, device=dev, dtype=torch.int32)
+        if float(d1.abs().max()) != 0.0 or not torch.equal(
+                i1, self_idx.expand(2, -1)):
+            raise AssertionError("K5 identical clouds: distance or argmin "
+                                 "is not exact")
+        dup = torch.cat([x, x, x[:, 7:8].expand(2, 5, 3)], 1).contiguous()
+        _, _, j1, j2 = C.chamfer_distance_sq(x, dup)
+        want = torch.cat([self_idx, self_idx, torch.full(
+            (5,), 7, device=dev, dtype=torch.int32)])
+        if not (torch.equal(j1, self_idx.expand(2, -1))
+                and torch.equal(j2, want.expand(2, -1))):
+            raise AssertionError("K5 duplicated points: not the lowest index")
+        if float(C.chamfer_dists_sq(x, x)[0].abs().max()) != 0.0:
+            raise AssertionError("K4 identical clouds: distance is not 0")
+    log("[k4/k5] identical clouds (distance 0, argmin = self) and "
+        "duplicated points (lowest index): exact")
+
+    # the timing shape
+    x1, x2 = clouds(1, N_NN, N_NN)
+    e4, e5, ties = nn_case(f"1 x {N_NN:,} x {N_NN:,}", x1, x2)
+    worst4, worst5 = max(worst4, e4), max(worst5, e5)
+    with torch.no_grad():
+        k4_ms = cuda_ms(lambda: C.chamfer_dists_sq(x1, x2))
+        k5_ms = cuda_ms(lambda: C.chamfer_distance_sq(x1, x2))
+        plain4_ms = cuda_ms(lambda: (C.nn_plain(x1, x2, False,
+                                                PLAIN_BLOCK_CARD),
+                                     C.nn_plain(x2, x1, False,
+                                                PLAIN_BLOCK_CARD)),
+                            runs=3, warmup=1)
+        plain5_ms = cuda_ms(lambda: (C.nn_plain(x1, x2, True,
+                                                PLAIN_BLOCK_CARD),
+                                     C.nn_plain(x2, x1, True,
+                                                PLAIN_BLOCK_CARD)),
+                            runs=3, warmup=1)
+        lib_ms = cuda_ms(lambda: (cdist_min(x1, x2), cdist_min(x2, x1)),
+                         runs=3, warmup=1)
+    # the evaluation's shape: 100,000 predicted points against the synthetic
+    # GT's 2,048 (the 2,048-row direction runs on 8 blocks); phase 8 checks
+    # the clouds of the evaluated samples themselves
+    gt = clouds(1, 2048, 1)[0]
+    label = f"1 x {N_NN:,} x 2,048 (the evaluation's shape)"
+    e4, e5, ties_eval = nn_case(label, x1, gt)
+    worst4, worst5 = max(worst4, e4), max(worst5, e5)
+    log(f"[k4/k5] {label}: max abs err K4 {e4:.3e}, K5 {e5:.3e}, argmin "
+        f"near-ties {ties_eval}")
+    with torch.no_grad():
+        eval_ms = cuda_ms(lambda: C.chamfer_dists_sq(x1, gt))
+        eval_plain_ms = cuda_ms(lambda: (
+            C.nn_plain(x1, gt, False, PLAIN_BLOCK_CARD),
+            C.nn_plain(gt, x1, False, PLAIN_BLOCK_CARD)), runs=3, warmup=1)
+        eval_lib_ms = cuda_ms(lambda: (cdist_min(x1, gt), cdist_min(gt, x1)),
+                              runs=3, warmup=1)
+    eval_bound, eval_by = bound(NN_FLOP_PER_PAIR * N_NN * 2048,
+                                4 * 4 * (N_NN + 2048))
+    log(f"[k4/k5] K4 at the evaluation's shape 1 x {N_NN:,} x 2,048, both "
+        f"directions: kernel {eval_ms:.4f} ms, plain {eval_plain_ms:.4f} ms, "
+        f"torch.cdist + amin {eval_lib_ms:.4f} ms, bound {eval_bound:.4f} ms "
+        f"({eval_by})")
+    B, N1, N2 = 1, N_NN, N_NN
+    flop = NN_FLOP_PER_PAIR * B * N1 * N2          # each pair once
+    out = {}
+    for name, ms, plain_ms, idx_bytes, err in (
+            ("k4", k4_ms, plain4_ms, 0, worst4),
+            ("k5", k5_ms, plain5_ms, 4 * B * (N1 + N2), worst5)):
+        nbytes = 4 * B * 4 * (N1 + N2) + idx_bytes
+        bound_ms, bound_by = bound(flop, nbytes)
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        log(f"[k4/k5] {name.upper()} at 1 x {N1:,} x {N2:,}, both "
+            f"directions: kernel {ms:.4f} ms ({2 * flop / ms / 1e9:.1f} "
+            f"TFLOP/s of the two sweeps' FLOPs), plain {plain_ms:.4f} ms "
+            f"({plain_ms / ms:.1f}x), torch.cdist + amin {lib_ms:.4f} ms "
+            f"(dot form, distances not squared); bound {bound_ms:.4f} ms "
+            f"({bound_by}, {NN_FLOP_PER_PAIR} FLOP per pair counted once; "
+            f"the two sweeps do each pair twice), {100 * bound_ms / ms:.1f}% "
+            f"of it reached; argmin near-ties {ties}")
+    return out
+
+
+# --------------------------------------------------------------- phase 8
+def eval_opt(name, vox=None, num_points=None, n_samples=None, dump=True):
+    """options/pix3d/config.yaml (its eval settings: batch 1, 64^2 render,
+    vox 64, 100,000 points, six thresholds) on the synthetic test split."""
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    opt = load_opt()
+    opt.data.dataset = "synthetic"
+    opt.data.num_workers = 0
+    opt.data.max_img_cat = n_samples
+    opt.data.synthetic = edict(azim_range=[-180, 180], elev_range=[-90, 90],
+                               theta_range=[-90, 90])
+    opt.tb = False
+    opt.resume, opt.load = False, None
+    if vox:
+        opt.eval.vox_res = vox
+    if num_points:
+        opt.eval.num_points = num_points
+    opt.eval.dump = dump
+    opt.output_path = os.path.join(OUT_DIR, name)
+    return opt
+
+
+def eval_runner(opt, device):
+    from shapeclipper_torch.train.trainer import Runner
+    runner = Runner(opt, device)
+    runner.load_dataset(opt, eval_split="test")
+    runner.build_networks(opt)
+    runner.setup_optimizer(opt)
+    runner.restore_checkpoint(opt)
+    return runner
+
+
+def evaluate_collect(runner, opt):
+    """Runner.evaluate -> (mean CD, per-sample [acc, comp] from chamfer.txt,
+    per-sample F-scores as handed to the report)."""
+    f_scores = []
+    write = runner._write_eval_reports
+
+    def keep(o, acc_cat, comp_cat, counts_cat, fs):
+        f_scores.extend(np.asarray(f) for f in fs)
+        return write(o, acc_cat, comp_cat, counts_cat, fs)
+
+    runner._write_eval_reports = keep
+    try:
+        cd = runner.evaluate(opt, ep=0)
+    finally:
+        runner._write_eval_reports = write
+    with open(os.path.join(opt.output_path, "chamfer.txt")) as f:
+        rows = np.array([[float(x) for x in line.split()[1:]]
+                         for line in f if line.strip()])
+    return cd, rows, np.concatenate(f_scores)
+
+
+@contextlib.contextmanager
+def wrapped(targets):
+    """Replace each (owner, attribute) by wrap(its value) for the duration,
+    then restore it."""
+    saved = []
+    try:
+        for owner, name, wrap in targets:
+            saved.append((owner, name, name in vars(owner),
+                          vars(owner).get(name)))
+            setattr(owner, name, wrap(getattr(owner, name)))
+        yield
+    finally:
+        for owner, name, had, value in reversed(saved):
+            if had:
+                setattr(owner, name, value)
+            else:
+                delattr(owner, name)
+
+
+def synced_timer(stages, stage):
+    """A wrap for `wrapped`: each call is timed on the host clock between
+    two device synchronisations, into stages[stage]."""
+    import torch
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.setdefault(stage, []).append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+    return wrap
+
+
+def phase_eval():
+    import torch
+    from shapeclipper_torch.eval3d import isosurface
+    from shapeclipper_torch.eval3d import metrics as M
+    from shapeclipper_torch.ops import chamfer as C
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    opt = eval_opt("eval")
+    runner = eval_runner(opt, "cuda")
+    n = len(runner.test_data)
+    runner.evaluate(opt, ep=0)                  # warm-up: cuDNN, allocator
+    torch.cuda.synchronize()
+    # the clouds each evaluated sample hands to K4, kept for the check below
+    clouds = []
+
+    def keep_clouds(fn):
+        def record(x1, x2):
+            clouds.append((x1, x2))
+            return fn(x1, x2)
+        return record
+
+    F.KERNEL.launches = {"grad": 0, "nograd": 0}
+    F.BACKWARD.launches = 0
+    C.KERNEL.launches = {"dist": 0, "argmin": 0}
+    with wrapped([(M, "chamfer_dists_sq", keep_clouds)]):
+        t0 = time.perf_counter()
+        cd, rows, fs = evaluate_collect(runner, opt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(k1=F.KERNEL.launches["grad"],
+                    k3=F.KERNEL.launches["nograd"],
+                    k2=F.BACKWARD.launches, k4=C.KERNEL.launches["dist"],
+                    k5=C.KERNEL.launches["argmin"])
+    vox = opt.eval.vox_res
+    k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
+    want = dict(k1=n, k3=k3_per * n, k2=0, k4=2 * n, k5=0)
+    if launches != want:
+        raise AssertionError(f"evaluation launches {launches}, expected "
+                             f"{want}")
+    if rows.shape != (n, 2) or not np.isfinite(rows).all() or \
+            not np.isfinite(cd) or fs.shape != (n, len(opt.eval.f_thresholds))\
+            or not ((fs >= 0) & (fs <= 1)).all():
+        raise AssertionError(f"evaluation outputs: CD {cd}, chamfer rows "
+                             f"{rows.shape}, F-scores {fs.shape}")
+    for f in ("cd_cat.txt", "f_score.txt", "chamfer.txt",
+              "dump/0_mesh.ply", "dump/0_pointclouds_comp.ply",
+              f"dump/{n - 1}_image_recon.png"):
+        if not os.path.isfile(os.path.join(opt.output_path, f)):
+            raise AssertionError(f"evaluate did not write {f}")
+    log(f"[eval] Runner.evaluate, {n} synthetic test samples at the full "
+        f"eval width (batch {opt.eval.batch_size}, {opt.eval.image_size[0]}^2"
+        f" render, vox {vox}, {opt.eval.num_points:,} points, dumps on): "
+        f"{wall_ms:.1f} ms, {wall_ms / n:.1f} ms per sample (steady: the "
+        f"second evaluation of the process); launches {launches} = per "
+        f"sample K1 {launches['k1'] // n}, K3 {launches['k3'] // n}, K4 "
+        f"{launches['k4'] // n}; CD {cd:.5f} (acc "
+        f"{rows[:, 0].mean():.5f}, comp {rows[:, 1].mean():.5f}); F-scores "
+        + ", ".join(f"@{t * 100:g}: {v:.4f}" for t, v in
+                    zip(opt.eval.f_thresholds, fs.mean(0))))
+
+    # K4 and K5 on the clouds of the evaluated samples against the plain
+    # version (after the counts were read)
+    if len(clouds) != n:
+        raise AssertionError(f"{len(clouds)} chamfer calls for {n} samples")
+    err4 = err5 = 0.0
+    ties = 0
+    for i, (pred, gt) in enumerate(clouds):
+        e4, e5, t = nn_case(f"evaluated sample {i}, {tuple(pred.shape)} vs "
+                            f"{tuple(gt.shape)}", pred, gt)
+        err4, err5, ties = max(err4, e4), max(err5, e5), ties + t
+    log(f"[eval] K4 / K5 on the {n} evaluated samples' clouds "
+        f"({tuple(clouds[0][0].shape)} vs {tuple(clouds[0][1].shape)}): max "
+        f"abs err K4 {err4:.3e}, K5 {err5:.3e}, argmin near-ties {ties} (tol "
+        f"{NN_TOL})")
+
+    # stage split: Runner.evaluate again, each stage of the path it runs
+    # timed between two synchronisations (so no stage overlaps another)
+    stages = {}
+    finish = "metric finish (wait, host stages, rotate, Chamfer, F, fetch)"
+    host_mc, host_sample = "marching tets (host)", \
+        f"sampling {opt.eval.num_points:,} points (host)"
+    chamfer = "Chamfer (K4, both directions)"
+    dumps = "dumps (PNGs, mesh and point-cloud PLYs)"
+    with wrapped([
+            (runner.graph_eval, "forward",
+             synced_timer(stages, f"forward ({opt.eval.image_size[0]}^2 "
+                                  f"render)")),
+            (M, "compute_level_grid",
+             synced_timer(stages, f"grid (K3, vox {vox})")),
+            (isosurface, "marching_cubes_world",
+             synced_timer(stages, host_mc)),
+            (isosurface, "sample_surface", synced_timer(stages, host_sample)),
+            (M, "chamfer_dists_sq", synced_timer(stages, chamfer)),
+            (M, "eval_metrics_finish", synced_timer(stages, finish)),
+            (runner, "dump_results", synced_timer(stages, dumps))]):
+        runner.evaluate(opt, ep=0)
+    rest = [f - m - s - c for f, m, s, c in zip(
+        stages.pop(finish), stages[host_mc], stages[host_sample],
+        stages[chamfer])]
+    stages["rotate / normalize, F-scores, fetch"] = rest
+    stages[dumps] = stages.pop(dumps)
+    if any(len(v) != n for v in stages.values()):
+        raise AssertionError(f"stage split: calls per stage "
+                             f"{ {k: len(v) for k, v in stages.items()} }")
+    log(f"[eval] stage split of Runner.evaluate, each stage synchronised "
+        f"(median of samples 2-{n}): " + ", ".join(
+            f"{k} {statistics.median(v[1:]):.1f} ms"
+            for k, v in stages.items()))
+    wall_p, busy_p = profiled("eval", f"Runner.evaluate over the {n} samples "
+                              "(pipelined, as run)",
+                              lambda: runner.evaluate(opt, ep=0), 8)
+    if busy_p is not None:
+        log(f"[eval] per sample under the profiler: wall {wall_p / n:.1f} "
+            f"ms, device busy {busy_p / n:.2f} ms")
+
+    # 2 samples at vox 32 / 8,192 points: the card against the CPU plain
+    # path from the same weights (metrics only: eval.dump false)
+    res = {}
+    for device in ("cuda", "cpu"):
+        o = eval_opt(f"eval_cmp_{device}", vox=32, num_points=8192,
+                     n_samples=2, dump=False)
+        r = eval_runner(o, device)
+        r.graph.load_state_dict(runner.graph.state_dict())
+        t0 = time.perf_counter()
+        res[device] = evaluate_collect(r, o)
+        log(f"[eval-cmp] {device}: {1e3 * (time.perf_counter() - t0):.0f} "
+            f"ms for 2 samples")
+    (_, rows_g, fs_g), (_, rows_c, fs_c) = res["cuda"], res["cpu"]
+    cd_err = float(np.max(np.abs(rows_g - rows_c) / np.abs(rows_c)))
+    f_err = float(np.max(np.abs(fs_g - fs_c)))
+    log(f"[eval-cmp] 2 samples at vox 32 / 8,192 points, card vs CPU plain "
+        f"path: per-sample CD max rel err {cd_err:.2e} (tol {EVAL_CD_RTOL}),"
+        f" F-score max abs err {f_err:.2e} (tol {EVAL_F_ATOL})")
+    if not cd_err <= EVAL_CD_RTOL or not f_err <= EVAL_F_ATOL:
+        raise AssertionError("card vs CPU evaluation outside tolerance")
+    return launches, err4, err5
+
+
+def phase_chamfer_api():
+    """K5's own path: the differentiable chamfer API (`chamfer_distance`,
+    forward + backward) at the metric shape, 100,000 predicted points
+    against 2,048; no CLI path calls it. Counts reset just before and read
+    just after. The gradient is then held against autograd of the plain
+    version on the same inputs, except at the rows a near-tie argmin
+    touches."""
+    import torch
+    from shapeclipper_torch.ops import chamfer as C
+    g = torch.Generator().manual_seed(SEED + 13)
+    pred = torch.randn(1, N_NN, 3, generator=g).cuda().requires_grad_(True)
+    gt = torch.randn(1, 2048, 3, generator=g).cuda()
+    torch.cuda.synchronize()
+    C.KERNEL.launches = {"dist": 0, "argmin": 0}
+    l1, l2, i1, i2 = C.chamfer_distance(None, pred, gt)
+    (l1.mean() + l2.mean()).backward()
+    torch.cuda.synchronize()
+    launches = dict(C.KERNEL.launches)
+    if launches != {"dist": 0, "argmin": 2} or \
+            not torch.isfinite(pred.grad).all():
+        raise AssertionError(f"chamfer API: launches {launches} or "
+                             "non-finite gradient")
+    ref = pred.detach().clone().requires_grad_(True)
+    d1, d2, j1, j2 = C.chamfer_distance_sq_reference(ref, gt)
+    (d1.sqrt().mean() + d2.sqrt().mean()).backward()
+    differ1, differ2 = i1 != j1, i2 != j2
+    for name, differ in (("pred -> gt", differ1), ("gt -> pred", differ2)):
+        if int(differ.sum()) > max(1, differ.numel() // NN_TIES_PER):
+            raise AssertionError(f"chamfer API {name}: {int(differ.sum())} "
+                                 "argmins differ from the plain version's")
+    # rows whose gradient a differing argmin changes: the query row of
+    # direction 1, both candidate rows of direction 2
+    keep = ~differ1[0]
+    keep[i2[differ2].long()] = False
+    keep[j2[differ2].long()] = False
+    err, ok = within(pred.grad[0][keep], ref.grad[0][keep],
+                     NN_GRAD_TOL["atol"], NN_GRAD_TOL["rtol"])
+    log(f"[k5] chamfer_distance forward + backward at 1 x {N_NN:,} vs 2,048:"
+        f" launches {launches}, Chamfer-L1 {float(l1.detach().mean()):.4f} | "
+        f"{float(l2.detach().mean()):.4f}, |grad| "
+        f"{float(pred.grad.norm()):.4f}; gradient vs autograd of the plain "
+        f"version: max abs err {err:.3e} (tol {NN_GRAD_TOL}), "
+        f"{int((~keep).sum())} rows left out for near-tie argmins")
+    if not ok:
+        raise AssertionError(f"K5's gradient disagrees with autograd of the "
+                             f"plain version: {err}")
+    return launches
+
+
+# --------------------------------------------------------------- phase 9
+def phase_clis():
+    """`python -m shapeclipper_torch.train` for one epoch at a tiny size
+    (evaluated at epochs 0 and 1), then `python -m
+    shapeclipper_torch.evaluate --resume`, on the card (the default)."""
+    import shutil
+    root = os.path.join(OUT_DIR, "clis")
+    shutil.rmtree(root, ignore_errors=True)
+    tiny = ["--yaml=options/synthetic/config.yaml", f"--output_root={root}",
+            "--name=run", "--batch_size=2", "--image_size=[32,32]",
+            "--render.rand_sample=32", "--render.n_samples_uniform=8",
+            "--eval.vox_res=12", "--eval.num_points=512",
+            "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!"]
+    outs = []
+    for module, extra in (("shapeclipper_torch.train",
+                           ["--max_epoch=1", "--freq.eval=1"]),
+                          ("shapeclipper_torch.evaluate", ["--resume"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module, *tiny, *extra],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"{module} failed ({r.returncode}):\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        for w in GUARD_WARNINGS:
+            if w in r.stdout or w in r.stderr:
+                raise AssertionError(f"{module}: '{w}'")
+        outs.append(r.stdout)
+        log(f"[cli] python -m {module} {' '.join(extra)}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    run = os.path.join(root, "synthetic_output", "run")
+    for f in ("best.pt", "latest.pt", "checkpoint/ep1.pt", "cd_cat.txt",
+              "f_score.txt", "chamfer.txt"):
+        if not os.path.isfile(os.path.join(run, f)):
+            raise AssertionError(f"the CLIs did not write {f}")
+    with open(os.path.join(run, "chamfer.txt")) as f:
+        rows = np.array([[float(x) for x in line.split()[1:]]
+                         for line in f if line.strip()])
+    best = [line for line in outs[0].splitlines() if "Best CD" in line]
+    if rows.shape != (4, 2) or not np.isfinite(rows).all():
+        raise AssertionError(f"chamfer.txt rows {rows}")
+    log(f"[cli] {best[-1].strip() if best else 'no Best CD line'}; "
+        f"evaluate --resume: CD {rows.mean():.5f} over {rows.shape[0]} "
+        f"samples; best.pt, cd_cat.txt, f_score.txt, chamfer.txt written")
 
 
 def main():
@@ -782,7 +1311,8 @@ def main():
               "(shapeclipper_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.ops import cuda_lib
+    from shapeclipper_torch.utils.log import log as port_log
 
     # phase 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -795,12 +1325,20 @@ def main():
     log(f"[setup] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    F.build_kernels()
-    log(f"[setup] fused SDF kernels built from {SOURCE} and {SOURCE_BWD} "
-        f"(two nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
-    for lib in (F.KERNEL, F.BACKWARD):
+    cuda_lib.build_kernels()
+    log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} and {SOURCE_NN} "
+        f"(three nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
+    for lib in cuda_lib.libraries():
         if lib.ptxas_log:
             log(lib.ptxas_log.strip())
+    warnings = []
+    port_warn = port_log.warn
+
+    def record_warning(message):
+        warnings.append(str(message))
+        port_warn(message)
+
+    port_log.warn = record_warning
 
     opt = load_opt()
     kern = phase_kernels(opt)                           # phase 2
@@ -810,6 +1348,15 @@ def main():
     train_launches = phase_train()                      # phase 5
     phase_gpu_vs_cpu_step()
     phase_converge()                                    # phase 6
+    nn = phase_chamfer()                                # phase 7
+    eval_launches, err4, err5 = phase_eval()            # phase 8
+    nn["k4"]["err"] = max(nn["k4"]["err"], err4)
+    nn["k5"]["err"] = max(nn["k5"]["err"], err5)
+    api_launches = phase_chamfer_api()
+    phase_clis()                                        # phase 9
+    guarded = [w for w in warnings if w.startswith(GUARD_WARNINGS)]
+    if guarded:
+        raise AssertionError(f"a guard swallowed a failure: {guarded}")
 
     k1, k3 = kern["grad"][1], kern["nograd"][0]
     summary = [
@@ -830,6 +1377,18 @@ def main():
              max_abs_err=bwd["err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
              library_ms=None),
+        dict(name="chamfer_nn (K4, distances)", route="cuda",
+             source=SOURCE_NN, replaces=REPLACES_K4,
+             launches=eval_launches["k4"], max_abs_err=nn["k4"]["err"],
+             ms=nn["k4"]["ms"], plain_ms=nn["k4"]["plain_ms"],
+             bound_ms=nn["k4"]["bound_ms"], bound_by=nn["k4"]["bound_by"],
+             library_ms=nn["k4"]["library_ms"]),
+        dict(name="chamfer_nn (K5, with argmin)", route="cuda",
+             source=SOURCE_NN, replaces=REPLACES_K5,
+             launches=api_launches["argmin"], max_abs_err=nn["k5"]["err"],
+             ms=nn["k5"]["ms"], plain_ms=nn["k5"]["plain_ms"],
+             bound_ms=nn["k5"]["bound_ms"], bound_by=nn["k5"]["bound_by"],
+             library_ms=nn["k5"]["library_ms"]),
     ]
     for k in summary:
         if k["launches"] < 1:

@@ -48,6 +48,29 @@ def parse_arguments(args):
     return edict(opt_cmd)
 
 
+def pop_arg(argv, key):
+    """Strip `--key=value` from argv (a flag of the port's CLIs, not a
+    config key) -> (value or None, the other arguments)."""
+    val = None
+    rest = []
+    for a in argv:
+        if a.startswith(f"--{key}="):
+            val = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return val, rest
+
+
+def pop_device(argv):
+    """Strip `--device=cuda|cpu` from argv -> (device, the other
+    arguments); cuda when absent."""
+    device, rest = pop_arg(argv, "device")
+    device = device or "cuda"
+    if device not in ("cuda", "cpu"):
+        raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
+    return device, rest
+
+
 def load_options(fname):
     with open(fname) as file:
         opt = edict(yaml.safe_load(file))

@@ -29,18 +29,6 @@ from .utils.easydict import EasyDict as edict
 from .utils.log import log
 
 
-def _pop_arg(argv, key):
-    """Strip `--key=value` from argv (CLI-local flags, not config keys)."""
-    val = None
-    rest = []
-    for a in argv:
-        if a.startswith(f"--{key}="):
-            val = a.split("=", 1)[1]
-        else:
-            rest.append(a)
-    return val, rest
-
-
 def load_image(opt, image_path, mask_path=None):
     """-> (rgb [1,H,W,3] f32, mask [1,H,W,1] f32), preprocessed like the
     Pix3D dataset: resize, mask binarized at 0.5, background composite."""
@@ -65,18 +53,15 @@ def main(argv=None):
     log.title(f"[{sys.argv[0]}] (single-image inference, PyTorch)")
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    image_path, argv = _pop_arg(argv, "image")
-    mask_path, argv = _pop_arg(argv, "mask")
-    n_rotate, argv = _pop_arg(argv, "n_rotate")
-    device, argv = _pop_arg(argv, "device")
+    image_path, argv = options.pop_arg(argv, "image")
+    mask_path, argv = options.pop_arg(argv, "mask")
+    n_rotate, argv = options.pop_arg(argv, "n_rotate")
+    device, argv = options.pop_device(argv)
     if not image_path:
         raise SystemExit("usage: python -m shapeclipper_torch.infer "
                          "--yaml=... --resume --image=IMG [--mask=MASK] "
                          "[--n_rotate=50] [--device=cuda|cpu]")
     n_rotate = int(n_rotate) if n_rotate else 50
-    device = device or "cuda"
-    if device not in ("cuda", "cpu"):
-        raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
 
     opt_cmd = options.parse_arguments(argv)
     opt = options.set(opt_cmd=opt_cmd)

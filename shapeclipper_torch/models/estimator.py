@@ -83,3 +83,12 @@ class Estimator(nn.Module):
     def forward(self, images):
         """images [B, H, W, 3] -> EstimatorOutputs."""
         return self.heads(self.feature_extractor(images))
+
+
+@torch.no_grad()
+def reset_scale_params(estimator):
+    """Zero the size / perspective fc heads in place, so the scales start at
+    exactly 1 (reference `model/view_estimator.py:72-77`)."""
+    for fc in (estimator.size_fc, estimator.perspect_fc):
+        fc.weight.zero_()
+        fc.bias.zero_()

@@ -116,10 +116,12 @@ class Graph(nn.Module):
                                 generator=generator)
 
     def forward(self, var, training=False, get_loss=False, draws=None,
-                generator=None):
+                generator=None, render=True):
         """`var` is an EasyDict batch with `rgb_input_map` [B, H, W, 3];
         returns it with the reconstruction fields added, and with
-        `get_loss` (training only) `(var, loss)`."""
+        `get_loss` (training only) `(var, loss)`. `render=False` (eval
+        only) stops after the latents and the pose: the metric path reads
+        nothing else."""
         if training:
             return self._forward_train(var, get_loss, draws or edict(),
                                        generator)
@@ -131,10 +133,21 @@ class Graph(nn.Module):
         opt = self.opt
         var = edict(var)
         self._encode_and_pose(var)
+        normal_sup = var.get("normal_gt", var.get("normal_input"))
+        if normal_sup is not None:
+            var.normal_transformed = camera.transform_normal(normal_sup,
+                                                             var.pose)
+        if not render:
+            return var
         out = self.render(var.pose, var.intr, var.scale_dist,
                           var.proj_latent_sdf, var.proj_latent_rgb)
         self._set_render_outputs(var, out)
         self._set_maps(var)
+        if normal_sup is not None:
+            # data resolution, not render resolution (reference
+            # `model/graph.py:101`)
+            var.normal_transformed_map = var.normal_transformed.reshape(
+                -1, opt.image_size[0], opt.image_size[1], 3)
         return var
 
     def _encode_and_pose(self, var):

@@ -1,0 +1,96 @@
+"""The builder that the port's CUDA libraries share: one `.cu` source under
+`csrc/` compiled by `nvcc` for sm_90a into a shared library with a plain C
+interface, in `build/` at the repository root (gitignored), once per content
+hash, and loaded with ctypes. Nothing is built at import; a library builds
+at its first launch, or all of them at once through `build_kernels`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
+
+
+def _find_nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class CudaLibrary:
+    """One `.cu` source built with nvcc (sm_90a, plain C interface) into
+    `build/`, once per content hash, and loaded with ctypes. A subclass
+    names `stem` and `source` and binds its C functions in `_bind`."""
+
+    stem = None
+    source = None
+
+    def __init__(self, build_dir=BUILD_DIR):
+        self.build_dir = build_dir
+        self.lib = None
+        self.build_seconds = None
+        self.ptxas_log = None
+
+    def library_path(self):
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        return os.path.join(self.build_dir, f"lib{self.stem}_{digest}.so")
+
+    def build(self):
+        """Compile the source (once per content hash) and load it."""
+        if self.lib is not None:
+            return self.lib
+        path = self.library_path()
+        t0 = time.perf_counter()
+        if not os.path.isfile(path):
+            os.makedirs(self.build_dir, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+            os.close(fd)
+            cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                   "-Xcompiler", "-fPIC", "-o", tmp, self.source]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed on {self.source} "
+                                   f"({proc.returncode}):\n{proc.stdout}\n"
+                                   f"{proc.stderr}")
+            self.ptxas_log = proc.stderr
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        self._bind(lib)
+        self.build_seconds = time.perf_counter() - t0
+        self.lib = lib
+        return lib
+
+    def _bind(self, lib):
+        raise NotImplementedError
+
+
+def libraries():
+    """Every CUDA library of the port, in build order."""
+    from . import chamfer, fused_sdf
+    return (fused_sdf.KERNEL, fused_sdf.BACKWARD, chamfer.KERNEL)
+
+
+def build_kernels():
+    """Build every library, one thread (and so one nvcc run) each, all
+    started together."""
+    libs = libraries()
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for done in [pool.submit(lib.build) for lib in libs]:
+            done.result()

@@ -18,30 +18,25 @@ Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
 There is no fallback from CUDA to the plain version.
 
 Each library builds at first use from this package's own source into
-`build/` at the repository root (`nvcc`, plain C interface, loaded with
-ctypes); `build_kernels` runs both compilations at once.
+`build/` at the repository root (`ops/cuda_lib.py`: `nvcc`, plain C
+interface, loaded with ctypes); `cuda_lib.build_kernels` runs every
+compilation of the port at once.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
-import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from .cuda_lib import BUILD_DIR, CSRC_DIR, CudaLibrary
+
 INV_SQRT2 = 0.7071067811865476
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_sdf_fwd.cu")
-_SOURCE_BWD = os.path.join(_PKG_DIR, "csrc", "fused_sdf_bwd.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+_SOURCE = os.path.join(CSRC_DIR, "fused_sdf_fwd.cu")
+_SOURCE_BWD = os.path.join(CSRC_DIR, "fused_sdf_bwd.cu")
 
 # the architecture the kernel is written for (options/pix3d/config.yaml)
 KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
@@ -174,71 +169,7 @@ def fused_sdf_forward_reference(sdf_network, points, latent,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _find_nvcc():
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused SDF kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-class _CudaLibrary:
-    """One `.cu` source built with nvcc (sm_90a, plain C interface) into
-    `build/`, once per content hash, and loaded with ctypes."""
-
-    stem = None
-    source = None
-
-    def __init__(self, build_dir=_BUILD_DIR):
-        self.build_dir = build_dir
-        self.lib = None
-        self.build_seconds = None
-        self.ptxas_log = None
-
-    def library_path(self):
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        return os.path.join(self.build_dir, f"lib{self.stem}_{digest}.so")
-
-    def build(self):
-        """Compile the source (once per content hash) and load it."""
-        if self.lib is not None:
-            return self.lib
-        path = self.library_path()
-        t0 = time.perf_counter()
-        if not os.path.isfile(path):
-            os.makedirs(self.build_dir, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
-            os.close(fd)
-            cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", tmp, self.source]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {self.source} "
-                                   f"({proc.returncode}):\n{proc.stdout}\n"
-                                   f"{proc.stderr}")
-            self.ptxas_log = proc.stderr
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        self._bind(lib)
-        self.build_seconds = time.perf_counter() - t0
-        self.lib = lib
-        return lib
-
-
-def build_kernels():
-    """Build the forward and backward libraries, one thread (and so one
-    nvcc run) each, all started together."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for done in [pool.submit(k.build) for k in (KERNEL, BACKWARD)]:
-            done.result()
-
-
-class FusedSdfKernel(_CudaLibrary):
+class FusedSdfKernel(CudaLibrary):
     """The forward library and its launch counts. `launches` counts launches
     of each instantiation ('grad' = K1, 'nograd' = K3); it is incremented
     where the kernel is launched and nowhere else."""
@@ -246,7 +177,7 @@ class FusedSdfKernel(_CudaLibrary):
     stem = "scl_fused_sdf"
     source = _SOURCE
 
-    def __init__(self, build_dir=_BUILD_DIR):
+    def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
         self.launches = {"grad": 0, "nograd": 0}
 
@@ -286,7 +217,7 @@ class FusedSdfKernel(_CudaLibrary):
         return sdf, feat, grad
 
 
-class FusedSdfBackwardKernel(_CudaLibrary):
+class FusedSdfBackwardKernel(CudaLibrary):
     """The backward library (K2, `csrc/fused_sdf_bwd.cu`). `launches`
     counts its launches, incremented where it is launched and nowhere
     else."""
@@ -294,7 +225,7 @@ class FusedSdfBackwardKernel(_CudaLibrary):
     stem = "scl_fused_sdf_bwd"
     source = _SOURCE_BWD
 
-    def __init__(self, build_dir=_BUILD_DIR):
+    def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
         self.launches = 0
 

@@ -1,24 +1,29 @@
 """Runner (counterpart of `shapeclipper_tpu/train/trainer.py`): data,
-networks, the two Adam optimizers, checkpoints, one training iteration
-(`train_iteration`), and the serving entry points `eval_forward_and_grid`
-and `vis_rotate`. The epoch loop (`train`, `train_epoch`, `evaluate`) and
-the TensorBoard logging come with the evaluate slice.
+networks, the two Adam optimizers, checkpoints, the epoch loop (`train`,
+`train_epoch`, `train_iteration` with its TensorBoard and dump hooks), the
+pipelined evaluation (`evaluate`: Chamfer-L1 and F-score reports, dumps,
+rotating views), and the serving entry points `eval_forward_and_grid` and
+`vis_rotate`.
 
 Everything runs on one explicit `device`. On CUDA every SDF evaluation goes
-through the fused Hopper kernels (K1 / K3 forward, K2 backward); there is no
-CPU fallback.
+through the fused Hopper kernels (K1 / K3 forward, K2 backward) and every
+nearest-neighbour sweep of the metrics through K4; there is no CPU
+fallback.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import math
 import os
+import shutil
 
 import numpy as np
 import torch
 
 from ..eval3d import metrics as eval_3D
+from ..models.estimator import reset_scale_params
 from ..models.graph import Graph, summarize_loss
 from ..utils import checkpoint as ckpt
 from ..utils.easydict import EasyDict as edict
@@ -29,6 +34,11 @@ from .pretrainer import make_optimizer
 # losses computed but left out of loss.all in the camera phase
 CAMERA_PHASE_INACTIVE = ("nearest_img", "nearest_mask", "nearest_normal",
                          "eikonal")
+
+# var keys (small tensors) of a training step's forward that the logging
+# hooks read, beside the batch
+_STEP_AUX_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "scale_dist",
+                  "trig_azim", "trig_elev", "trig_theta", "scale_focal")
 
 # configuration the JAX package reads that the port does not
 _IGNORED_TPU_KEYS = ("merge_nn_render", "merge_flip_estimator",
@@ -42,6 +52,20 @@ def batch_to_var(batch, device):
                   for k, v in batch.items()})
 
 
+def to_host(var):
+    """An EasyDict of tensors (nested ones too) -> the same with numpy arrays
+    on the host; other values are kept."""
+    out = edict()
+    for k, v in var.items():
+        if torch.is_tensor(v):
+            out[k] = v.detach().cpu().numpy()
+        elif isinstance(v, dict):
+            out[k] = to_host(v)
+        else:
+            out[k] = v
+    return out
+
+
 class Runner:
     def __init__(self, opt, device):
         self.opt = opt
@@ -49,9 +73,18 @@ class Runner:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device=cuda but torch.cuda.is_available() is "
                                "False")
+        self.tb = None  # set by setup_visualizer
+        if os.path.isdir(opt.output_path) and not opt.get("resume"):
+            for filename in os.listdir(opt.output_path):
+                if "tfevents" in filename:
+                    os.remove(os.path.join(opt.output_path, filename))
+                if "vis" in filename:
+                    shutil.rmtree(os.path.join(opt.output_path, filename),
+                                  ignore_errors=True)
         os.makedirs(opt.output_path, exist_ok=True)
         self.viz_data = []
         self.timer = Timer()
+        self.best_val, self.best_ep = math.inf, None
 
     # ------------------------------------------------------------------ data
     def load_dataset(self, opt, eval_split="val"):
@@ -120,10 +153,11 @@ class Runner:
         self.optim_V = make_optimizer(opt, self.graph.estimator.parameters())
 
     # ------------------------------------------------------------ checkpoint
-    def restore_checkpoint(self, opt, best=False):
+    def restore_checkpoint(self, opt, best=False, evaluate=False):
         """`--resume`: the run's best.pt (or latest.pt, or checkpoint/epN.pt
-        for resume=N) with the optimizer states; `--load=FILE`: that file's
-        weights; neither: keep the seeded initialisation."""
+        for resume=N) with the optimizer states, strictly unless `evaluate`;
+        `--load=FILE`: that file's weights, per top-level child; neither:
+        keep the seeded initialisation."""
         epoch_start = iter_start = None
         self.best_val = math.inf
         if opt.resume:
@@ -133,7 +167,7 @@ class Runner:
                           if hasattr(self, name)}
             epoch_start, iter_start, self.best_val = ckpt.restore_checkpoint(
                 opt.output_path, self.graph, optimizers, resume=opt.resume,
-                best=best)
+                best=best, evaluate=evaluate)
         elif opt.get("load"):
             log.info(f"loading weights from checkpoint {opt.load}...")
             ckpt.restore_checkpoint(opt.output_path, self.graph,
@@ -157,7 +191,67 @@ class Runner:
         if best:
             log.info("Saving the current model as the best...")
 
+    # ------------------------------------------------------------ visualizer
+    def setup_visualizer(self, opt):
+        """A TensorBoard writer in the run's folder when `opt.tb` is set
+        (ImportError without the `tensorboard` package)."""
+        log.info("setting up visualizers...")
+        self.tb = None
+        if opt.get("tb"):
+            from torch.utils.tensorboard import SummaryWriter
+            self.tb = SummaryWriter(log_dir=opt.output_path, flush_secs=10)
+
     # ----------------------------------------------------------------- train
+    def train(self, opt):
+        """Evaluate at epoch 0 (a fresh run), then `max_epoch` epochs, each
+        evaluated every `freq.eval` epochs with `best.pt` kept on the
+        Chamfer distance; a final `checkpoint/ep{N}.pt`."""
+        log.title("TRAINING START")
+        reset_scale_params(self.graph.estimator)
+        self.timer = Timer()
+        self.iter_skip = self.iter_start % max(self.num_batches, 1)
+        self.it = self.iter_start
+        if not opt.resume:
+            self.best_val, self.best_ep = math.inf, 1
+        if self.iter_start == 0:
+            self.evaluate(opt, ep=0, training=True)
+        for self.ep in range(self.epoch_start, opt.max_epoch):
+            self.train_epoch(opt)
+        self.save_checkpoint(opt, ep=self.ep + 1, it=self.it,
+                             best_val=self.best_val)
+        if self.tb:
+            self.tb.flush()
+            self.tb.close()
+        log.title("TRAINING DONE")
+        log.info(f"Best CD: {self.best_val:.4f} @ epoch {self.best_ep}")
+
+    def _device_batches(self, loader):
+        """The loader's batches as tensors on the device. The first
+        `iter_skip` batches (a resumed epoch's finished iterations) are
+        loaded and dropped on the host: the resume fast-forward."""
+        for batch in loader:
+            if self.iter_skip > 0:
+                self.iter_skip -= 1
+                continue
+            yield batch_to_var(batch, self.device)
+
+    def train_epoch(self, opt):
+        self.train_loader.set_epoch(self.ep)
+        loss = None
+        for var in self._device_batches(self.train_loader):
+            loss = self.train_iteration(opt, var)
+        if loss is not None:
+            log.loss_train(opt, self.ep + 1, opt.optim.lr, loss["all"],
+                           self.timer)
+        if (self.ep + 1) % opt.freq.eval == 0:
+            current_val = self.evaluate(opt, ep=self.ep + 1, training=True)
+            if current_val < self.best_val:
+                self.best_val = current_val
+                self.best_ep = self.ep + 1
+                self.save_checkpoint(opt, ep=self.ep + 1, it=self.it,
+                                     best_val=self.best_val, best=True,
+                                     latest=True)
+
     def train_iteration(self, opt, var, draws=None):
         """One optimizer step on the batch `var` (tensors on the device).
         `draws` (see `Graph.forward`) fixes the step's random draws; absent
@@ -176,8 +270,8 @@ class Runner:
         # gradients never carry over, so a camera step's gradients on the
         # parameters it does not update never reach optim_full
         self.graph.zero_grad(set_to_none=True)
-        _, loss = self.graph(var, training=True, get_loss=True, draws=draws,
-                             generator=self.generator)
+        out, loss = self.graph(var, training=True, get_loss=True,
+                               draws=draws, generator=self.generator)
         loss = summarize_loss(opt, loss, non_act_loss_keys=(
             CAMERA_PHASE_INACTIVE if camera_phase else ()))
         loss.all.backward()
@@ -200,9 +294,26 @@ class Runner:
                                  f"{terms}")
         self._pending_loss = (self.it, loss)
 
+        if self.tb and (self.it % opt.freq.vis == 0
+                        or self.it % opt.freq.scalar == 0):
+            aux_keys = (_STEP_AUX_KEYS + ("idx_NN",)
+                        + tuple(f"pose_NN_{v}" for v in range(opt.reg.n_views))
+                        + tuple(f"scale_dist_NN_{v}"
+                                for v in range(opt.reg.n_views)))
+            aux_var = edict({k: out[k].detach() for k in aux_keys
+                             if k in out})
+        if self.it % opt.freq.vis == 0 and self.tb:
+            # train-split panels from the live batch, with the CLIP-NN input
+            # views chosen this step (reference `runner.py:260-261`)
+            train_var = edict(var)
+            train_var.update(aux_var)
+            self.visualize(opt, to_host(train_var), step=self.it,
+                           split="train")
         if (self.it + 1) % opt.freq.ckpt_latest == 0:
             self.save_checkpoint(opt, ep=self.ep, it=self.it + 1,
                                  best_val=self.best_val, latest=True)
+        if self.it % opt.freq.scalar == 0 and self.tb:
+            self.log_scalars(opt, var, aux_var, loss, step=self.it)
         if self.it % opt.freq.save_vis == 0:
             self.save_vis_dumps(opt, folder=f"vis_log/iter_{self.it}")
         self.it += 1
@@ -210,31 +321,280 @@ class Runner:
                             getattr(self, "num_batches", 1))
         return loss
 
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """BatchNorm on its running statistics and no autograd, for the
+        block; the graph's mode is restored after."""
+        was_training = self.graph.training
+        self.graph.eval()
+        try:
+            with torch.inference_mode():
+                yield
+        finally:
+            self.graph.train(was_training)
+
     def save_vis_dumps(self, opt, folder):
         """Eval-resolution renders of the visualization samples as PNGs."""
         if not self.viz_data:
             return
         os.makedirs(f"{opt.output_path}/{folder}", exist_ok=True)
-        was_training = self.graph.training
-        self.graph.eval()
-        for batch in self.viz_data:
-            with torch.inference_mode():
+        with self._eval_mode():
+            for batch in self.viz_data:
+                var = to_host(self.graph_eval(batch_to_var(batch,
+                                                           self.device)))
+                util_vis.dump_images(opt, var.idx, "image_input",
+                                     var.rgb_input_map, folder=folder)
+                util_vis.dump_images(opt, var.idx, "image_recon",
+                                     var.rgb_recon_map,
+                                     masks=var.mask_hard_map, poses=var.pose,
+                                     folder=folder)
+                util_vis.dump_images(opt, var.idx, "mask_recon",
+                                     var.mask_recon_map, folder=folder)
+                util_vis.dump_images(opt, var.idx, "mask_input",
+                                     var.mask_input_map, folder=folder)
+                util_vis.dump_images(opt, var.idx, "normal_recon",
+                                     var.normal_recon_map,
+                                     from_range=(-1, 1), folder=folder)
+
+    # -------------------------------------------------------------- logging
+    def log_scalars(self, opt, var, aux_var, loss, step=0, split="train"):
+        """Loss terms, beta and (train split) the batch's Chamfer distances
+        to TensorBoard."""
+        for key, value in loss.items():
+            if key in ("all", "finite"):
+                continue
+            self.tb.add_scalar(f"{split}/loss_{key}", float(value.mean()),
+                               step)
+        self.tb.add_scalar(f"{split}/loss_all", float(loss["all"]), step)
+        self.tb.add_scalar("train/beta",
+                           float(self.graph.density.beta.detach().abs()),
+                           step)
+        if split == "train" and "dpc_points" in var:
+            mvar = edict(proj_latent_sdf=aux_var.proj_latent_sdf,
+                         pose=aux_var.pose, pose_gt=var.pose_gt,
+                         dpc_points=var.dpc_points)
+            try:
+                with torch.inference_mode():
+                    dist_acc, dist_cov = eval_3D.eval_metrics(
+                        opt, mvar, self.graph.sdf_network,
+                        rng=np.random.RandomState(step))
+                self.tb.add_scalar(f"{split}/dist_acc", dist_acc, step)
+                self.tb.add_scalar(f"{split}/dist_cov", dist_cov, step)
+            except Exception as e:  # metric eval must never kill training
+                log.warn(f"train-split metric eval failed: {e}")
+
+    def visualize_viz_data(self, opt, step=0, split="train"):
+        opt_e = self.graph_eval.opt
+        with self._eval_mode():
+            for batch in self.viz_data:
                 var = self.graph_eval(batch_to_var(batch, self.device))
-            var = edict({k: v.cpu().numpy() for k, v in var.items()
-                         if torch.is_tensor(v)})
-            util_vis.dump_images(opt, var.idx, "image_input",
-                                 var.rgb_input_map, folder=folder)
-            util_vis.dump_images(opt, var.idx, "image_recon",
-                                 var.rgb_recon_map, masks=var.mask_hard_map,
-                                 poses=var.pose, folder=folder)
-            util_vis.dump_images(opt, var.idx, "mask_recon",
-                                 var.mask_recon_map, folder=folder)
-            util_vis.dump_images(opt, var.idx, "mask_input",
-                                 var.mask_input_map, folder=folder)
-            util_vis.dump_images(opt, var.idx, "normal_recon",
+                self.visualize(opt_e, to_host(var), step=step, split=split)
+
+    def visualize(self, opt, var, step=0, split="train"):
+        """TensorBoard image panels of a host (numpy) var."""
+        if not self.tb:
+            return
+        util_vis.tb_image(opt, self.tb, step, split, "image_input_map",
+                          var.rgb_input_map, from_range=(0, 1),
+                          poses=var.get("pose_gt"))
+        util_vis.tb_image(opt, self.tb, step, split, "mask_input_map",
+                          var.mask_input_map)
+        if "rgb_recon_map" in var:
+            util_vis.tb_image(opt, self.tb, step, split, "image_recon_map",
+                              var.rgb_recon_map, from_range=(0, 1),
+                              poses=var.get("pose"))
+            util_vis.tb_image(opt, self.tb, step, split, "mask_recon_map",
+                              var.mask_recon_map)
+        if "normal_recon_map" in var:
+            util_vis.tb_image(opt, self.tb, step, split, "normal_recon_map",
+                              var.normal_recon_map, from_range=(-1, 1))
+        if "normal_input_map" in var:
+            util_vis.tb_image(opt, self.tb, step, split,
+                              "normal_input_viewpoint_map",
+                              var.normal_input_map, from_range=(-1, 1))
+        if "normal_transformed_map" in var:
+            util_vis.tb_image(opt, self.tb, step, split,
+                              "normal_input_canonical_map",
+                              var.normal_transformed_map, from_range=(-1, 1))
+        # CLIP-NN view panels (reference `model/runner.py:449-459`): the
+        # neighbour inputs selected by idx_NN
+        n_views = self.graph.opt.reg.n_views
+        if "idx_NN" in var and "rgb_input_map_NN" in var:
+            idx_NN = var.idx_NN
+            rows = np.arange(idx_NN.shape[0])
+            for v in range(n_views):
+                sel = idx_NN[:, min(v, idx_NN.shape[1] - 1)]
+                util_vis.tb_image(
+                    opt, self.tb, step, split, f"image_input_map_NN_{v}",
+                    var.rgb_input_map_NN[rows, sel], from_range=(0, 1),
+                    poses=var.get(f"pose_NN_{v}"))
+                util_vis.tb_image(
+                    opt, self.tb, step, split, f"mask_input_map_NN_{v}",
+                    var.mask_input_map_NN[rows, sel])
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, opt, ep, training=False):
+        """Chamfer-L1 (accuracy, completeness) and F-scores over the test
+        loader -> the mean CD. Software-pipelined: batch k+1's forward and
+        dense grid are enqueued before the host marching tetrahedra of batch
+        k run (`eval3d/metrics.py::eval_metrics_submit`). A full evaluation
+        (`training=False`) renders and dumps every sample unless
+        `eval.dump` is false, and writes cd_cat.txt, f_score.txt and
+        chamfer.txt; a training evaluation skips the render and, at its first
+        batch, dumps the visualization samples' rotating views. A ragged
+        last batch runs at its own size."""
+        opt_e = self.graph_eval.opt
+        f_scores = []
+        metric_eval = dict(dist_acc=0.0, dist_cov=0.0)
+        acc_cat = [0.0] * opt.data.num_classes
+        comp_cat = [0.0] * opt.data.num_classes
+        counts_cat = [0.001] * opt.data.num_classes
+        n_seen = 0
+        dump = (not training) and bool(opt.eval.get("dump", True))
+
+        def finish(it, var, pending, cats):
+            nonlocal n_seen
+            eval_3D.eval_metrics_finish(opt_e, var, pending,
+                                        rng=np.random.RandomState(it))
+            n = len(cats)
+            f_scores.append(var.f_score)
+            n_seen += n
+            for i in range(n):
+                cat_idx = int(cats[i])
+                counts_cat[cat_idx] += 1
+                acc_cat[cat_idx] += float(var.cd_acc[i])
+                comp_cat[cat_idx] += float(var.cd_comp[i])
+            metric_eval["dist_acc"] += float(var.cd_acc.mean()) * n
+            metric_eval["dist_cov"] += float(var.cd_comp.mean()) * n
+            if it == 0 and training and self.viz_data:
+                if self.tb:
+                    self.visualize_viz_data(opt, step=ep, split="eval")
+                self._dump_rotating_vis(opt, ep)
+            if dump:
+                self.dump_results(opt_e, to_host(var), ep,
+                                  write_new=(it == 0))
+            elif not training:
+                # eval.dump=false still records the per-sample chamfer
+                # report (normally written inside dump_results)
+                with open(f"{self.opt.output_path}/chamfer.txt",
+                          "w" if it == 0 else "a") as f:
+                    for i, acc, comp in zip(var.idx.cpu().numpy(),
+                                            var.cd_acc, var.cd_comp):
+                        f.write(f"{i} {acc:.8f} {comp:.8f}\n")
+
+        with self._eval_mode():
+            pending = None
+            for it, batch in enumerate(self.test_loader):
+                cats = np.asarray(batch["category_label"])
+                var = self.graph_eval(batch_to_var(batch, self.device),
+                                      render=dump)
+                level = eval_3D.eval_metrics_submit(opt_e, var,
+                                                    self.graph.sdf_network)
+                if pending is not None:
+                    finish(*pending)
+                pending = (it, var, level, cats)
+            if pending is not None:
+                finish(*pending)
+
+        if not training:
+            self._write_eval_reports(opt, acc_cat, comp_cat, counts_cat,
+                                     f_scores)
+        for key in metric_eval:
+            metric_eval[key] /= max(n_seen, 1)
+        log.loss_eval(opt, chamfer=(metric_eval["dist_acc"],
+                                    metric_eval["dist_cov"]))
+        return (metric_eval["dist_acc"] + metric_eval["dist_cov"]) / 2
+
+    def _write_eval_reports(self, opt, acc_cat, comp_cat, counts_cat,
+                            f_scores):
+        per_cat_cd_file = os.path.join(opt.output_path, "cd_cat.txt")
+        with open(per_cat_cd_file, "w") as outfile:
+            outfile.write("CD     Acc    Comp   Count Cat\n")
+            for i in range(opt.data.num_classes):
+                acc_i = acc_cat[i] / counts_cat[i]
+                comp_i = comp_cat[i] / counts_cat[i]
+                cd_i = (acc_i + comp_i) / 2
+                outfile.write("%.4f %.4f %.4f %5d %s\n" % (
+                    cd_i, acc_i, comp_i, counts_cat[i],
+                    self.test_data.label2cat[i]))
+        if f_scores:
+            f_all = np.concatenate(f_scores, axis=0).mean(axis=0)
+            print("##############################")
+            for i, t in enumerate(opt.eval.f_thresholds):
+                print("F-score @ %.2f: %.4f" % (t * 100, f_all[i]))
+            print("##############################")
+            with open(os.path.join(opt.output_path, "f_score.txt"), "w") as f:
+                for i, t in enumerate(opt.eval.f_thresholds):
+                    f.write("F-score @ %.2f: %.4f\n" % (t * 100, f_all[i]))
+
+    def dump_results(self, opt, var, ep, write_new=False, train=False):
+        """PNG / PLY dumps of a host (numpy) var into `dump/` (or `vis_{ep}/`
+        with `train`), and its lines of chamfer.txt."""
+        folder = "dump" if not train else f"vis_{ep}"
+        os.makedirs(f"{self.opt.output_path}/{folder}", exist_ok=True)
+        o = self.opt
+        util_vis.dump_images(o, var.idx, "image_input", var.rgb_input_map,
+                             from_range=(0, 1), poses=var.get("pose_gt"),
+                             folder=folder)
+        if "rgb_recon_map" in var:
+            util_vis.dump_images(o, var.idx, "image_recon", var.rgb_recon_map,
+                                 masks=var.mask_hard_map, from_range=(0, 1),
+                                 poses=var.get("pose"), folder=folder)
+            util_vis.dump_images(o, var.idx, "mask_recon", var.mask_recon_map,
+                                 folder=folder)
+        util_vis.dump_images(o, var.idx, "mask_input", var.mask_input_map,
+                             folder=folder)
+        if "normal_input_map" in var:
+            util_vis.dump_images(o, var.idx, "normal_input_viewpoint",
+                                 var.normal_input_map, from_range=(-1, 1),
+                                 folder=folder)
+        if "normal_transformed_map" in var:
+            util_vis.dump_images(o, var.idx, "normal_input_canonical",
+                                 var.normal_transformed_map,
+                                 from_range=(-1, 1), folder=folder)
+        if "normal_recon_map" in var:
+            util_vis.dump_images(o, var.idx, "normal_recon",
                                  var.normal_recon_map, from_range=(-1, 1),
                                  folder=folder)
-        self.graph.train(was_training)
+        if "mesh_pred" in var:
+            util_vis.dump_meshes(o, var.idx, "mesh", var.mesh_pred,
+                                 folder=folder)
+        if "dpc_points" in var and "dpc_pred" in var:
+            util_vis.dump_pointclouds_compare(
+                o, var.idx, "pointclouds_comp", var.dpc_pred,
+                var.dpc_points, folder=folder)
+        if not train and "cd_acc" in var:
+            chamfer_fname = f"{self.opt.output_path}/chamfer.txt"
+            with open(chamfer_fname, "w" if write_new else "a") as f:
+                for i, acc, comp in zip(var.idx, var.cd_acc, var.cd_comp):
+                    f.write(f"{i} {acc:.8f} {comp:.8f}\n")
+
+    def _dump_rotating_vis(self, opt, ep, n_views=50):
+        """Per-eval dumps of the visualization samples: predicted mesh,
+        pred / GT point clouds, rotating-view GIFs (reference
+        `runner.py:349-357` + `dump_results(train=True)`). The renderer's
+        `visualize=True` sample extras are not ported: nothing reads them."""
+        opt_e = self.graph_eval.opt
+        folder = f"vis_{ep}"
+        with self._eval_mode():
+            for batch in self.viz_data:
+                var = self.graph_eval(batch_to_var(batch, self.device))
+                try:
+                    eval_3D.eval_metrics(opt_e, var, self.graph.sdf_network,
+                                         vis_only=True,
+                                         rng=np.random.RandomState(ep))
+                    var = to_host(self.vis_rotate(opt, var, n_views=n_views))
+                    self.dump_results(opt_e, var, ep, train=True)
+                    util_vis.dump_gifs(self.opt, var.idx, "image_rotate",
+                                       var.rotating_imgs, from_range=(0, 1),
+                                       folder=folder)
+                    util_vis.dump_gifs(self.opt, var.idx, "mask_rotate",
+                                       var.rotating_masks, folder=folder)
+                    util_vis.dump_gifs(self.opt, var.idx, "normal_rotate",
+                                       var.rotating_normals,
+                                       from_range=(0, 1), folder=folder)
+                except Exception as e:  # vis must never kill training
+                    log.warn(f"rotating vis failed: {e}")
 
     @torch.inference_mode()
     def eval_forward_and_grid(self, var):

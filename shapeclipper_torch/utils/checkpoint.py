@@ -54,15 +54,32 @@ def save_checkpoint(output_path, graph_state, optim_states=None, ep=0, it=0,
                                               f"ep{ep}.pt"))
 
 
+def _merge_children(model, loaded):
+    """Per-child restore (`--load`): each top-level child of `model` whose
+    keys the checkpoint holds is loaded from it, strictly within the child;
+    the others keep their weights (reference `utils/util.py:148-156`)."""
+    for name, child in model.named_children():
+        prefix = f"{name}."
+        sub = {k[len(prefix):]: v for k, v in loaded.items()
+               if k.startswith(prefix)}
+        if sub:
+            print(f"restoring {name}...")
+            child.load_state_dict(sub, strict=True)
+        else:
+            print(f"skipping {name}...")
+
+
 def restore_checkpoint(output_path, model, optimizers=None, load_name=None,
-                       resume=False, best=False):
+                       resume=False, best=False, evaluate=False):
     """Load a checkpoint into `model` (and, on resume, into `optimizers`, a
     dict of name -> torch optimizer) -> (epoch, iter, best_val).
 
     resume=True: `output_path/best.pt` when `best` (falling back to
-    latest.pt), else `output_path/latest.pt`; resume=N: `checkpoint/epN.pt`;
-    otherwise the file `load_name`, weights only. The graph load is strict:
-    a missing or unexpected key raises."""
+    latest.pt), else `output_path/latest.pt`; resume=N: `checkpoint/epN.pt`.
+    A resume loads strictly, unless `evaluate`: then whatever keys exist are
+    loaded and the missing and unexpected ones are logged. Otherwise the
+    file `load_name`, weights only, per top-level child (`_merge_children`);
+    its epoch, iter and best_val are not returned."""
     assert (load_name is None) == (resume is not False)
     if resume:
         if best:
@@ -77,9 +94,22 @@ def restore_checkpoint(output_path, model, optimizers=None, load_name=None,
                                      f"ep{resume}.pt")
     # weights_only: the payload holds tensors and plain values only
     ckpt = torch.load(load_name, map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt["graph"], strict=True)
-    if resume and optimizers:
-        for name, optimizer in optimizers.items():
-            if name in ckpt:
-                optimizer.load_state_dict(ckpt[name])
-    return ckpt.get("epoch"), ckpt.get("iter"), ckpt.get("best_val")
+    if not resume:
+        _merge_children(model, ckpt["graph"])
+        return None, None, None
+    if evaluate:
+        result = model.load_state_dict(ckpt["graph"], strict=False)
+        if result.missing_keys:
+            log.info(f"missing keys: {result.missing_keys}")
+        if result.unexpected_keys:
+            log.info(f"unexpected keys: {result.unexpected_keys}")
+    else:
+        model.load_state_dict(ckpt["graph"], strict=True)
+    for name, optimizer in (optimizers or {}).items():
+        if name in ckpt:
+            optimizer.load_state_dict(ckpt[name])
+    ep, it = ckpt.get("epoch"), ckpt.get("iter")
+    print(f"resuming from epoch {ep} (iteration {it})")
+    if resume is not True and not best and resume != ep:
+        raise ValueError(f"{load_name} holds epoch {ep}, not {resume}")
+    return ep, it, ckpt.get("best_val")

@@ -1,7 +1,9 @@
-"""PNG / GIF / PLY dumps (copied from `shapeclipper_tpu/vis/__init__.py`:
-`dump_images` with mask alpha and pose-axis overlays, `dump_gifs`,
-`dump_meshes` and their helpers; the TensorBoard panels are not ported).
-Host-side numpy/PIL; images are NHWC float.
+"""TensorBoard panels and PNG / GIF / PLY dumps (copied from
+`shapeclipper_tpu/vis/__init__.py`): image grids with optional mask alpha,
+pose-axis and scale-text overlays (`tb_image`), per-sample PNG dumps,
+rotating-view GIFs, mesh and point-cloud PLY dumps (red pred / green GT).
+Host-side numpy/PIL; images are NHWC float. `tb` is any writer with
+`add_image(tag, array, step, dataformats="HWC")`.
 """
 
 from __future__ import annotations
@@ -72,6 +74,51 @@ def _draw_line(img, p0, p1, color, n=64):
             img[y, x] = color
 
 
+def draw_scale_text(img_uint8, scale_value):
+    """Overlay the predicted scale as text (reference
+    `utils/util_vis.py:131-142`)."""
+    import PIL.ImageDraw
+    im = PIL.Image.fromarray(img_uint8)
+    draw = PIL.ImageDraw.Draw(im)
+    draw.text((4, 4), f"scale {float(scale_value):.3f}", fill=(255, 0, 0))
+    return np.asarray(im)
+
+
+def image_grid(images_uint8, num_cols=8):
+    B, H, W, C = images_uint8.shape
+    num_cols = min(num_cols, B)
+    num_rows = (B + num_cols - 1) // num_cols
+    grid = np.zeros((num_rows * H, num_cols * W, C), np.uint8)
+    for i in range(B):
+        r, c = divmod(i, num_cols)
+        grid[r * H:(r + 1) * H, c * W:(c + 1) * W] = images_uint8[i]
+    return grid
+
+
+def tb_image(opt, tb, step, group, name, images, masks=None,
+             from_range=(0, 1), poses=None, intrs=None, scales=None):
+    """Write an image grid to TensorBoard (reference
+    `utils/util_vis.py:16-33`; `scales=` overlays the predicted scale as
+    text per image, `utils/util_vis.py:26-27,131-142`)."""
+    images = _ensure_rgb(np.asarray(images, np.float32))
+    img = to_uint8(images, from_range)
+    if masks is not None:
+        m = np.asarray(masks, np.float32)
+        img = (img * m + 255 * (1 - m)).astype(np.uint8)
+    if poses is not None:
+        img = np.stack([
+            draw_pose_axes(img[i], np.asarray(poses)[i],
+                           None if intrs is None else np.asarray(intrs)[i])
+            for i in range(img.shape[0])])
+    if scales is not None:
+        sc = np.asarray(scales).reshape(-1)
+        img = np.stack([draw_scale_text(img[i], sc[i])
+                        for i in range(img.shape[0])])
+    num_cols = opt.tb.num_images[1] if "tb" in opt else 8
+    grid = image_grid(img, num_cols)
+    tb.add_image(f"{group}/{name}", grid, step, dataformats="HWC")
+
+
 def dump_images(opt, idx, name, images, masks=None, from_range=(0, 1),
                 poses=None, folder="dump"):
     """Per-sample PNG dumps (reference `utils/util_vis.py:54-65`): `masks`
@@ -111,3 +158,18 @@ def dump_meshes(opt, idx, name, meshes, folder="dump"):
         sample_id = int(np.asarray(idx).reshape(-1)[i])
         write_ply(f"{opt.output_path}/{folder}/{sample_id}_{name}.ply",
                   mesh.vertices, mesh.faces)
+
+
+def dump_pointclouds_compare(opt, idx, name, preds, gts, folder="dump"):
+    """Red pred / green GT combined point-cloud PLYs (reference
+    `utils/util_vis.py:90-102`)."""
+    os.makedirs(f"{opt.output_path}/{folder}", exist_ok=True)
+    preds, gts = np.asarray(preds), np.asarray(gts)
+    for i in range(preds.shape[0]):
+        sample_id = int(np.asarray(idx).reshape(-1)[i])
+        pts = np.concatenate([preds[i], gts[i]], axis=0)
+        colors = np.concatenate([
+            np.tile([255, 0, 0], (preds[i].shape[0], 1)),
+            np.tile([0, 255, 0], (gts[i].shape[0], 1))], axis=0).astype(np.uint8)
+        write_ply(f"{opt.output_path}/{folder}/{sample_id}_{name}.ply",
+                  pts, colors=colors)

@@ -1,6 +1,7 @@
-"""The fused SDF Hopper kernels (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`,
-K1 / K3, and `csrc/fused_sdf_bwd.cu`, K2) against their plain PyTorch
-version, on the card.
+"""The Hopper kernels of the port against their plain PyTorch versions, on
+the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
+fused_sdf_fwd.cu`, K1 / K3, and `csrc/fused_sdf_bwd.cu`, K2) and the
+nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
 imports torch and the port only (no JAX), so on a machine with the card
@@ -11,6 +12,10 @@ and without JAX it runs as
 Tolerances follow tests/test_fused_sdf.py: sdf / feature atol 2e-5; gradient
 atol 5e-4, rtol 5e-3 (sigmoid(100 z) amplifies rounding in the tangents);
 K2's parameter, latent and point gradients atol 3e-5 * max|ref|, rtol 2e-4.
+K4 / K5 distances rtol 1e-5, atol 1e-7 (the kernel fuses two of the three
+squares into multiply-adds); K5's argmin equal to the plain one wherever
+the nearest point is not a near-tie (the kernel's choice is at the plain
+minimum within that tolerance), and exactly equal on exact ties.
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ import pytest
 import torch
 
 from shapeclipper_torch.models.implicit import SDFNetwork
+from shapeclipper_torch.ops import chamfer as C
 from shapeclipper_torch.ops import fused_sdf as F
 
 SDF_TOL = dict(atol=2e-5, rtol=0.0)
@@ -169,3 +175,108 @@ def test_training_call_launches_k1_and_k2(dev):
     assert F.BACKWARD.launches == k2 + 1
     with pytest.raises(TypeError, match="float32"):
         F.fused_sdf_train(net, pts.double(), lat)
+
+
+# ---------------------------------------------------------------- K4 / K5
+NN_TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+def _clouds(dev, B, N1, N2, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, N1, 3, generator=g).to(dev),
+            torch.randn(B, N2, 3, generator=g).to(dev))
+
+
+def _check_argmin(x1, x2, idx, want_d, want_i):
+    """idx equals the plain argmin, or points at a plain minimum (a
+    near-tie that the kernel's rounding breaks the other way)."""
+    chosen = torch.gather(x2, 1, idx.long()[..., None].expand(-1, -1, 3))
+    d_chosen = ((x1 - chosen) ** 2).sum(-1)
+    differ = idx != want_i
+    torch.testing.assert_close(d_chosen[differ], want_d[differ], **NN_TOL)
+    assert int(differ.sum()) <= max(1, idx.numel() // 10000)
+
+
+@pytest.mark.parametrize("B,N1,N2", [(1, 1, 1), (3, 57, 201),
+                                     (2, 1000, 3001), (1, 2049, 4097),
+                                     (4, 8192, 8192)])
+def test_chamfer_kernels_match_plain(dev, B, N1, N2):
+    """Ragged rows (blocks of 256) and ragged tiles of B (2,048 points);
+    one K4 launch per direction for the distances, one K5 launch per
+    direction with the argmin."""
+    x1, x2 = _clouds(dev, B, N1, N2)
+    before = dict(C.KERNEL.launches)
+    d1, d2 = C.chamfer_dists_sq(x1, x2)
+    assert C.KERNEL.launches["dist"] == before["dist"] + 2
+    k1, k2, i1, i2 = C.chamfer_distance_sq(x1, x2)
+    assert C.KERNEL.launches["argmin"] == before["argmin"] + 2
+    p1, j1 = C.nn_plain(x1, x2, with_index=True)
+    p2, j2 = C.nn_plain(x2, x1, with_index=True)
+    torch.cuda.synchronize()
+    assert d1.shape == (B, N1) and d2.shape == (B, N2)
+    assert i1.dtype == torch.int32 and i1.shape == (B, N1)
+    for got, want in ((d1, p1), (d2, p2), (k1, p1), (k2, p2)):
+        torch.testing.assert_close(got, want, **NN_TOL)
+    _check_argmin(x1, x2, i1, p1, j1)
+    _check_argmin(x2, x1, i2, p2, j2)
+
+
+def test_chamfer_kernel_exact_ties(dev):
+    """Identical clouds: distance 0 and argmin = self. Duplicated points
+    across tiles of B: the lowest index wins."""
+    x1, _ = _clouds(dev, 2, 3000, 1, seed=3)
+    d1, d2, i1, i2 = C.chamfer_distance_sq(x1, x1)
+    assert float(d1.abs().max()) == 0.0 and float(d2.abs().max()) == 0.0
+    self_idx = torch.arange(3000, device=dev, dtype=torch.int32)
+    assert torch.equal(i1, self_idx.expand(2, -1))
+    assert torch.equal(i2, self_idx.expand(2, -1))
+    x2 = torch.cat([x1, x1, x1[:, 7:8].expand(2, 5, 3)], dim=1).contiguous()
+    _, d2, i1, i2 = C.chamfer_distance_sq(x1, x2)
+    assert torch.equal(i1, self_idx.expand(2, -1))
+    want = torch.cat([self_idx, self_idx,
+                      torch.full((5,), 7, device=dev, dtype=torch.int32)])
+    assert torch.equal(i2, want.expand(2, -1))
+    assert float(d2.abs().max()) == 0.0
+
+
+def test_chamfer_gradient_matches_reference(dev):
+    """K5 forward + the gather / index_add_ backward against autograd of
+    the plain reference, on the card."""
+    x1, x2 = _clouds(dev, 2, 300, 500, seed=4)
+    grads = []
+    for fn in (C.chamfer_distance_sq, C.chamfer_distance_sq_reference):
+        a = x1.clone().requires_grad_(True)
+        b = x2.clone().requires_grad_(True)
+        d1, d2, _, _ = fn(a, b)
+        (d1.mean() + 0.5 * d2.mean()).backward()
+        grads.append((a.grad, b.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_chamfer_wrapper_refuses_bad_inputs(dev):
+    x1, x2 = _clouds(dev, 1, 40, 50)
+    with pytest.raises(TypeError, match="float32"):
+        C.chamfer_dists_sq(x1.double(), x2.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        C.chamfer_dists_sq(x1.transpose(1, 2).contiguous().transpose(1, 2),
+                           x2)
+    with pytest.raises(ValueError, match="is on"):
+        C.chamfer_dists_sq(x1, x2.cpu())
+
+
+def test_eval_submit_copies_the_grid_to_pinned_memory(dev):
+    """The pipelined evaluation's stage A: the grid's host copy, waited on
+    through its own event, equals the device grid."""
+    from shapeclipper_torch.config import options
+    from shapeclipper_torch.eval3d import metrics
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    opt = options.load_options("options/pix3d/config.yaml")
+    opt.eval.vox_res = 32
+    net, _, lat = _case(dev, 1, True)
+    with torch.inference_mode():
+        pending = metrics.eval_metrics_submit(opt, edict(proj_latent_sdf=lat),
+                                              net)
+        pending.ready.synchronize()
+        assert pending.host.is_pinned() and pending.host.device.type == "cpu"
+        assert torch.equal(pending.host, pending.level.cpu())
