@@ -14,8 +14,10 @@ no CPU fallback):
      1,030,301 grid points without; K1 again at the training shape;
   3. K2 (backward) against plain autograd of the plain version at
      B x N = 12 x 32,768 (render), 12 x 1,024 (eikonal), a ragged 2 x 300
-     and 2 x 300 with points on the x = 0 plane; CUDA-event times of K2
-     alone, of the K1 + K2 pair and of the plain forward + backward;
+     and 2 x 300 with points on the x = 0 plane; two launches bitwise
+     equal; its registers and spills from the ptxas log; CUDA-event times
+     of K2 alone at the eikonal and the render shape, of the K1 + K2 pair
+     and of the plain forward + backward;
   4. four single-image requests through the port's Runner at the full width
      of options/pix3d/config.yaml (the serving path), launch counts reset
      just before and read just after, request 0 held against the CPU plain
@@ -59,6 +61,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -159,6 +162,25 @@ def bound(flop, nbytes):
     """(least ms on the card, 'operations' or 'bytes')."""
     t_op, t_b = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def ptxas_usage(ptxas_log, kernel):
+    """(registers, spill store bytes, spill load bytes) of the entry function
+    whose mangled name contains `kernel`, from nvcc's `-Xptxas -v` output;
+    None when the library came from an earlier build in `build/`."""
+    if not ptxas_log:
+        return None
+    entries = ptxas_log.split("Compiling entry function")
+    for entry in entries[1:]:
+        if kernel not in entry.split("\n")[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        if regs and spill:
+            return (int(regs.group(1)), int(spill.group(1)),
+                    int(spill.group(2)))
+    raise AssertionError(f"no ptxas usage for {kernel} in the build log")
 
 
 def within(got, want, atol, rtol):
@@ -475,6 +497,14 @@ def phase_cli(opt, image):
 
 
 # --------------------------------------------------------------- phase 3
+def k2_bytes(B, N):
+    """Bytes K2 must move: points and the three cotangents read, the point
+    gradient written, the weights and biases read and their gradients
+    written, each once."""
+    from shapeclipper_torch.ops.fused_sdf import BIAS_WIDTH, NUM_WEIGHTS
+    return 4 * (B * N * (3 + 68 + 3) + 2 * NUM_WEIGHTS + 2 * B * BIAS_WIDTH)
+
+
 def phase_backward():
     """K2 (through the K1 + K2 autograd Function) against plain autograd of
     the plain version: parameter, latent and point gradients of
@@ -487,23 +517,23 @@ def phase_backward():
     g = torch.Generator().manual_seed(SEED)
     net = SDFNetwork(geometric_init=False, generator=g).to(dev)
 
-    def grads(pts, lat, cots, kernel):
-        net.zero_grad()
+    def grads(pts, lat, cots, kernel, model=net):
+        model.zero_grad()
         p = pts.clone().requires_grad_(True)
         lt = lat.clone().requires_grad_(True)
         if kernel:
-            out = F.fused_sdf_train(net, p, lt)
+            out = F.fused_sdf_train(model, p, lt)
         else:
-            kk, bb = F.prepare_fused_params(net, lt)
-            out = F._forward_plain(kk, bb, p, *F._arch(net), True, True)
+            kk, bb = F.prepare_fused_params(model, lt)
+            out = F._forward_plain(kk, bb, p, *F._arch(model), True, True)
         sum((o * c).sum() for o, c in zip(out, cots)).backward()
-        res = {n: q.grad.clone() for n, q in net.named_parameters()}
+        res = {n: q.grad.clone() for n, q in model.named_parameters()}
         res.update(points=p.grad.clone(), latent=lt.grad.clone())
         return res
 
     cases = [("render", 12, 32768, False), ("eikonal", 12, 1024, False),
              ("ragged", 2, 300, False), ("x=0 plane", 2, 300, True)]
-    worst, main = 0.0, None
+    worst, shapes = 0.0, {}
     for label, B, N, plane in cases:
         pts = torch.rand(B, N, 3, generator=g) * 2 - 1
         if plane:
@@ -530,17 +560,53 @@ def phase_backward():
             raise AssertionError(f"K2 disagrees with plain autograd at "
                                  f"{label}: {bad}")
         worst = max(worst, max(errs.values()))
-        if main is None:
-            main = (pts, lat, cots)
+        shapes[label] = (pts, lat, cots)
+        if label == "render":
+            # both float32 results against the plain version in float64
+            net64 = copy.deepcopy(net).double()
+            ref = grads(pts.double(), lat.double(), [c.double() for c in cots],
+                        False, net64)
+            dk = max(float((got[k].double() - w).abs().max())
+                     for k, w in ref.items())
+            dp = max(float((want[k].double() - w).abs().max())
+                     for k, w in ref.items())
+            log(f"[k2] render against the float64 plain version: K2 max abs "
+                f"err {dk:.3e}, float32 plain {dp:.3e}")
+            del net64, ref
 
-    # times at the render shape
-    pts, lat, cots = main
+    def k2_args(label):
+        pts, lat, cots = shapes[label]
+        with torch.no_grad():
+            weights, bias = F.pack_fused_params(
+                *F.prepare_fused_params(net, lat))
+        return (pts, weights, bias, cots[0][..., 0].contiguous(), cots[1],
+                cots[2], True)
+
+    # two launches on the same inputs are bitwise equal
+    args = k2_args("render")
+    first, second = F.BACKWARD.launch(*args), F.BACKWARD.launch(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("weights", "biases", "points"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"two K2 launches differ in d {name}")
+    usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel")
+    log("[k2] two launches at the render shape: bitwise equal; ptxas: "
+        + ("not logged (library from an earlier build)" if usage is None
+           else f"{usage[0]} registers, {usage[1]} bytes spill stores, "
+           f"{usage[2]} bytes spill loads"))
+
+    # times at the eikonal shape, then at the render shape
+    args = k2_args("eikonal")
+    eik_ms = cuda_ms(lambda: F.BACKWARD.launch(*args))
+    B, N = args[0].shape[:2]
+    eik_bound, eik_by = bound(FLOP_K2 * B * N, k2_bytes(B, N))
+    log(f"[k2] B={B} N={N} (eikonal): K2 alone {eik_ms:.4f} ms (bound "
+        f"{eik_bound:.4f} ms, {eik_by}, {100 * eik_bound / eik_ms:.1f}% of "
+        f"it reached)")
+    args = k2_args("render")
+    pts, lat, cots = shapes["render"]
     B, N = pts.shape[:2]
-    with torch.no_grad():
-        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
-    sbar, fbar, gbar = (cots[0][..., 0].contiguous(), cots[1], cots[2])
-    k2_ms = cuda_ms(lambda: F.BACKWARD.launch(pts, weights, bias, sbar, fbar,
-                                              gbar, True))
+    k2_ms = cuda_ms(lambda: F.BACKWARD.launch(*args))
     p = pts.clone().requires_grad_(True)
 
     def pair():
@@ -561,9 +627,7 @@ def phase_backward():
                                                        retain_graph=True))
     del out
     flop = FLOP_K2 * B * N
-    nbytes = 4 * (B * N * (3 + 68 + 3) + 2 * F.NUM_WEIGHTS
-                  + 2 * B * F.BIAS_WIDTH)
-    bound_ms, bound_by = bound(flop, nbytes)
+    bound_ms, bound_by = bound(flop, k2_bytes(B, N))
     log(f"[k2] B={B} N={N}: K2 alone {k2_ms:.4f} ms ({flop / k2_ms / 1e9:.1f}"
         f" TFLOP/s of the function's FLOPs; bound {bound_ms:.4f} ms, "
         f"{bound_by}, {100 * bound_ms / k2_ms:.1f}% of it reached), plain backward "
@@ -572,7 +636,7 @@ def phase_backward():
         f"({plain_pair_ms / pair_ms:.2f}x)")
     net.zero_grad()
     return dict(err=worst, ms=k2_ms, plain_ms=plain_ms, pair_ms=pair_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, eikonal_ms=eik_ms)
 
 
 # --------------------------------------------------------------- phase 5

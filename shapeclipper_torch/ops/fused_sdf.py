@@ -43,6 +43,10 @@ KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
                    latent_dim=64)
 NUM_WEIGHTS = 28032
 BIAS_WIDTH = 5 * 64 + 65
+# K2's tile (`csrc/fused_sdf_bwd.cu`: kPoints) and the floats of its
+# per-block pre-activation stash (5 hidden layers x 128 rows x 64)
+BWD_TILE_POINTS = 32
+BWD_STASH_FLOATS = 5 * 4 * BWD_TILE_POINTS * 64
 
 
 def _coord_masks(n_freqs, device=None):
@@ -231,13 +235,17 @@ class FusedSdfBackwardKernel(CudaLibrary):
 
     def _bind(self, lib):
         fn = lib.scl_fused_sdf_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.scl_fused_sdf_bwd_num_weights.argtypes = []
-        lib.scl_fused_sdf_bwd_num_weights.restype = ctypes.c_int
+        for name in ("scl_fused_sdf_bwd_num_weights",
+                     "scl_fused_sdf_bwd_stash_floats"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         if lib.scl_fused_sdf_bwd_num_weights() != NUM_WEIGHTS:
             raise RuntimeError("fused SDF backward packs a different layout")
+        if lib.scl_fused_sdf_bwd_stash_floats() != BWD_STASH_FLOATS:
+            raise RuntimeError("fused SDF backward stashes a different tile")
 
     def launch(self, points, weights, biases, sbar, fbar, gbar,
                force_symmetry):
@@ -248,10 +256,12 @@ class FusedSdfBackwardKernel(CudaLibrary):
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
-        # one persistent block per SM (184 KB of shared memory each), never
-        # more blocks than 8-point tiles
+        # one persistent block per SM (208 KB of shared memory each), never
+        # more blocks than 32-point tiles; each block owns a slice of the
+        # weight and bias gradient partials and of the pre-activation stash
+        # (5 x 128 x 64 floats: 21 MB at 132 blocks, L2-resident)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = min(sms, B * -(-N // 8))
+        grid = min(sms, B * -(-N // BWD_TILE_POINTS))
         with torch.cuda.device(dev):
             f32 = dict(device=dev, dtype=torch.float32)
             dpoints = torch.empty(B, N, 3, **f32)
@@ -259,13 +269,15 @@ class FusedSdfBackwardKernel(CudaLibrary):
             dbiases = torch.empty(B, BIAS_WIDTH, **f32)
             dk_partial = torch.empty(grid, NUM_WEIGHTS, **f32)
             db_partial = torch.empty(grid, B, BIAS_WIDTH, **f32)
+            stash = torch.empty(grid, BWD_STASH_FLOATS, **f32)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.scl_fused_sdf_bwd(
                 points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
                 sbar.data_ptr(), fbar.data_ptr(), gbar.data_ptr(),
                 dpoints.data_ptr(), dweights.data_ptr(), dbiases.data_ptr(),
-                dk_partial.data_ptr(), db_partial.data_ptr(), B, N, grid,
-                int(bool(force_symmetry)), stream)
+                dk_partial.data_ptr(), db_partial.data_ptr(),
+                stash.data_ptr(), B, N, grid, int(bool(force_symmetry)),
+                stream)
         if err != 0:
             raise RuntimeError(f"fused SDF backward launch failed: cudaError "
                                f"{err}")

@@ -18,6 +18,8 @@ the nearest point is not a near-tie (the kernel's choice is at the plain
 minimum within that tolerance), and exactly equal on exact ties.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -98,10 +100,16 @@ def test_wrapper_refuses_gradients_and_bad_inputs(dev):
 
 
 # ---------------------------------------------------------------- K1 + K2
-def _train_grads(net, pts, lat, cots, kernel, detach_latent=False):
+def _train_grads(net, pts, lat, cots, kernel, detach_latent=False,
+                 dtype=torch.float32):
     """Gradients of <cotangents, (sdf, feat, grad)> w.r.t. the parameters,
     the points and the latent: through K1 + K2 (`fused_sdf_train`) or
-    through plain autograd of the plain version on the same device."""
+    through plain autograd of the plain version on the same device, in
+    `dtype` (returned as float32)."""
+    if dtype != torch.float32:
+        net = copy.deepcopy(net).to(dtype)
+        pts, lat = pts.to(dtype), lat.to(dtype)
+        cots = [c.to(dtype) for c in cots]
     net.zero_grad()
     p = pts.clone().requires_grad_(True)
     l = lat.clone().requires_grad_(True)
@@ -117,10 +125,11 @@ def _train_grads(net, pts, lat, cots, kernel, detach_latent=False):
     grads["points"] = p.grad.clone()
     grads["latent"] = (l.grad.clone() if l.grad is not None
                        else torch.zeros_like(l))
-    return grads
+    return {k: v.float() for k, v in grads.items()}
 
 
-def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False):
+def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False,
+              ref_dtype=torch.float32):
     g = torch.Generator().manual_seed(B * 1000 + N)
     net = SDFNetwork(geometric_init=False, generator=g).to(dev)
     pts = torch.rand(B, N, 3, generator=g) * 2 - 1
@@ -136,7 +145,8 @@ def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False):
     got = _train_grads(net, pts, lat, cots, True, detach_latent)
     assert F.KERNEL.launches["grad"] == before[0]["grad"] + 1
     assert F.BACKWARD.launches == before[1] + 1
-    want = _train_grads(net, pts, lat, cots, False, detach_latent)
+    want = _train_grads(net, pts, lat, cots, False, detach_latent,
+                        ref_dtype)
     torch.cuda.synchronize()
     for k, w in want.items():
         scale = max(float(w.abs().max()), 1e-3)
@@ -148,9 +158,47 @@ def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False):
 
 @pytest.mark.parametrize("B,N", [(1, 1), (2, 300), (3, 1000), (12, 1024)])
 def test_backward_kernel_matches_plain(dev, B, N):
-    """Ragged N (tiles of 8 points), B > 1: K2's weight, bias (so latent)
+    """Ragged N (tiles of 32 points), B > 1: K2's weight, bias (so latent)
     and point gradients against plain autograd; one launch each of K1, K2."""
     _k2_check(dev, B, N)
+
+
+@pytest.mark.parametrize("N", [31, 32, 33, 127, 129])
+def test_backward_kernel_tile_edges(dev, N):
+    """N one short of, at, and one past a 32-point tile and past four of
+    them, at B = 3: the last tile of each batch row is ragged or full, and
+    blocks take tiles of two batch rows."""
+    _k2_check(dev, 3, N)
+
+
+def test_backward_kernel_render_shape(dev):
+    """The flagship training render's shape, 12 x 32,768 (12,288 tiles on
+    one block per SM), against plain autograd of the plain version in
+    float64: at 393,216 points the float32 plain version's own rounding
+    leaves a few weight and point gradients past the tolerance from the
+    float64 ones (`chip_smoke.py` phase 3 logs both errors)."""
+    _k2_check(dev, 12, 32768, ref_dtype=torch.float64)
+
+
+def test_backward_kernel_is_deterministic(dev):
+    """Two K2 launches on the same inputs give bitwise equal weight, bias
+    and point gradients: fixed tile-to-block assignment, fixed in-block
+    order and a block-ordered sum of the per-block partials."""
+    g = torch.Generator().manual_seed(7)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    B, N = 4, 3000
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    sbar, fbar, gbar = (torch.randn(B, N, *c, generator=g).to(dev)
+                        for c in ((), (64,), (3,)))
+    with torch.no_grad():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    first = F.BACKWARD.launch(pts, weights, bias, sbar, fbar, gbar, True)
+    second = F.BACKWARD.launch(pts, weights, bias, sbar, fbar, gbar, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("weights", "biases", "points"), first, second):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
 
 
 def test_backward_kernel_symmetry_plane(dev):

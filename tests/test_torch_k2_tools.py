@@ -1,0 +1,81 @@
+"""The host-side helpers around the fused SDF backward kernel K2
+(`shapeclipper_torch/csrc/fused_sdf_bwd.cu`), on the CPU: the wrapper's tile
+and stash constants against the source, `chip_smoke.py`'s reading of the
+ptxas log, and `scripts/k2_segments.py`'s instrumentation of the kernel."""
+
+import os
+import re
+import sys
+
+import pytest
+
+import chip_smoke
+from shapeclipper_torch.ops import fused_sdf as F
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import k2_segments  # noqa: E402
+
+PTXAS_LOG = """\
+ptxas info    : 24 bytes gmem
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_122reduce_partials_kernelEPKfS1_PfS2_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_122reduce_partials_kernelEPKfS1_PfS2_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_120fused_sdf_bwd_kernelEPKfS1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_120fused_sdf_bwd_kernelEPKfS1_
+    32 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 212 registers, used 1 barriers, 32 bytes cumulative stack size
+"""
+
+
+def _source():
+    with open(F._SOURCE_BWD) as f:
+        return f.read()
+
+
+def test_wrapper_constants_match_the_kernel():
+    """The wrapper sizes the grid by the kernel's tile and allocates its
+    stash; both must be the kernel's own (the library checks the stash size
+    again when it is bound on the card)."""
+    src = _source()
+    const = {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int (\w+) = ([^;]+);", src)}
+    assert int(const["kPoints"]) == F.BWD_TILE_POINTS
+    assert const["kStashFloats"] == "kHidden * kRows * kWidth"
+    assert int(const["kHidden"]) * 4 * F.BWD_TILE_POINTS * 64 \
+        == F.BWD_STASH_FLOATS
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("fused_sdf_bwd_kernel", (212, 8, 12)),
+    ("reduce_partials_kernel", (32, 0, 0)),
+])
+def test_ptxas_usage_reads_each_entry_function(kernel, want):
+    assert chip_smoke.ptxas_usage(PTXAS_LOG, kernel) == want
+
+
+def test_ptxas_usage_without_a_log_or_the_kernel():
+    assert chip_smoke.ptxas_usage(None, "fused_sdf_bwd_kernel") is None
+    with pytest.raises(AssertionError, match="no ptxas usage"):
+        chip_smoke.ptxas_usage(PTXAS_LOG, "nn_kernel")
+
+
+def test_segments_mark_every_barrier_of_the_main_kernel():
+    """One counter after each __syncthreads() of fused_sdf_bwd_kernel, with
+    that barrier's source line; the rest of the file is unchanged."""
+    src = _source()
+    out, lines = k2_segments.instrument(src)
+    body = src[src.index("fused_sdf_bwd_kernel("):
+               src.index("__global__ void reduce_partials_kernel")]
+    assert len(lines) == body.count("__syncthreads();") > 0
+    assert lines == sorted(lines)
+    src_lines = src.split("\n")
+    assert all("__syncthreads();" in src_lines[n - 1] for n in lines)
+    for i in range(len(lines)):
+        assert f"__syncthreads(); SCL_SEGMENT({i});" in out
+    assert out.count("SCL_SEGMENT(") == len(lines) + 1   # + the #define
+    assert 'extern "C" int scl_segments_read' in out
+    kept = re.sub(r" SCL_SEGMENT\(\d+\);", "", out)
+    assert src[src.index("namespace {"):] in kept.replace(
+        "\n  unsigned long long scl_last_ = clock64();", "")
