@@ -11,7 +11,11 @@ no CPU fallback):
      `build/` (three nvcc runs at once);
   2. K1 / K3 (forward) against their plain PyTorch version at the serving
      shapes: N = 262,144 render points with gradients, N = 274,625 and
-     1,030,301 grid points without; K1 again at the training shape;
+     1,030,301 grid points without; K1 again at the training shape, there
+     also against the plain version in float64; two launches bitwise equal;
+     registers and spills of both instantiations from the ptxas log (a
+     spill fails the run); cycles per barrier segment of K1 and K3
+     (`scripts/sdf_segments.py`);
   3. K2 (backward) against plain autograd of the plain version at
      B x N = 12 x 32,768 (render), 12 x 1,024 (eikonal), a ragged 2 x 300
      and 2 x 300 with points on the x = 0 plane; two launches bitwise
@@ -166,10 +170,12 @@ def bound(flop, nbytes):
 
 def ptxas_usage(ptxas_log, kernel):
     """(registers, spill store bytes, spill load bytes) of the entry function
-    whose mangled name contains `kernel`, from nvcc's `-Xptxas -v` output;
-    None when the library came from an earlier build in `build/`."""
+    whose mangled name contains `kernel`, from nvcc's `-Xptxas -v` output.
+    Raises when there is no log (a library loaded from an earlier build) or
+    no such entry."""
     if not ptxas_log:
-        return None
+        raise AssertionError(f"no ptxas log for {kernel}: its library was "
+                             "not compiled in this run")
     entries = ptxas_log.split("Compiling entry function")
     for entry in entries[1:]:
         if kernel not in entry.split("\n")[0]:
@@ -217,13 +223,15 @@ def render_points(opt_e, device):
 
 
 # --------------------------------------------------------------- phase 2
-def phase_kernels(opt):
+def forward_cases(opt, dev):
+    """K1 / K3's shapes on the port's paths -> (the SDF network, [(key,
+    compute_grad, points, latent)]): the eval render's 262,144 points with
+    tangents, the training render's 12 x 32,768, and the vox-64 and vox-100
+    grids without. `key` is the launch count's key ('grad' or 'nograd')."""
     import torch
     from shapeclipper_torch.eval3d.metrics import dense_grid_points
     from shapeclipper_torch.models.implicit import SDFNetwork
-    from shapeclipper_torch.ops import fused_sdf as F
 
-    dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED)
     # nn.Linear's default init everywhere (geometric_init off), so that the
     # posenc and latent rows of every layer are dense
@@ -231,18 +239,59 @@ def phase_kernels(opt):
     latent = (torch.randn(1, 64, generator=g) * 0.3).to(dev)
     opt_e = opt.deepcopy()
     opt_e.H, opt_e.W = opt.eval.image_size
-    shapes = [("grad", True, render_points(opt_e, dev), latent)]
+    cases = [("grad", True, render_points(opt_e, dev), latent)]
     # the training render's shape: batch 12 x 512 rays x 64 samples
     gp = torch.Generator().manual_seed(SEED + 1)
-    shapes.append(("grad", True,
-                   (torch.rand(12, 32768, 3, generator=gp) * 2 - 1).to(dev),
-                   (torch.randn(12, 64, generator=gp) * 0.3).to(dev)))
+    cases.append(("grad", True,
+                  (torch.rand(12, 32768, 3, generator=gp) * 2 - 1).to(dev),
+                  (torch.randn(12, 64, generator=gp) * 0.3).to(dev)))
     for vox in (64, 100):
-        shapes.append(("nograd", False, dense_grid_points(opt, vox, dev)[None]
-                       .contiguous(), latent))
+        cases.append(("nograd", False, dense_grid_points(opt, vox, dev)[None]
+                      .contiguous(), latent))
+    return net, cases
+
+
+def check_forward(got, want, where):
+    """(sdf, feat, grad) of a forward against the plain version's at
+    SDF_TOL / GRAD_TOL -> {part: max abs err}; raises where a part has
+    another shape, is not finite or is outside its tolerance."""
+    import torch
+    errs, bad = {}, []
+    for part, k, r, tol in zip(("sdf", "feat", "grad"), got, want,
+                               (SDF_TOL, SDF_TOL, GRAD_TOL)):
+        if r is None:
+            continue
+        if k.shape != r.shape or not torch.isfinite(k).all():
+            raise AssertionError(f"{part} {where}: shape {tuple(k.shape)} "
+                                 "or non-finite")
+        errs[part], ok = within(k, r, **tol)
+        if not ok:
+            bad.append(part)
+    if bad:
+        raise AssertionError(f"the forward disagrees with its plain version "
+                             f"{where} in {bad}: {errs}")
+    return errs
+
+
+def forward_bound(B, N, compute_grad):
+    """K1 / K3's bound at B x N: the function's FLOPs, and its bytes (points,
+    sdf, features and tangents once, the weights and biases once)."""
+    from shapeclipper_torch.ops import fused_sdf as F
+    flop = (FLOP_K1 if compute_grad else FLOP_K3) * B * N
+    nbytes = 4 * (B * N * (3 + 65 + (3 if compute_grad else 0))
+                  + F.NUM_WEIGHTS + B * F.BIAS_WIDTH)
+    return flop, bound(flop, nbytes)
+
+
+def phase_kernels(opt):
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    dev = torch.device("cuda")
+    net, cases = forward_cases(opt, dev)
     results = {"grad": [], "nograd": []}
     with torch.inference_mode():
-        for name, cg, pts, latent in shapes:
+        for name, cg, pts, latent in cases:
             kernels, biases = F.prepare_fused_params(net, latent)
             weights, bias = F.pack_fused_params(kernels, biases)
             B, N = pts.shape[:2]
@@ -250,17 +299,7 @@ def phase_kernels(opt):
             torch.cuda.synchronize()
             r = F.fused_sdf_forward_reference(net, pts, latent,
                                               compute_grad=cg)
-            errs, ok = {}, True
-            for part, kk, rr, tol in (("sdf", k[0], r[0], SDF_TOL),
-                                      ("feat", k[1], r[1], SDF_TOL),
-                                      ("grad", k[2], r[2], GRAD_TOL)):
-                if rr is None:
-                    continue
-                if kk.shape != rr.shape or not torch.isfinite(kk).all():
-                    raise AssertionError(f"{part} at N={N}: shape "
-                                         f"{tuple(kk.shape)} or non-finite")
-                errs[part], good = within(kk, rr, **tol)
-                ok &= good
+            errs = check_forward(k, r, f"at B={B} N={N}")
             ms = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, cg,
                                                  True))
             plain_ms = cuda_ms(lambda: F._forward_plain(
@@ -270,20 +309,71 @@ def phase_kernels(opt):
                 + f" (tol sdf/feat {SDF_TOL}, grad {GRAD_TOL}); kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms "
                 f"({plain_ms / ms:.2f}x)")
-            if not ok:
-                raise AssertionError(f"kernel disagrees with its plain "
-                                     f"version at N={N}: {errs}")
-            flop = (FLOP_K1 if cg else FLOP_K3) * B * N
-            nbytes = 4 * (B * N * (3 + 65 + (3 if cg else 0))
-                          + F.NUM_WEIGHTS + B * F.BIAS_WIDTH)
-            bound_ms, bound_by = bound(flop, nbytes)
+            flop, (bound_ms, bound_by) = forward_bound(B, N, cg)
             log(f"[kernel]   bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{100 * bound_ms / ms:.1f}% of it reached); "
                 f"{flop / ms / 1e9:.1f} TFLOP/s of the function's FLOPs")
             results[name].append(dict(B=B, N=N, err=max(errs.values()), ms=ms,
                                       plain_ms=plain_ms, bound_ms=bound_ms,
                                       bound_by=bound_by))
+            if (name, B) == ("grad", 12):
+                forward_float64(net, pts, latent, k)
+            if B == 1 and N in (262144, 274625):
+                # two launches on the same inputs are bitwise equal
+                a = F.KERNEL.launch(pts, weights, bias, cg, True)
+                b = F.KERNEL.launch(pts, weights, bias, cg, True)
+                torch.cuda.synchronize()
+                if not all(x is y or torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"two launches differ at N={N}")
+                log(f"[kernel] two launches at B={B} N={N} "
+                    f"compute_grad={cg}: bitwise equal")
+    for label, tag in (("K1", "ILb1"), ("K3", "ILb0")):
+        usage = ptxas_usage(F.KERNEL.ptxas_log, "fused_sdf_fwd_kernel" + tag)
+        log(f"[kernel] {label} ptxas: {usage[0]} registers, {usage[1]} bytes "
+            f"spill stores, {usage[2]} bytes spill loads")
+        if usage[1] or usage[2]:
+            raise AssertionError(f"{label} spills registers: {usage}")
+    segment_shares()
     return results
+
+
+def forward_float64(net, pts, latent, got):
+    """K1's outputs at the training render's shape against the plain
+    version in float64, beside the float32 plain version's own error."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    net64 = copy.deepcopy(net).double()
+    ref = F.fused_sdf_forward_reference(net64, pts.double(), latent.double(),
+                                        True)
+    ref32 = F.fused_sdf_forward_reference(net, pts, latent, True)
+    errs, plain, ok = {}, {}, True
+    for part, k, r32, r, tol in zip(("sdf", "feat", "grad"), got, ref32, ref,
+                                    (SDF_TOL, SDF_TOL, GRAD_TOL)):
+        errs[part], good = within(k.double(), r, **tol)
+        plain[part] = float((r32.double() - r).abs().max())
+        ok &= good
+    log("[kernel] K1 at 12 x 32,768 against the float64 plain version: "
+        + ", ".join(f"{p}={e:.3e}" for p, e in errs.items())
+        + "; float32 plain " + ", ".join(f"{p}={e:.3e}"
+                                           for p, e in plain.items()))
+    if not ok:
+        raise AssertionError(f"K1 is outside the tolerance of the float64 "
+                             f"plain version: {errs}")
+    del net64, ref, ref32
+    torch.cuda.empty_cache()
+
+
+def segment_shares():
+    """K1 and K3's cycles per barrier segment (`scripts/sdf_segments.py`:
+    one instrumented build, thread 0 of block 0)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import sdf_segments
+    for argv in (["--kernel", "fwd", "--label", "k1", "--B", "12",
+                  "--N", "32768"],
+                 ["--kernel", "fwd", "--label", "k3", "--B", "1",
+                  "--N", "274625", "--no-grad"]):
+        if sdf_segments.main(argv) != 0:
+            raise AssertionError(f"sdf_segments.py {' '.join(argv)} failed")
 
 
 # --------------------------------------------------------------- phase 3
@@ -590,19 +680,25 @@ def phase_backward():
         if not torch.equal(a, b):
             raise AssertionError(f"two K2 launches differ in d {name}")
     usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel")
-    log("[k2] two launches at the render shape: bitwise equal; ptxas: "
-        + ("not logged (library from an earlier build)" if usage is None
-           else f"{usage[0]} registers, {usage[1]} bytes spill stores, "
-           f"{usage[2]} bytes spill loads"))
+    log(f"[k2] two launches at the render shape: bitwise equal; ptxas: "
+        f"{usage[0]} registers, {usage[1]} bytes spill stores, {usage[2]} "
+        "bytes spill loads")
 
     # times at the eikonal shape, then at the render shape
     args = k2_args("eikonal")
     eik_ms = cuda_ms(lambda: F.BACKWARD.launch(*args))
     B, N = args[0].shape[:2]
     eik_bound, eik_by = bound(FLOP_K2 * B * N, k2_bytes(B, N))
+    pts_e, lat_e, cots_e = shapes["eikonal"]
+    pe = pts_e.clone().requires_grad_(True)
+    out = F._forward_plain(*F.prepare_fused_params(net, lat_e), pe,
+                           *F._arch(net), True, True)
+    eik_plain_ms = cuda_ms(lambda: torch.autograd.backward(
+        out, cots_e, retain_graph=True))
+    del out
     log(f"[k2] B={B} N={N} (eikonal): K2 alone {eik_ms:.4f} ms (bound "
         f"{eik_bound:.4f} ms, {eik_by}, {100 * eik_bound / eik_ms:.1f}% of "
-        f"it reached)")
+        f"it reached), plain backward {eik_plain_ms:.4f} ms")
     args = k2_args("render")
     pts, lat, cots = shapes["render"]
     B, N = pts.shape[:2]
@@ -1389,12 +1485,13 @@ def main():
     log(f"[setup] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    cuda_lib.build_kernels()
+    # compiled afresh even where `build/` holds them, so that phases 2 and 3
+    # read this run's ptxas log
+    cuda_lib.build_kernels(force=True)
     log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} and {SOURCE_NN} "
         f"(three nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
     for lib in cuda_lib.libraries():
-        if lib.ptxas_log:
-            log(lib.ptxas_log.strip())
+        log(lib.ptxas_log.strip())
     warnings = []
     port_warn = port_log.warn
 

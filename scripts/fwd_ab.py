@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time versions of the fused SDF forward (K1 with tangents, K3 without)
+against each other on one NVIDIA GPU, at the shapes the port's paths give it.
+
+    git show <commit>:shapeclipper_torch/csrc/fused_sdf_fwd.cu > build/old.cu
+    python scripts/fwd_ab.py --build new=shapeclipper_torch/csrc/fused_sdf_fwd.cu \
+        --build old=build/old.cu
+
+Each `--build LABEL=SOURCE` is compiled by nvcc for sm_90a (all at once,
+through `ops/cuda_lib.py::CudaLibrary.build`) into `build/fwd_ab/`; every
+source must export the C entry `scl_fused_sdf_fwd` of
+`csrc/fused_sdf_fwd.cu`. At each
+of `chip_smoke.py`'s phase-2 shapes (`forward_cases`: K1 at the serving
+render's 1 x 262,144 and the training render's 12 x 32,768, K3 at vox 64 and
+vox 100), every build is held against the plain PyTorch version
+(`chip_smoke.check_forward`) and then timed by CUDA events (`cuda_ms`) in
+two rounds, the builds in order and then in reverse (a, b, c, c, b, a).
+Prints each build's registers and spills, times, their mean and the share of
+the bound (`chip_smoke.forward_bound`), then one JSON line of the results.
+Imports no JAX.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke as cs  # noqa: E402
+
+OUT = os.path.join(REPO, "build", "fwd_ab")
+
+
+def version_class():
+    from shapeclipper_torch.ops.fused_sdf import FusedSdfKernel
+
+    class Version(FusedSdfKernel):
+        """One version of the forward's source, launched through the port's
+        wrapper and bound by its C entry alone (an earlier design need not
+        export the port's layout and tile checks)."""
+
+        stem = "fwd_ab"
+
+        def __init__(self, source):
+            super().__init__(OUT)
+            self.source = source
+
+        def _bind(self, lib):
+            fn = lib.scl_fused_sdf_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+    return Version
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--build", action="append", required=True,
+                    help="LABEL=SOURCE")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("fwd_ab.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    Version = version_class()
+    labels, versions = [], []
+    for spec in args.build:
+        label, source = spec.split("=", 1)
+        labels.append(label)
+        versions.append(Version(os.path.join(REPO, source)))
+    with ThreadPoolExecutor(len(versions)) as pool:
+        for done in [pool.submit(v.build, True) for v in versions]:
+            done.result()
+    card = cs.card_line()
+    print(f"card: {card}")
+    for label, v in zip(labels, versions):
+        for what, tag in (("K1", "ILb1"), ("K3", "ILb0")):
+            regs, st, ld = cs.ptxas_usage(v.ptxas_log,
+                                          "fused_sdf_fwd_kernel" + tag)
+            print(f"[{label}] ptxas {what}: {regs} registers, {st}/{ld} "
+                  "bytes spilled")
+
+    dev = torch.device("cuda")
+    net, cases = cs.forward_cases(cs.load_opt(), dev)
+    results = {}
+    with torch.inference_mode():
+        for _, cg, pts, lat in cases:
+            B, N = pts.shape[:2]
+            name = f"{'K1' if cg else 'K3'} {B} x {N:,}"
+            weights, bias = F.pack_fused_params(
+                *F.prepare_fused_params(net, lat))
+            want = F.fused_sdf_forward_reference(net, pts, lat, cg)
+
+            def run(v):
+                sdf, feat, grad = v.launch(pts, weights, bias, cg, True)
+                return sdf[..., None], feat, grad
+
+            errs = {}
+            for label, v in zip(labels, versions):
+                got = run(v)
+                torch.cuda.synchronize()
+                errs[label] = cs.check_forward(got, want,
+                                               f"({label} at {name})")
+            times = {label: [] for label in labels}
+            order = list(zip(labels, versions))
+            for rnd in (order, order[::-1]):
+                for label, v in rnd:
+                    times[label].append(cs.cuda_ms(lambda: run(v)))
+            _, (bound_ms, bound_by) = cs.forward_bound(B, N, cg)
+            print(f"{name}: bound {bound_ms:.4f} ms ({bound_by})")
+            results[name] = {"bound_ms": bound_ms}
+            for label in labels:
+                ms = sum(times[label]) / 2
+                print(f"  [{label}] {times[label][0]:.4f} / "
+                      f"{times[label][1]:.4f} ms (mean {ms:.4f}; "
+                      f"{100 * bound_ms / ms:.1f}% of the bound); max abs err "
+                      + ", ".join(f"{p} {e:.3e}" for p, e in
+                                  errs[label].items()))
+                results[name][label] = dict(ms=times[label], err=errs[label])
+    print(json.dumps({"card": card, "results": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Where a fused SDF kernel's time goes inside a block, on one NVIDIA GPU.
+
+    python scripts/sdf_segments.py --kernel fwd [--B 12] [--N 32768]
+        [--no-grad] [--source FILE]
+    python scripts/sdf_segments.py --kernel bwd [--B 12] [--N 32768]
+
+Builds the forward (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`, K1 / K3) or
+the backward (`fused_sdf_bwd.cu`, K2) once more, or another version of it
+given by `--source` (an earlier design, say), into `build/sdf_segments/`,
+with a clock64() read after every __syncthreads() from the top of the
+source's namespace to the end of the main kernel (so barriers in helper
+functions count too): thread 0 of block 0 adds the cycles since its
+previous read to the counter of the barrier that ends the segment (segments
+inside the tile loop sum over tiles, and those in helpers over calls). One
+launch at B x N (default: the flagship render shape) is timed by CUDA
+events, then one instrumented launch prints each segment's cycles, its share
+and the source line of the barrier that ends it. The instrumented build is
+only for this breakdown; the port never loads it. Imports no JAX.
+"""
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "shapeclipper_torch", "csrc")
+KERNELS = {"fwd": ("fused_sdf_fwd.cu", "fused_sdf_fwd_kernel("),
+           "bwd": ("fused_sdf_bwd.cu", "fused_sdf_bwd_kernel(")}
+OUT = os.path.join(REPO, "build", "sdf_segments")
+MAX_SEGMENTS = 64
+
+
+def instrument(src, kernel):
+    """-> (instrumented source, [source line of each barrier]) for the
+    barriers between `namespace {` and the end of the body of `kernel`."""
+    begin = src.index("namespace {")
+    start = src.index(kernel, src.index("__global__", begin))
+    body = src.index("{", src.index(")", start)) + 1
+    depth, end = 1, body
+    while depth:
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        end += 1
+    lines, pieces, last = [], [], begin
+    for m in re.finditer(r"__syncthreads\(\);", src[begin:end]):
+        pos = begin + m.end()
+        lines.append(src.count("\n", 0, pos) + 1)
+        pieces += [src[last:pos], f" SCL_SEGMENT({len(lines) - 1});"]
+        last = pos
+    if not lines or len(lines) > MAX_SEGMENTS:
+        raise RuntimeError(f"{len(lines)} barriers in the kernel")
+    head = (f"__device__ unsigned long long scl_segments[{MAX_SEGMENTS}];\n"
+            "__device__ unsigned long long scl_last_;\n"
+            "#define SCL_IS_TIMER (threadIdx.x == 0 && blockIdx.x == 0)\n"
+            "#define SCL_SEGMENT(i) if (SCL_IS_TIMER)"
+            " { const unsigned long long now_ = clock64();"
+            " scl_segments[i] += now_ - scl_last_; scl_last_ = now_; }\n")
+    out = src[:begin] + head + "".join(pieces) + src[last:]
+    # the timer starts when the main kernel starts
+    open_brace = out.index("{", out.index(")", out.index(
+        kernel, out.index("__global__", begin + len(head))))) + 1
+    out = (out[:open_brace] + "\n  if (SCL_IS_TIMER) scl_last_ = clock64();"
+           + out[open_brace:])
+    out += ('\nextern "C" int scl_segments_read(void* out, int reset) {\n'
+            f"  static unsigned long long zero[{MAX_SEGMENTS}];\n"
+            "  return reset ? (int)cudaMemcpyToSymbol(scl_segments, zero,\n"
+            "                                        sizeof(zero))\n"
+            "               : (int)cudaMemcpyFromSymbol(out, scl_segments,\n"
+            "                                          sizeof(zero));\n}\n")
+    return out, lines
+
+
+def build(src, name):
+    os.makedirs(OUT, exist_ok=True)
+    cu = os.path.join(OUT, f"{name}_segments.cu")
+    so = os.path.join(OUT, f"lib{name}_segments.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "nvcc")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", so, cu], check=True)
+    return ctypes.CDLL(so)
+
+
+def launcher(kind, lib, net, B, N, grad, dev):
+    """-> a function that launches the instrumented kernel once."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    with torch.no_grad():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    f32 = dict(device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "fwd":
+        fn = lib.scl_fused_sdf_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        bufs = [pts, weights, bias, torch.empty(B, N, **f32),
+                torch.empty(B, N, 64, **f32), torch.empty(B, N, 3, **f32)]
+        args = (B, N, int(grad), 1, stream)
+    else:
+        fn = lib.scl_fused_sdf_bwd
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+        grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+                   B * -(-N // F.BWD_TILE_POINTS))
+        bufs = [pts, weights, bias, cots[0][..., 0].contiguous(), cots[1],
+                cots[2], torch.empty(B, N, 3, **f32),
+                torch.empty(F.NUM_WEIGHTS, **f32),
+                torch.empty(B, F.BIAS_WIDTH, **f32),
+                torch.empty(grid, F.NUM_WEIGHTS, **f32),
+                torch.empty(grid, B, F.BIAS_WIDTH, **f32),
+                torch.empty(grid, F.BWD_STASH_FLOATS, **f32)]
+        args = (B, N, grid, 1, stream)
+
+    def launch():
+        err = fn(*[b.data_ptr() for b in bufs], *args)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+    return launch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="bwd")
+    ap.add_argument("--source", help="the .cu file to instrument (default: "
+                    "the repository's source of --kernel)")
+    ap.add_argument("--label", default=None, help="name of the build")
+    ap.add_argument("--B", type=int, default=12)
+    ap.add_argument("--N", type=int, default=32768)
+    ap.add_argument("--no-grad", action="store_true",
+                    help="the forward without tangents (K3)")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("sdf_segments.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from shapeclipper_torch.models.implicit import SDFNetwork
+
+    file, kernel = KERNELS[args.kernel]
+    source = args.source or os.path.join(CSRC, file)
+    with open(source) as f:
+        src, lines = instrument(f.read(), kernel)
+    label = args.label or args.kernel
+    lib = build(src, label)
+    lib.scl_segments_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+    dev = torch.device("cuda")
+    net = SDFNetwork(geometric_init=False,
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    B, N = args.B, args.N
+    launch = launcher(args.kernel, lib, net, B, N, not args.no_grad, dev)
+    launch()
+    torch.cuda.synchronize()
+    if lib.scl_segments_read(None, 1):
+        raise RuntimeError("could not reset the counters")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    end.synchronize()
+    cycles = (ctypes.c_ulonglong * MAX_SEGMENTS)()
+    if lib.scl_segments_read(ctypes.addressof(cycles), 0):
+        raise RuntimeError("could not read the counters")
+    total = sum(cycles[:len(lines)])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    what = f"{args.kernel}{' (no tangents)' if args.no_grad else ''}"
+    print(f"{label}: {what} instrumented at B={B} N={N}: "
+          f"{start.elapsed_time(end):.4f} ms; block 0: {total} cycles; {card}")
+    name = os.path.basename(source)
+    for i, line in enumerate(lines):
+        print(f"  segment ending at {name}:{line}: {cycles[i]} cycles "
+              f"({100 * cycles[i] / total:.1f}%)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

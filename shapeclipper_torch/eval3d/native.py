@@ -1,28 +1,77 @@
 """ctypes bindings for the native host kernels (native/scl_native.cpp).
 
-Build: `make -C native` (attempted automatically once per process). Every
-entry point has a pure-numpy fallback, so the framework works without a
-toolchain; the native path accelerates the host side of evaluation
-(isosurface extraction, mask distance transforms).
+The port builds its own copy of the library with `g++`, once per content
+hash of the source, into `build/native/` at the repository root
+(gitignored), at first use. The build holds an exclusive `fcntl` lock on
+`build/native/.lock`, writes to a temporary name and renames it into
+place, so a process that loads the library (each pytest worker, say) finds
+it either complete or absent, never half written. Every entry point has a
+pure-numpy fallback, so the framework works without a toolchain; a library
+that was built but does not load is logged, not passed over silently.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
+from ..utils.log import log
+
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", ".."))
-# installed (non-repo) layouts can point at a prebuilt library explicitly
-_LIB_PATH = os.environ.get(
-    "SCL_NATIVE_LIB",
-    os.path.join(_REPO_ROOT, "native", "build", "libscl_native.so"))
+_SOURCE = os.path.join(_REPO_ROOT, "native", "scl_native.cpp")
+BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
+_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared"]
 
 _lib = None
 _tried = False
+
+
+def library_path(build_dir=None):
+    """The library built from the current source (named by its hash)."""
+    build_dir = build_dir or BUILD_DIR
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return os.path.join(build_dir, f"libscl_native_{digest}.so")
+
+
+def build():
+    """Compile the library into BUILD_DIR unless it is there; -> its path,
+    or None when the compiler is missing or fails. Safe across processes:
+    the compile runs under an exclusive lock and the file appears by one
+    rename."""
+    path = library_path()
+    if os.path.isfile(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.isfile(path):            # another process built it
+                return path
+            fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                subprocess.run([os.environ.get("CXX", "g++"), *_CXXFLAGS,
+                                "-o", tmp, _SOURCE], check=True,
+                               capture_output=True, timeout=300)
+                os.replace(tmp, path)
+            except (OSError, subprocess.SubprocessError) as e:
+                log.warn(f"native library not built ({e}); the numpy "
+                         "fallbacks run instead")
+                return None
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
 
 
 def _load():
@@ -30,19 +79,15 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        if os.environ.get("SCL_NO_NATIVE"):
-            return None
-        try:
-            subprocess.run(["make", "-C", os.path.join(_REPO_ROOT, "native")],
-                           check=True, capture_output=True, timeout=120)
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
+    # installed (non-repo) layouts can point at a prebuilt library explicitly
+    path = os.environ.get("SCL_NATIVE_LIB") or build()
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        log.warn(f"native library {path} did not load ({e}); the numpy "
+                 "fallbacks run instead")
         return None
     lib.marching_tetrahedra.restype = ctypes.c_int
     lib.marching_tetrahedra.argtypes = [

@@ -23,6 +23,7 @@ from `generator`.
 from __future__ import annotations
 
 import copy
+import os
 
 import torch
 from torch import nn
@@ -34,7 +35,8 @@ from ..utils.easydict import EasyDict as edict
 from .estimator import Estimator
 from .implicit import Density, RGBNetwork, SDFNetwork
 from .layers import LatentProjection, batch_stats_frozen
-from .resnet import make_encoder
+from ..utils.log import log
+from .resnet import load_pretrained_npz, make_encoder
 
 # canonical-frame permutation applied after Rz Rx Ry (reference
 # `model/graph.py:276-281`)
@@ -82,6 +84,31 @@ class Graph(nn.Module):
         if opt.loss_weight.get("category_reg") is not None:
             raise NotImplementedError("loss_weight.category_reg (the "
                                       "category centres) is not ported")
+
+    def load_pretrained_encoders(self):
+        """ImageNet-pretrained initialisation from converted .npz files, as
+        the JAX package's `Graph._load_pretrained_encoders`: the encoder
+        from `arch.enc_weights` or `weights/{arch.enc_network}.npz` when
+        `arch.enc_pretrained` is set, the estimator's ResNet18 from
+        `arch.est_weights` or `weights/resnet18.npz` always; `fc.*` is
+        skipped. A missing file leaves the seeded initialisation and
+        warns."""
+        arch = self.opt.arch
+        jobs = []
+        if arch.get("enc_pretrained"):
+            jobs.append(("encoder", self.encoder,
+                         arch.get("enc_weights")
+                         or f"weights/{arch.enc_network}.npz"))
+        jobs.append(("estimator", self.estimator.feature_extractor,
+                     arch.get("est_weights") or "weights/resnet18.npz"))
+        for top, module, path in jobs:
+            if not os.path.isfile(path):
+                log.warn(f"pretrained weights {path} missing — {top} trains "
+                         f"from scratch (convert weights with "
+                         f"scripts/convert_weights.py; see RUNBOOK.md)")
+                continue
+            load_pretrained_npz(module, path, skip_fc=True)
+            log.info(f"loaded pretrained {top} weights from {path}")
 
     def with_opt(self, opt):
         """A Graph that shares every parameter and buffer with this one but

@@ -9,6 +9,7 @@ package's NHWC: images enter as [B, H, W, 3] and are permuted to NCHW here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -97,3 +98,27 @@ def make_encoder(opt, generator=None):
     if opt.arch.enc_network == "resnet18":
         return resnet18(num_classes=out_dim, generator=generator)
     raise ValueError(opt.arch.enc_network)
+
+
+def load_pretrained_npz(module, path, skip_fc=True):
+    """Copy a converted torchvision state_dict (an .npz with torchvision's
+    names, `scripts/convert_weights.py`) into `module`, name for name: the
+    port's ResNets use those names and layouts, so nothing is transposed.
+    `fc.*` is skipped with `skip_fc`, `num_batches_tracked` always (the JAX
+    package keeps no such counter). An entry the module does not have, or
+    one of another shape, raises."""
+    state = module.state_dict()
+    with np.load(path) as data:
+        for name in data.files:
+            if (skip_fc and name.startswith("fc.")) \
+                    or name.endswith("num_batches_tracked"):
+                continue
+            if name not in state:
+                raise KeyError(f"{path}: {name} has no counterpart in "
+                               f"{type(module).__name__}")
+            value = torch.from_numpy(np.asarray(data[name], np.float32))
+            if value.shape != state[name].shape:
+                raise ValueError(f"{path}: {name} is {tuple(value.shape)}, "
+                                 f"the module's {tuple(state[name].shape)}")
+            with torch.no_grad():
+                state[name].copy_(value)

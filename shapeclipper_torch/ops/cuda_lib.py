@@ -50,13 +50,15 @@ class CudaLibrary:
             digest = hashlib.sha1(f.read()).hexdigest()[:12]
         return os.path.join(self.build_dir, f"lib{self.stem}_{digest}.so")
 
-    def build(self):
-        """Compile the source (once per content hash) and load it."""
+    def build(self, force=False):
+        """Compile the source (once per content hash, or again when `force`)
+        and load it; `ptxas_log` holds nvcc's register report of a compile
+        in this process."""
         if self.lib is not None:
             return self.lib
         path = self.library_path()
         t0 = time.perf_counter()
-        if not os.path.isfile(path):
+        if force or not os.path.isfile(path):
             os.makedirs(self.build_dir, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
             os.close(fd)
@@ -87,10 +89,10 @@ def libraries():
     return (fused_sdf.KERNEL, fused_sdf.BACKWARD, chamfer.KERNEL)
 
 
-def build_kernels():
+def build_kernels(force=False):
     """Build every library, one thread (and so one nvcc run) each, all
-    started together."""
+    started together; `force` compiles even a library `build/` holds."""
     libs = libraries()
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
-        for done in [pool.submit(lib.build) for lib in libs]:
+        for done in [pool.submit(lib.build, force) for lib in libs]:
             done.result()

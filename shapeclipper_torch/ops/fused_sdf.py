@@ -43,6 +43,8 @@ KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
                    latent_dim=64)
 NUM_WEIGHTS = 28032
 BIAS_WIDTH = 5 * 64 + 65
+# K1's and K3's tile in points (`csrc/fused_sdf_fwd.cu`: Smem::kPoints)
+FWD_TILE_POINTS = {"grad": 64, "nograd": 256}
 # K2's tile (`csrc/fused_sdf_bwd.cu`: kPoints) and the floats of its
 # per-block pre-activation stash (5 hidden layers x 128 rows x 64)
 BWD_TILE_POINTS = 32
@@ -194,6 +196,11 @@ class FusedSdfKernel(CudaLibrary):
         lib.scl_fused_sdf_num_weights.restype = ctypes.c_int
         if lib.scl_fused_sdf_num_weights() != NUM_WEIGHTS:
             raise RuntimeError("fused SDF library packs a different layout")
+        lib.scl_fused_sdf_fwd_tile_points.argtypes = [ctypes.c_int]
+        lib.scl_fused_sdf_fwd_tile_points.restype = ctypes.c_int
+        for key, grad in (("grad", 1), ("nograd", 0)):
+            if lib.scl_fused_sdf_fwd_tile_points(grad) != FWD_TILE_POINTS[key]:
+                raise RuntimeError("fused SDF library walks a different tile")
 
     def launch(self, points, weights, biases, compute_grad, force_symmetry):
         """points [B,N,3], weights [28032], biases [B,385] (float32,

@@ -129,10 +129,13 @@ class Runner:
 
     def build_networks(self, opt):
         """Graph at the training resolution + a view of it at
-        eval.image_size; weights from a generator seeded with opt.seed."""
+        eval.image_size; weights from a generator seeded with opt.seed, then
+        the pretrained encoders where their .npz files exist."""
         log.info("building networks...")
         generator = torch.Generator().manual_seed(opt.seed or 0)
-        self.graph = Graph(opt, generator=generator).to(self.device).eval()
+        graph = Graph(opt, generator=generator)
+        graph.load_pretrained_encoders()
+        self.graph = graph.to(self.device).eval()
         opt_eval = opt.deepcopy()
         opt_eval.H, opt_eval.W = opt.eval.image_size
         self.graph_eval = self.graph.with_opt(opt_eval)

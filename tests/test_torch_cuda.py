@@ -60,8 +60,8 @@ def _case(dev, N, geometric_init, seed=0):
 @pytest.mark.parametrize("geometric_init", [True, False])
 @pytest.mark.parametrize("compute_grad", [True, False])
 def test_kernel_matches_plain(dev, N, geometric_init, compute_grad):
-    """N = 1, 33 and 1000 leave ragged tails for both tile sizes (32 points
-    with tangents, 128 without); each call is exactly one launch."""
+    """N = 1, 33 and 1000 leave ragged tails for both tile sizes
+    (`F.FWD_TILE_POINTS`); each call is exactly one launch."""
     net, pts, lat = _case(dev, N, geometric_init)
     key = "grad" if compute_grad else "nograd"
     with torch.inference_mode():
@@ -100,6 +100,93 @@ def test_wrapper_refuses_gradients_and_bad_inputs(dev):
 
 
 # ---------------------------------------------------------------- K1 + K2
+def _fwd_case(dev, B, N, seed=0, plane=False):
+    """Dense weights (geometric_init off), points in [-1, 1]^3 (every third
+    on the plane x0 = 0 with `plane`), one latent per batch row."""
+    g = torch.Generator().manual_seed(seed)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev).eval()
+    pts = torch.rand(B, N, 3, generator=g) * 2 - 1
+    if plane:
+        pts[:, ::3, 0] = 0.0
+    lat = torch.randn(B, 64, generator=g) * 0.3
+    return net, pts.to(dev), lat.to(dev)
+
+
+def _fwd_check(net, pts, lat, compute_grad, ref_dtype=torch.float32):
+    """K1 / K3 through `fused_sdf_forward` against the plain version, run in
+    `ref_dtype`, at the sdf / feature and gradient tolerances."""
+    with torch.inference_mode():
+        got = F.fused_sdf_forward(net, pts, lat, compute_grad)
+        ref_net = copy.deepcopy(net).to(ref_dtype)
+        want = F.fused_sdf_forward_reference(
+            ref_net, pts.to(ref_dtype), lat.to(ref_dtype), compute_grad)
+        torch.cuda.synchronize()
+    B, N = pts.shape[:2]
+    assert got[0].shape == (B, N, 1) and got[1].shape == (B, N, 64)
+    for name, k, r, tol in (("sdf", got[0], want[0], SDF_TOL),
+                            ("feat", got[1], want[1], SDF_TOL),
+                            ("grad", got[2], want[2], GRAD_TOL)):
+        if r is None:
+            assert k is None
+            continue
+        assert torch.isfinite(k).all(), name
+        torch.testing.assert_close(k.to(ref_dtype), r, **tol, msg=name)
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_forward_kernel_tile_edges(dev, compute_grad, offset):
+    """N = tile - 1, tile and tile + 1 points of the instantiation's tile
+    (`F.FWD_TILE_POINTS`): a partial, a full, and a full plus one-point
+    tile."""
+    N = F.FWD_TILE_POINTS["grad" if compute_grad else "nograd"] + offset
+    _fwd_check(*_fwd_case(dev, 1, N, seed=N), compute_grad)
+
+
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_forward_kernel_ragged_batch(dev, compute_grad):
+    """B = 3 with a ragged N: blocks take tiles of three batch rows, each
+    with a partial last tile."""
+    N = 2 * F.FWD_TILE_POINTS["grad" if compute_grad else "nograd"] + 37
+    _fwd_check(*_fwd_case(dev, 3, N, seed=5), compute_grad)
+
+
+@pytest.mark.parametrize("force_symmetry", [True, False])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_forward_kernel_symmetry_plane(dev, compute_grad, force_symmetry):
+    """Points on x0 = 0, where sign(0) = +1 in both versions, with the |x|
+    symmetry on and off."""
+    net, pts, lat = _fwd_case(dev, 2, 500, seed=3, plane=True)
+    net.force_symmetry = force_symmetry
+    _fwd_check(net, pts, lat, compute_grad)
+
+
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_forward_kernel_is_deterministic(dev, compute_grad):
+    """Two launches on the same inputs are bitwise equal (no atomics, a
+    fixed order of every sum)."""
+    net, pts, lat = _fwd_case(dev, 3, 5000, seed=9)
+    with torch.inference_mode():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+        first = F.KERNEL.launch(pts, weights, bias, compute_grad, True)
+        second = F.KERNEL.launch(pts, weights, bias, compute_grad, True)
+        torch.cuda.synchronize()
+    for name, a, b in zip(("sdf", "feat", "grad"), first, second):
+        if a is None:
+            assert b is None and not compute_grad
+            continue
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+
+
+def test_forward_kernel_render_shape(dev):
+    """K1 at the flagship training render's shape, 12 x 32,768, against the
+    plain version in float64 (the rule for any K1 / K2 redesign: at this
+    size the float32 plain version is not an oracle)."""
+    _fwd_check(*_fwd_case(dev, 12, 32768, seed=11), True,
+               ref_dtype=torch.float64)
+
+
 def _train_grads(net, pts, lat, cots, kernel, detach_latent=False,
                  dtype=torch.float32):
     """Gradients of <cotangents, (sdf, feat, grad)> w.r.t. the parameters,

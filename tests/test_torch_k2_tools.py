@@ -1,7 +1,8 @@
-"""The host-side helpers around the fused SDF backward kernel K2
-(`shapeclipper_torch/csrc/fused_sdf_bwd.cu`), on the CPU: the wrapper's tile
-and stash constants against the source, `chip_smoke.py`'s reading of the
-ptxas log, and `scripts/k2_segments.py`'s instrumentation of the kernel."""
+"""The host-side helpers around the fused SDF kernels K2 and K1 / K3
+(`shapeclipper_torch/csrc/fused_sdf_bwd.cu`, `fused_sdf_fwd.cu`), on the
+CPU: the wrapper's tile and stash constants against the sources,
+`chip_smoke.py`'s reading of the ptxas log, and `scripts/sdf_segments.py`'s
+instrumentation of the backward and forward kernels."""
 
 import os
 import re
@@ -14,7 +15,7 @@ from shapeclipper_torch.ops import fused_sdf as F
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
-import k2_segments  # noqa: E402
+import sdf_segments  # noqa: E402
 
 PTXAS_LOG = """\
 ptxas info    : 24 bytes gmem
@@ -47,6 +48,18 @@ def test_wrapper_constants_match_the_kernel():
         == F.BWD_STASH_FLOATS
 
 
+def test_forward_tile_matches_the_kernel():
+    """The forward's tile in points (`F.FWD_TILE_POINTS`, which the `cuda`
+    tests' tile edges use and the library checks when it is bound): one
+    group of kG rows with tangents, four without."""
+    with open(F._SOURCE) as f:
+        const = {m.group(1): m.group(2) for m in re.finditer(
+            r"constexpr int (\w+) = ([^;]+);", f.read())}
+    G = int(const["kG"])
+    assert const["kRows"] == "4 * kG"
+    assert F.FWD_TILE_POINTS == {"grad": G, "nograd": 4 * G}
+
+
 @pytest.mark.parametrize("kernel,want", [
     ("fused_sdf_bwd_kernel", (212, 8, 12)),
     ("reduce_partials_kernel", (32, 0, 0)),
@@ -56,18 +69,19 @@ def test_ptxas_usage_reads_each_entry_function(kernel, want):
 
 
 def test_ptxas_usage_without_a_log_or_the_kernel():
-    assert chip_smoke.ptxas_usage(None, "fused_sdf_bwd_kernel") is None
+    """A library loaded from an earlier build has no log: the spill check
+    fails rather than pass unread."""
+    with pytest.raises(AssertionError, match="no ptxas log"):
+        chip_smoke.ptxas_usage(None, "fused_sdf_bwd_kernel")
     with pytest.raises(AssertionError, match="no ptxas usage"):
         chip_smoke.ptxas_usage(PTXAS_LOG, "nn_kernel")
 
 
-def test_segments_mark_every_barrier_of_the_main_kernel():
-    """One counter after each __syncthreads() of fused_sdf_bwd_kernel, with
-    that barrier's source line; the rest of the file is unchanged."""
-    src = _source()
-    out, lines = k2_segments.instrument(src)
-    body = src[src.index("fused_sdf_bwd_kernel("):
-               src.index("__global__ void reduce_partials_kernel")]
+def _check_instrumented(src, kernel, body_end):
+    """One counter after each __syncthreads() from the namespace to the end
+    of `kernel`, with that barrier's source line; the rest is unchanged."""
+    out, lines = sdf_segments.instrument(src, kernel + "(")
+    body = src[src.index("namespace {"):body_end]
     assert len(lines) == body.count("__syncthreads();") > 0
     assert lines == sorted(lines)
     src_lines = src.split("\n")
@@ -75,7 +89,27 @@ def test_segments_mark_every_barrier_of_the_main_kernel():
     for i in range(len(lines)):
         assert f"__syncthreads(); SCL_SEGMENT({i});" in out
     assert out.count("SCL_SEGMENT(") == len(lines) + 1   # + the #define
+    assert out.count("scl_last_ = clock64();") == 1     # the timer starts
     assert 'extern "C" int scl_segments_read' in out
     kept = re.sub(r" SCL_SEGMENT\(\d+\);", "", out)
-    assert src[src.index("namespace {"):] in kept.replace(
-        "\n  unsigned long long scl_last_ = clock64();", "")
+    kept = kept.replace("\n  if (SCL_IS_TIMER) scl_last_ = clock64();", "")
+    assert src[src.index("namespace {"):] in kept
+    return lines
+
+
+def test_segments_mark_every_barrier_of_the_main_kernel():
+    """K2: the barriers of fused_sdf_bwd_kernel (its helpers have none)."""
+    src = _source()
+    lines = _check_instrumented(
+        src, "fused_sdf_bwd_kernel",
+        src.index("__global__ void reduce_partials_kernel"))
+    kernel_start = src.index("fused_sdf_bwd_kernel(")
+    assert min(lines) > src.count("\n", 0, kernel_start)
+
+
+def test_segments_mark_every_barrier_of_the_forward_kernel():
+    """K1 / K3: the barriers of fused_sdf_fwd_kernel, helpers included."""
+    with open(F._SOURCE) as f:
+        src = f.read()
+    _check_instrumented(src, "fused_sdf_fwd_kernel",
+                        src.index("cudaError_t launch("))
