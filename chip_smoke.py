@@ -38,9 +38,13 @@ no CPU fallback):
      `Runner.evaluate` before and after (the Chamfer distance must fall);
   7. K4 / K5 (nearest-neighbour sweep) against their plain PyTorch version:
      ragged 2 x (1,000 vs 3,001), 4 x 8,192, identical clouds and duplicated
-     points, 1 x 100,000 x 100,000 and 1 x 100,000 x 2,048, with CUDA-event
-     times at both of those shapes beside the plain version, `torch.cdist`
-     as the library yardstick, and the bound;
+     points (the copies in different chunks of a split sweep), a ragged
+     split 3 x (257 vs 20,001), 1 x 100,000 x 100,000 and 1 x 100,000 x
+     2,048 (the evaluation's shape, whose 2,048-row direction splits B's
+     cloud into chunks); at the last three the chosen chunks bitwise equal
+     to `splits=1` and to a repeat; CUDA-event times at the last two shapes
+     with the chosen chunks and with `splits=1` in turns, beside the plain
+     version, `torch.cdist` as the library yardstick, and the bound;
   8. `Runner.evaluate` at the full eval width of options/pix3d/config.yaml
      (64^2 render, vox 64, 100,000 points, six F-score thresholds) over the
      8 synthetic test samples with dumps: launch counts reset just before
@@ -109,6 +113,8 @@ NN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 # elements of one [rows, N2] block of the plain version when timed on the card
 PLAIN_BLOCK_CARD = 1 << 26
 N_NN = 100_000
+N_GT = 2048                     # the synthetic GT cloud (data/synthetic.py)
+NN_TIMED_CALLS = 10             # K4 / K5 calls between two CUDA events
 NN_FLOP_PER_PAIR = 8            # 3 subtractions, 3 multiplies, 2 additions
 # the card-vs-CPU evaluation: per-sample CD rtol, F-score absolute
 EVAL_CD_RTOL, EVAL_F_ATOL = 1e-4, 1e-3
@@ -145,8 +151,10 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs=10, warmup=3):
-    """Median of per-call CUDA-event times after warm-up, in ms."""
+def cuda_ms(fn, runs=10, warmup=3, calls=1):
+    """Median of per-call CUDA-event times after warm-up, in ms; each of the
+    `runs` times `calls` calls between its two events (so that a short call
+    is timed on the card, not by the host's launch overhead)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -155,10 +163,11 @@ def cuda_ms(fn, runs=10, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -427,11 +436,12 @@ def serve(runner, opt, image, stages=None):
     return var, level, mesh
 
 
-def profiled(tag, what, fn, n_top):
+def profiled(tag, what, fn, n_top, watch=()):
     """Run `fn` once under torch.profiler and log its wall time, the device
     busy time (kernels, copies and sets; user-annotation ranges such as
     `Optimizer.step#Adam.step` span kernels already counted and are left
-    out), the busy share and the top device events -> (wall ms, busy ms or
+    out), the busy share, the top device events and, in or out of the top,
+    the events whose name holds a string of `watch` -> (wall ms, busy ms or
     None when the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -459,6 +469,10 @@ def profiled(tag, what, fn, n_top):
         + "; annotation ranges left out: "
         + (", ".join(f"{k[:40]} {v:.2f} ms" for k, (v, _) in ranges.items())
            or "none"))
+    if watch:
+        log(f"[{tag}] watched: " + ("; ".join(
+            f"{k[:60]} {v:.3f} ms x{c}" for k, (v, c) in busy.items()
+            if any(w in k for w in watch)) or "none in the trace"))
     return wall_ms, total
 
 
@@ -1073,67 +1087,122 @@ def phase_chamfer():
         if float(C.chamfer_dists_sq(x, x)[0].abs().max()) != 0.0:
             raise AssertionError("K4 identical clouds: distance is not 0")
     log("[k4/k5] identical clouds (distance 0, argmin = self) and "
-        "duplicated points (lowest index): exact")
+        "duplicated points (lowest index; the copies in different chunks of "
+        "the split sweep): exact")
 
-    # the timing shape
+    # a ragged split: B's cloud in chunks, the last one short
+    x1, x2 = clouds(3, 257, 20_001)
+    e4, e5, ties = nn_case("ragged split 3 x (257 vs 20,001)", x1, x2)
+    worst4, worst5 = max(worst4, e4), max(worst5, e5)
+    splits = split_vs_one(x1, x2, "3 x (257 vs 20,001)")
+    log(f"[k4/k5] ragged split 3 x (257 vs 20,001): max abs err K4 "
+        f"{e4:.3e}, K5 {e5:.3e}, argmin near-ties {ties}; splits {splits} "
+        f"(A -> B, B -> A), bitwise equal to splits=1 and to a repeat")
+
+    # the timing shape, then the evaluation's: 100,000 predicted points
+    # against the synthetic GT's 2,048 (the 2,048-row direction splits);
+    # phase 8 checks the clouds of the evaluated samples themselves
     x1, x2 = clouds(1, N_NN, N_NN)
-    e4, e5, ties = nn_case(f"1 x {N_NN:,} x {N_NN:,}", x1, x2)
-    worst4, worst5 = max(worst4, e4), max(worst5, e5)
+    gt = clouds(1, N_GT, 1)[0]
+    shapes = {"full": (x1, x2, f"1 x {N_NN:,} x {N_NN:,}"),
+              "eval": (x1, gt, f"1 x {N_NN:,} x {N_GT:,} (the evaluation's "
+                               "shape)")}
+    times = {}
+    for key, (a, b, label) in shapes.items():
+        e4, e5, ties = nn_case(label, a, b)
+        worst4, worst5 = max(worst4, e4), max(worst5, e5)
+        splits = split_vs_one(a, b, label)
+        if key == "eval" and splits[1] < 2:
+            raise AssertionError(f"the {N_GT:,}-row direction at {label} "
+                                 f"does not split: {splits}")
+        log(f"[k4/k5] {label}: max abs err K4 {e4:.3e}, K5 {e5:.3e}, argmin "
+            f"near-ties {ties}; splits {splits} (A -> B, B -> A), bitwise "
+            f"equal to splits=1 and to a repeat")
+        times[key] = split_ab(a, b)
     with torch.no_grad():
-        k4_ms = cuda_ms(lambda: C.chamfer_dists_sq(x1, x2))
-        k5_ms = cuda_ms(lambda: C.chamfer_distance_sq(x1, x2))
-        plain4_ms = cuda_ms(lambda: (C.nn_plain(x1, x2, False,
-                                                PLAIN_BLOCK_CARD),
-                                     C.nn_plain(x2, x1, False,
-                                                PLAIN_BLOCK_CARD)),
-                            runs=3, warmup=1)
-        plain5_ms = cuda_ms(lambda: (C.nn_plain(x1, x2, True,
-                                                PLAIN_BLOCK_CARD),
-                                     C.nn_plain(x2, x1, True,
-                                                PLAIN_BLOCK_CARD)),
-                            runs=3, warmup=1)
-        lib_ms = cuda_ms(lambda: (cdist_min(x1, x2), cdist_min(x2, x1)),
-                         runs=3, warmup=1)
-    # the evaluation's shape: 100,000 predicted points against the synthetic
-    # GT's 2,048 (the 2,048-row direction runs on 8 blocks); phase 8 checks
-    # the clouds of the evaluated samples themselves
-    gt = clouds(1, 2048, 1)[0]
-    label = f"1 x {N_NN:,} x 2,048 (the evaluation's shape)"
-    e4, e5, ties_eval = nn_case(label, x1, gt)
-    worst4, worst5 = max(worst4, e4), max(worst5, e5)
-    log(f"[k4/k5] {label}: max abs err K4 {e4:.3e}, K5 {e5:.3e}, argmin "
-        f"near-ties {ties_eval}")
-    with torch.no_grad():
-        eval_ms = cuda_ms(lambda: C.chamfer_dists_sq(x1, gt))
-        eval_plain_ms = cuda_ms(lambda: (
-            C.nn_plain(x1, gt, False, PLAIN_BLOCK_CARD),
-            C.nn_plain(gt, x1, False, PLAIN_BLOCK_CARD)), runs=3, warmup=1)
-        eval_lib_ms = cuda_ms(lambda: (cdist_min(x1, gt), cdist_min(gt, x1)),
-                              runs=3, warmup=1)
-    eval_bound, eval_by = bound(NN_FLOP_PER_PAIR * N_NN * 2048,
-                                4 * 4 * (N_NN + 2048))
-    log(f"[k4/k5] K4 at the evaluation's shape 1 x {N_NN:,} x 2,048, both "
-        f"directions: kernel {eval_ms:.4f} ms, plain {eval_plain_ms:.4f} ms, "
-        f"torch.cdist + amin {eval_lib_ms:.4f} ms, bound {eval_bound:.4f} ms "
-        f"({eval_by})")
-    B, N1, N2 = 1, N_NN, N_NN
-    flop = NN_FLOP_PER_PAIR * B * N1 * N2          # each pair once
+        plain_ms, lib_ms = {}, {}
+        for key, (a, b, _) in shapes.items():
+            for name, with_index in (("k4", False), ("k5", True)):
+                plain_ms[key, name] = cuda_ms(lambda: (
+                    C.nn_plain(a, b, with_index, PLAIN_BLOCK_CARD),
+                    C.nn_plain(b, a, with_index, PLAIN_BLOCK_CARD)),
+                    runs=3, warmup=1)
+            lib_ms[key] = cuda_ms(lambda: (cdist_min(a, b), cdist_min(b, a)),
+                                  runs=3, warmup=1)
     out = {}
-    for name, ms, plain_ms, idx_bytes, err in (
-            ("k4", k4_ms, plain4_ms, 0, worst4),
-            ("k5", k5_ms, plain5_ms, 4 * B * (N1 + N2), worst5)):
-        nbytes = 4 * B * 4 * (N1 + N2) + idx_bytes
-        bound_ms, bound_by = bound(flop, nbytes)
-        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
-        log(f"[k4/k5] {name.upper()} at 1 x {N1:,} x {N2:,}, both "
-            f"directions: kernel {ms:.4f} ms ({2 * flop / ms / 1e9:.1f} "
-            f"TFLOP/s of the two sweeps' FLOPs), plain {plain_ms:.4f} ms "
-            f"({plain_ms / ms:.1f}x), torch.cdist + amin {lib_ms:.4f} ms "
-            f"(dot form, distances not squared); bound {bound_ms:.4f} ms "
-            f"({bound_by}, {NN_FLOP_PER_PAIR} FLOP per pair counted once; "
-            f"the two sweeps do each pair twice), {100 * bound_ms / ms:.1f}% "
-            f"of it reached; argmin near-ties {ties}")
+    for name, err in (("k4", worst4), ("k5", worst5)):
+        row = dict(err=err)
+        for key, (a, b, label) in shapes.items():
+            B, N1, N2 = a.shape[0], a.shape[1], b.shape[1]
+            flop = NN_FLOP_PER_PAIR * B * N1 * N2          # each pair once
+            nbytes = 4 * B * 4 * (N1 + N2) + (
+                4 * B * (N1 + N2) if name == "k5" else 0)
+            bound_ms, bound_by = bound(flop, nbytes)
+            ms, one_ms = times[key][name]
+            pre = "" if key == "full" else "eval_"
+            row.update({f"{pre}shape": f"{label}, both directions",
+                        f"{pre}ms": ms, f"{pre}splits1_ms": one_ms,
+                        f"{pre}plain_ms": plain_ms[key, name],
+                        f"{pre}bound_ms": bound_ms,
+                        f"{pre}bound_by": bound_by,
+                        f"{pre}library_ms": lib_ms[key]})
+            log(f"[k4/k5] {name.upper()} at {label}, both directions: kernel "
+                f"{ms:.4f} ms ({2 * flop / ms / 1e9:.1f} TFLOP/s of the two "
+                f"sweeps' FLOPs), splits=1 {one_ms:.4f} ms ({one_ms / ms:.2f}x"
+                f"), plain {plain_ms[key, name]:.4f} ms, torch.cdist + amin "
+                f"{lib_ms[key]:.4f} ms (dot form, distances not squared); "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {NN_FLOP_PER_PAIR} FLOP "
+                f"per pair counted once; the two sweeps do each pair twice), "
+                f"{100 * bound_ms / ms:.1f}% of it reached")
+        out[name] = row
+    return out
+
+
+def split_vs_one(a, b, label):
+    """K4 and K5 in both directions with `nn_splits`'s chunks, bitwise
+    equal to `splits=1` and to a repeat launch -> the chosen splits of
+    (a -> b, b -> a)."""
+    import torch
+    from shapeclipper_torch.ops import chamfer as C
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = []
+    for x, y in ((a, b), (b, a)):
+        splits.append(C.nn_splits(x.shape[0], x.shape[1], y.shape[1], sms))
+        for with_index in (False, True):
+            with torch.no_grad():
+                runs = [C.KERNEL.launch(x, y, with_index),
+                        C.KERNEL.launch(x, y, with_index, splits=1),
+                        C.KERNEL.launch(x, y, with_index)]
+            torch.cuda.synchronize()
+            for d, i in runs[1:]:
+                if not torch.equal(d, runs[0][0]) or (
+                        with_index and not torch.equal(i, runs[0][1])):
+                    raise AssertionError(
+                        f"K{5 if with_index else 4} at {label}: "
+                        f"{splits[-1]} chunks differ from splits=1 or from "
+                        f"a repeat")
+    return tuple(splits)
+
+
+def split_ab(a, b):
+    """K4 and K5, both directions through the kernel's wrapper: CUDA-event
+    ms with `nn_splits`'s chunks and with `splits=1`, in turns (one, chosen,
+    chosen, one), each the mean of its two turns -> {k4: (chosen, one),
+    k5: (...)}."""
+    import torch
+    from shapeclipper_torch.ops import chamfer as C
+
+    def sweeps(with_index, splits):
+        return (C.KERNEL.launch(a, b, with_index, splits=splits),
+                C.KERNEL.launch(b, a, with_index, splits=splits))
+
+    out = {}
+    with torch.no_grad():
+        for name, with_index in (("k4", False), ("k5", True)):
+            t = [cuda_ms(lambda: sweeps(with_index, splits),
+                         calls=NN_TIMED_CALLS)
+                 for splits in (1, None, None, 1)]
+            out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
     return out
 
 
@@ -1337,7 +1406,8 @@ def phase_eval():
             for k, v in stages.items()))
     wall_p, busy_p = profiled("eval", f"Runner.evaluate over the {n} samples "
                               "(pipelined, as run)",
-                              lambda: runner.evaluate(opt, ep=0), 8)
+                              lambda: runner.evaluate(opt, ep=0), 8,
+                              watch=("nn_kernel", "unpack_kernel"))
     if busy_p is not None:
         log(f"[eval] per sample under the profiler: wall {wall_p / n:.1f} "
             f"ms, device busy {busy_p / n:.2f} ms")
@@ -1540,16 +1610,12 @@ def main():
              library_ms=None),
         dict(name="chamfer_nn (K4, distances)", route="cuda",
              source=SOURCE_NN, replaces=REPLACES_K4,
-             launches=eval_launches["k4"], max_abs_err=nn["k4"]["err"],
-             ms=nn["k4"]["ms"], plain_ms=nn["k4"]["plain_ms"],
-             bound_ms=nn["k4"]["bound_ms"], bound_by=nn["k4"]["bound_by"],
-             library_ms=nn["k4"]["library_ms"]),
+             launches=eval_launches["k4"], max_abs_err=nn["k4"].pop("err"),
+             **nn["k4"]),
         dict(name="chamfer_nn (K5, with argmin)", route="cuda",
              source=SOURCE_NN, replaces=REPLACES_K5,
-             launches=api_launches["argmin"], max_abs_err=nn["k5"]["err"],
-             ms=nn["k5"]["ms"], plain_ms=nn["k5"]["plain_ms"],
-             bound_ms=nn["k5"]["bound_ms"], bound_by=nn["k5"]["bound_by"],
-             library_ms=nn["k5"]["library_ms"]),
+             launches=api_launches["argmin"], max_abs_err=nn["k5"].pop("err"),
+             **nn["k5"]),
     ]
     for k in summary:
         if k["launches"] < 1:

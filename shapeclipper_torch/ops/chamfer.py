@@ -16,6 +16,9 @@ PyTorch version and the wrapper of the Hopper kernel `csrc/chamfer.cu`
 CPU tensors take the plain version (`nn_plain`: the exact form
 (a-b)^2 summed per coordinate, in chunks of rows so that memory stays
 bounded). CUDA tensors launch the kernel or raise; there is no fallback.
+Where A has too few rows to fill the card, the kernel splits B's cloud into
+`nn_splits` chunks swept by separate blocks and combined exactly (bitwise
+the unsplit result).
 Ties go to the lowest index everywhere, as `jnp.argmin` and `torch.argmin`.
 """
 
@@ -32,6 +35,11 @@ _SOURCE = os.path.join(CSRC_DIR, "chamfer.cu")
 
 # elements of one [rows, N2] distance block of the plain version
 PLAIN_BLOCK = 1 << 22
+# rows of A that one block of the kernel owns (`kRowsPerBlock`)
+NN_ROWS_PER_BLOCK = 256
+# fewest points of B in a chunk when the kernel splits B's cloud: half a
+# shared-memory tile, a multiple of 4
+NN_MIN_CHUNK = 1024
 
 
 def nn_plain(x1, x2, with_index=False, block=None):
@@ -59,6 +67,28 @@ def nn_plain(x1, x2, with_index=False, block=None):
     return dist, idx
 
 
+def nn_chunk(N2, splits):
+    """Points of B in each of `splits` chunks, as the kernel cuts B's cloud:
+    ceil(N2 / splits) rounded up to a multiple of 4; the last chunk holds
+    the rest."""
+    return (-(-N2 // splits) + 3) // 4 * 4
+
+
+def nn_splits(B, N1, N2, sms):
+    """How many chunks the kernel splits B's cloud into (its grid dimension
+    y) for A [B,N1,3] against B [B,N2,3] on a card with `sms` SMs. One where
+    the blocks of 256 rows of A already give about two blocks per SM;
+    otherwise the fewest chunks that give about three, but no more than
+    N2 // `NN_MIN_CHUNK`, so that every chunk but the last holds at least
+    that many points. Every chunk holds at least one point: S = ceil(N2 / c)
+    for a multiple of 4 c, so nn_chunk(N2, S) <= c and (S - 1) c < N2."""
+    blocks = B * -(-N1 // NN_ROWS_PER_BLOCK)
+    if blocks >= 2 * sms:
+        return 1
+    want = min(-(-3 * sms // blocks), N2 // NN_MIN_CHUNK)
+    return -(-N2 // nn_chunk(N2, max(1, want)))
+
+
 class ChamferKernel(CudaLibrary):
     """The chamfer library (K4 / K5, `csrc/chamfer.cu`). `launches` counts
     launches of each instantiation ('dist' = K4, 'argmin' = K5), one per
@@ -74,25 +104,41 @@ class ChamferKernel(CudaLibrary):
 
     def _bind(self, lib):
         fn = lib.scl_chamfer_nn
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
-    def launch(self, x1, x2, with_index):
+    def launch(self, x1, x2, with_index, splits=None):
         """x1 [B,N1,3], x2 [B,N2,3] (float32, contiguous, one CUDA device)
-        -> (dist [B,N1] float32, idx [B,N1] int32 or None)."""
+        -> (dist [B,N1] float32, idx [B,N1] int32 or None). `splits`: the
+        chunks of x2's cloud, `nn_splits`'s choice when None (1 sweeps it
+        whole in every block)."""
         lib = self.build()
         B, N1, _ = x1.shape
         N2 = x2.shape[1]
         dev = x1.device
-        dist = torch.empty(B, N1, device=dev, dtype=torch.float32)
-        idx = (torch.empty(B, N1, device=dev, dtype=torch.int32)
-               if with_index else None)
+        if splits is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            splits = nn_splits(B, N1, N2, sms)
+        if not 1 <= splits <= 65535:
+            raise ValueError(f"splits must be in [1, 65535], got {splits}")
         with torch.cuda.device(dev):
+            # with a split, blocks combine by atomicMin into +inf distances
+            # (K4) or all-ones 64-bit keys (K5), filled on this stream
+            dist = (torch.full((B, N1), float("inf"), device=dev,
+                               dtype=torch.float32)
+                    if splits > 1 and not with_index else
+                    torch.empty(B, N1, device=dev, dtype=torch.float32))
+            idx = (torch.empty(B, N1, device=dev, dtype=torch.int32)
+                   if with_index else None)
+            key = (torch.full((B, N1), -1, device=dev, dtype=torch.int64)
+                   if splits > 1 and with_index else None)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.scl_chamfer_nn(
                 x1.data_ptr(), x2.data_ptr(), dist.data_ptr(),
-                idx.data_ptr() if with_index else None, B, N1, N2, stream)
+                idx.data_ptr() if with_index else None,
+                key.data_ptr() if key is not None else None, B, N1, N2,
+                splits, stream)
         if err != 0:
             raise RuntimeError(f"chamfer kernel launch failed: cudaError "
                                f"{err}")

@@ -131,3 +131,50 @@ def test_wrapper_refuses_bad_inputs():
     before = dict(tchamfer.KERNEL.launches)
     tchamfer.chamfer_dists_sq(x, x)
     assert tchamfer.KERNEL.launches == before   # the CPU takes the plain path
+
+
+def _chunks(N2, splits):
+    c = tchamfer.nn_chunk(N2, splits)
+    return [(s * c, min((s + 1) * c, N2)) for s in range(splits)]
+
+
+@pytest.mark.parametrize("B,N1,N2,split", [
+    (1, 100_000, 100_000, False),   # the timing shape: today's schedule
+    (1, 100_000, 2048, False),      # the evaluation's pred -> gt
+    (1, 2048, 100_000, True),       # the evaluation's gt -> pred
+    (3, 57, 20_001, True),          # ragged, batched
+    (3, 257, 20_001, True),
+    (2, 3000, 6005, True),
+    (1, 2048, 1, False),            # N2 = 1
+    (1, 2048, 3, False),            # N2 < 4
+    (1, 1, 5, False),
+    (1, 1, 4097, True),
+])
+def test_nn_splits(B, N1, N2, split):
+    """The kernel's chunks of B's cloud (132 SMs, an H100): one where the
+    row blocks fill the card, more where they do not; the chunks tile N2
+    exactly, none empty, none below the minimum unless N2 is."""
+    splits = tchamfer.nn_splits(B, N1, N2, 132)
+    assert (splits > 1) == split
+    chunks = _chunks(N2, splits)
+    assert chunks[0][0] == 0 and chunks[-1][1] == N2
+    assert all(a < b for a, b in chunks)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    if splits > 1:
+        assert all(b - a >= tchamfer.NN_MIN_CHUNK for a, b in chunks[:-1])
+        # the fewest chunks: one fewer gives under three blocks per SM
+        row_blocks = B * -(-N1 // tchamfer.NN_ROWS_PER_BLOCK)
+        assert (splits - 1) * row_blocks < 3 * 132
+    if (B, N1, N2) == (1, 2048, 100_000):
+        assert splits == 50 and chunks[0] == (0, 2000)   # 400 blocks
+
+
+def test_nn_splits_never_leaves_a_chunk_empty():
+    """Every cloud size up to 12,000 points, with one to 16 row blocks and
+    a card of 132 or 16 SMs."""
+    for sms in (132, 16):
+        for N1 in (1, 300, 2048, 4096):
+            for N2 in range(1, 12_001):
+                splits = tchamfer.nn_splits(1, N1, N2, sms)
+                c = tchamfer.nn_chunk(N2, splits)
+                assert (splits - 1) * c < N2 <= splits * c, (sms, N1, N2)

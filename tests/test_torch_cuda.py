@@ -334,11 +334,13 @@ def _check_argmin(x1, x2, idx, want_d, want_i):
 
 @pytest.mark.parametrize("B,N1,N2", [(1, 1, 1), (3, 57, 201),
                                      (2, 1000, 3001), (1, 2049, 4097),
-                                     (4, 8192, 8192)])
+                                     (4, 8192, 8192), (1, 2048, 100_000),
+                                     (3, 257, 20_001)])
 def test_chamfer_kernels_match_plain(dev, B, N1, N2):
     """Ragged rows (blocks of 256) and ragged tiles of B (2,048 points);
-    one K4 launch per direction for the distances, one K5 launch per
-    direction with the argmin."""
+    the last two shapes split B's cloud into chunks (`nn_splits`), the last
+    with a ragged last chunk; one K4 launch per direction for the
+    distances, one K5 launch per direction with the argmin."""
     x1, x2 = _clouds(dev, B, N1, N2)
     before = dict(C.KERNEL.launches)
     d1, d2 = C.chamfer_dists_sq(x1, x2)
@@ -372,6 +374,52 @@ def test_chamfer_kernel_exact_ties(dev):
                       torch.full((5,), 7, device=dev, dtype=torch.int32)])
     assert torch.equal(i2, want.expand(2, -1))
     assert float(d2.abs().max()) == 0.0
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("B,N1,N2", [(1, 100_000, 2048), (3, 257, 20_001)])
+def test_chamfer_split_is_bitwise_unsplit(dev, B, N1, N2):
+    """K4 and K5 with `nn_splits`'s chunks, in both directions, bitwise
+    equal to one chunk (`splits=1`) and to a second launch: the atomic
+    combine is exact and independent of the blocks' order."""
+    x1, x2 = _clouds(dev, B, N1, N2, seed=5)
+    # the direction with the fewer rows splits
+    assert C.nn_splits(B, min(N1, N2), max(N1, N2), _sms(dev)) > 1
+    for a, b in ((x1, x2), (x2, x1)):
+        for with_index in (False, True):
+            chosen = C.KERNEL.launch(a, b, with_index)
+            one = C.KERNEL.launch(a, b, with_index, splits=1)
+            again = C.KERNEL.launch(a, b, with_index)
+            torch.cuda.synchronize()
+            for other in (one, again):
+                assert torch.equal(chosen[0], other[0])
+                if with_index:
+                    assert torch.equal(chosen[1], other[1])
+
+
+def test_chamfer_exact_ties_across_chunks(dev):
+    """Every point of A twice in B, the two copies in different chunks of a
+    split sweep: the lower index wins the atomic combine, in K5 and against
+    `splits=1`."""
+    g = torch.Generator().manual_seed(6)
+    x1 = torch.randn(2, 64, 3, generator=g)
+    far = torch.randn(2, 10_000, 3, generator=g) + 50.0
+    x2 = torch.cat([far, x1, far, x1], dim=1).to(dev)
+    x1 = x1.to(dev)
+    first, second = 10_000 + torch.arange(64), 20_064 + torch.arange(64)
+    splits = C.nn_splits(2, 64, x2.shape[1], _sms(dev))
+    chunk = C.nn_chunk(x2.shape[1], splits)
+    assert splits > 1 and bool((first // chunk != second // chunk).all())
+    d, i = C.KERNEL.launch(x1, x2, True)
+    d1, i1 = C.KERNEL.launch(x1, x2, True, splits=1)
+    dk, _ = C.KERNEL.launch(x1, x2, False)
+    torch.cuda.synchronize()
+    assert float(d.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+    assert torch.equal(i, first.to(dev, torch.int32).expand(2, -1))
+    assert torch.equal(i, i1) and torch.equal(d, d1)
 
 
 def test_chamfer_gradient_matches_reference(dev):
