@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and evaluation paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, evaluation, pretraining and
+CLIP annotation paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -57,7 +57,18 @@ no CPU fallback):
      which no CLI path calls;
   9. the train and evaluate CLIs (`python -m shapeclipper_torch.train` for
      one tiny epoch, then `python -m shapeclipper_torch.evaluate --resume`);
- 10. the kernel summary line, the card line and the result line.
+ 10. pretraining (`train/pretrainer.py`) at the flagship width (batch 12,
+     224^2, 10,000 points, density and viewpoint losses): 2 + 10 steps on
+     one batch with the kernels' launch counts (none lies on this path),
+     ms per step, peak memory, one step under the profiler; a step at
+     batch 4 on the card and on the CPU plain path from the same weights
+     and draws; tests/test_pretrain.py's 300-step sphere fit;
+ 11. CLIP annotation (`clipnn/`) with ViT-L/14 at full width on 256
+     synthetic images a split: images/s of `encode_split` and of the tower
+     alone, peak memory, 2 embeddings and one split's top-k against the
+     CPU, the three CSVs;
+ 12. the pretrain, `train --load=<the pretrain run>` and clip_anno CLIs;
+ 13. the kernel summary line, the card line and the result line.
 A warning from the guards that keep metric and visualization failures from
 stopping a training run fails the run.
 
@@ -118,6 +129,12 @@ NN_TIMED_CALLS = 10             # K4 / K5 calls between two CUDA events
 NN_FLOP_PER_PAIR = 8            # 3 subtractions, 3 multiplies, 2 additions
 # the card-vs-CPU evaluation: per-sample CD rtol, F-score absolute
 EVAL_CD_RTOL, EVAL_F_ATOL = 1e-4, 1e-3
+# pretraining: warm-up and timed steps at the flagship width, the batch of
+# the card-vs-CPU step, the sphere fit's steps (tests/test_pretrain.py)
+N_PRE_WARM, N_PRE_TIMED = 2, 10
+PRE_CMP_BATCH = 4
+N_SPHERE = 300
+CLIP_IMAGES = 256               # synthetic images a split for ViT-L/14
 # the guards that keep a failed metric or visualization from stopping
 # training (trainer.py, as the JAX package): a warning from one fails the run
 GUARD_WARNINGS = ("train-split metric eval failed", "rotating vis failed")
@@ -1485,6 +1502,24 @@ def phase_chamfer_api():
 
 
 # --------------------------------------------------------------- phase 9
+def run_cli(module, args, extra):
+    """`python -m module *args *extra` in a subprocess on the card (the
+    default device); fails on a non-zero exit or a guard's warning, logs
+    the time with `extra` -> its standard output."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args, *extra],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"{module} failed ({r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    for w in GUARD_WARNINGS:
+        if w in r.stdout or w in r.stderr:
+            raise AssertionError(f"{module}: '{w}'")
+    log(f"[cli] python -m {module} {' '.join(extra)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return r.stdout
+
+
 def phase_clis():
     """`python -m shapeclipper_torch.train` for one epoch at a tiny size
     (evaluated at epochs 0 and 1), then `python -m
@@ -1497,23 +1532,9 @@ def phase_clis():
             "--render.rand_sample=32", "--render.n_samples_uniform=8",
             "--eval.vox_res=12", "--eval.num_points=512",
             "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!"]
-    outs = []
-    for module, extra in (("shapeclipper_torch.train",
-                           ["--max_epoch=1", "--freq.eval=1"]),
-                          ("shapeclipper_torch.evaluate", ["--resume"])):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", module, *tiny, *extra],
-                           cwd=REPO, capture_output=True, text=True,
-                           timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"{module} failed ({r.returncode}):\n"
-                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        for w in GUARD_WARNINGS:
-            if w in r.stdout or w in r.stderr:
-                raise AssertionError(f"{module}: '{w}'")
-        outs.append(r.stdout)
-        log(f"[cli] python -m {module} {' '.join(extra)}: "
-            f"{time.perf_counter() - t0:.1f} s")
+    outs = [run_cli("shapeclipper_torch.train", tiny,
+                    ["--max_epoch=1", "--freq.eval=1"]),
+            run_cli("shapeclipper_torch.evaluate", tiny, ["--resume"])]
     run = os.path.join(root, "synthetic_output", "run")
     for f in ("best.pt", "latest.pt", "checkpoint/ep1.pt", "cd_cat.txt",
               "f_score.txt", "chamfer.txt"):
@@ -1528,6 +1549,356 @@ def phase_clis():
     log(f"[cli] {best[-1].strip() if best else 'no Best CD line'}; "
         f"evaluate --resume: CD {rows.mean():.5f} over {rows.shape[0]} "
         f"samples; best.pt, cd_cat.txt, f_score.txt, chamfer.txt written")
+
+
+# -------------------------------------------------------------- phase 10
+def reset_launches():
+    from shapeclipper_torch.ops import chamfer as C
+    from shapeclipper_torch.ops import fused_sdf as F
+    F.KERNEL.launches = {"grad": 0, "nograd": 0}
+    F.BACKWARD.launches = 0
+    C.KERNEL.launches = {"dist": 0, "argmin": 0}
+
+
+def read_launches():
+    from shapeclipper_torch.ops import chamfer as C
+    from shapeclipper_torch.ops import fused_sdf as F
+    return dict(k1=F.KERNEL.launches["grad"], k3=F.KERNEL.launches["nograd"],
+                k2=F.BACKWARD.launches, k4=C.KERNEL.launches["dist"],
+                k5=C.KERNEL.launches["argmin"])
+
+
+def pretrain_opt(batch_size=None):
+    """options/pix3d/config.yaml on the synthetic dataset: batch 12 (or
+    `batch_size`), 224^2, pre.sample_points 10,000, pre.density and
+    pre.viewpoint on, seed 0, float32."""
+    opt = flagship_opt(batch_size)
+    opt.output_path = os.path.join(OUT_DIR, f"pretrain_b{opt.batch_size}")
+    return opt
+
+
+def pretrain_runner(opt, device):
+    from shapeclipper_torch.train.pretrainer import Runner
+    runner = Runner(opt, device)
+    runner.build_networks(opt)
+    runner.setup_optimizer(opt)
+    return runner
+
+
+def sphere_probe(graph, opt, device, step):
+    """The SDF along r in [0.3, 0.9] on the x axis minus r - 0.5, max |.|,
+    (a) for two fresh N(0, 1) latents through latent_proj_shape's
+    train-mode BatchNorm with its statistics frozen (the codes the loss
+    trains on) and (b) tests/test_pretrain.py's probe: one latent through
+    the eval-mode BatchNorm. Leaves the graph in train mode."""
+    import torch
+    from shapeclipper_torch.models.layers import batch_stats_frozen
+    r = torch.linspace(0.3, 0.9, 12)
+    pts = torch.stack([r, torch.zeros_like(r), torch.zeros_like(r)], -1)
+    pts = pts[None].to(device)
+    errs = []
+    g = torch.Generator().manual_seed(SEED + 100 + step)
+    for batch, mode in ((2, "train"), (1, "eval")):
+        latent = torch.randn(batch, opt.arch.latent_dim_shape, generator=g)
+        graph.train(mode == "train")
+        with torch.no_grad(), batch_stats_frozen(graph.latent_proj_shape):
+            sdf = graph.sdf_network(pts.expand(batch, -1, -1),
+                                    graph.latent_proj_shape(latent.to(device)))
+        errs.append(float((sdf[..., 0].cpu() - (r - 0.5)).abs().max()))
+    graph.train()
+    return errs
+
+
+def phase_pretrain():
+    """The pretraining Runner on the card: N_PRE_WARM + N_PRE_TIMED steps
+    at the flagship width on one batch of the loader, with the launch
+    counts of the five kernels (none lies on this path: the sphere loss
+    runs the plain SDF forward, as the JAX package); a step at batch
+    PRE_CMP_BATCH on the card and on the CPU; the sphere fit of
+    tests/test_pretrain.py."""
+    import torch
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+
+    opt = pretrain_opt()
+    runner = pretrain_runner(opt, "cuda")
+    runner.load_dataset(opt)
+    batch = next(iter(runner.pretrain_loader))
+    var = edict(rgb_input_map=torch.from_numpy(
+        np.asarray(batch["rgb_input_map"])).to(runner.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for step in range(N_PRE_WARM + N_PRE_TIMED):
+        t0 = time.perf_counter()
+        loss = runner.train_iteration(opt, var)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = [k for k, v in loss.items() if not np.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"pretrain step {step}: loss {bad} not "
+                                 f"finite: {dict(loss)}")
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(times[N_PRE_WARM:])
+    log(f"[pretrain] flagship (batch {opt.batch_size}, {opt.H}x{opt.W}, "
+        f"{opt.pre.sample_points} points, density + viewpoint): first step "
+        f"{times[0]:.1f} ms, median of steps {N_PRE_WARM}-"
+        f"{N_PRE_WARM + N_PRE_TIMED - 1} {step_ms:.2f} ms/step; peak device "
+        f"memory {peak_gib:.3f} GiB; last loss "
+        + ", ".join(f"{k} {float(v):.5f}" for k, v in loss.items())
+        + f"; kernel launches {launches} (no kernel on this path); card "
+        f"{card_line()}")
+    profiled("pretrain", "one step", lambda: runner.train_iteration(opt, var),
+             8)
+    phase_pretrain_gpu_vs_cpu()
+    phase_sphere_fit()
+    return dict(step_ms=step_ms, peak_gib=peak_gib)
+
+
+def phase_pretrain_gpu_vs_cpu():
+    """One pretraining step on the card and on the CPU from the same
+    weights, fresh Adam and draws, at batch PRE_CMP_BATCH: the bounds of
+    tests/test_torch_pretrain.py (loss.sdf rtol 1e-5, w_dist 2e-3,
+    latent_proj_shape's running statistics 1e-3 of their scale, every
+    trainable gradient 1e-4 in norm relative to its own norm, post-step
+    parameters mean below 0.02 lr, the frozen ones bit-identical) and a
+    tighter post-step maximum of 0.05 lr. Batch 4, not 2: at batch 2
+    train-mode BatchNorm normalises two samples per feature and amplifies
+    rounding where the two are close (tests/test_torch_pretrain.py)."""
+    import torch
+    from shapeclipper_torch.train.pretrainer import pretrain_trainable
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+
+    opt = pretrain_opt(PRE_CMP_BATCH)
+    gpu = pretrain_runner(opt, "cuda")
+    cpu = pretrain_runner(opt, "cpu")
+    cpu.graph.load_state_dict(gpu.graph.state_dict())
+    before = {k: v.detach().cpu().clone()
+              for k, v in gpu.graph.named_parameters()}
+    images = one_batch(opt)["rgb_input_map"]
+    g = torch.Generator().manual_seed(SEED + 11)
+    lo, hi = opt.pre.sample_range
+    dim = opt.arch.latent_dim_shape + opt.arch.latent_dim_rgb
+    draws = edict(
+        latent=torch.randn(opt.batch_size, dim, generator=g)
+        * opt.pre.latent_std,
+        points=lo + (hi - lo) * torch.rand(opt.batch_size,
+                                           opt.pre.sample_points, 3,
+                                           generator=g))
+    losses = {}
+    for role, r in (("gpu", gpu), ("cpu", cpu)):
+        var = edict(rgb_input_map=torch.from_numpy(images).to(r.device))
+        losses[role] = r.train_iteration(
+            opt, var, draws=edict({k: v.to(r.device)
+                                   for k, v in draws.items()}))
+    bad, err = [], {}
+    for k, tol in (("sdf", 1e-5), ("w_dist", 2e-3)):
+        a, b = float(losses["gpu"][k]), float(losses["cpu"][k])
+        err[k] = abs(a - b) / abs(b)
+        if err[k] > tol:
+            bad.append(f"loss {k}")
+    lr = float(opt.optim.lr)
+    gp = dict(gpu.graph.named_parameters())
+    par, grad_err, diffs = 0.0, 0.0, []
+    for name, p in cpu.graph.named_parameters():
+        q = gp[name].detach().cpu()
+        d = (q - p.detach()).abs()
+        par = max(par, float(d.max()) / lr)
+        diffs.append(d.ravel())
+        if float(d.max()) > 0.05 * lr + 1e-6:
+            bad.append(name)
+        if not pretrain_trainable(name):
+            if not torch.equal(q, before[name]):
+                bad.append(f"frozen {name} moved")
+            continue
+        zero = torch.zeros_like(p)
+        want = zero if p.grad is None else p.grad
+        got = zero if gp[name].grad is None else gp[name].grad.cpu()
+        e = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        grad_err = max(grad_err, e)
+        if e > 1e-4:
+            bad.append(f"gradient of {name}")
+    mean = float(torch.cat(diffs).mean()) / lr
+    if mean > 0.02:
+        bad.append("post-step parameters' mean difference")
+    moved_fc = not torch.equal(gp["estimator.extr_fc.weight"].detach().cpu(),
+                               before["estimator.extr_fc.weight"])
+    if not moved_fc:
+        bad.append("estimator.extr_fc.weight did not move")
+    gb = dict(gpu.graph.named_buffers())
+    bn = 0.0
+    for name, b in cpu.graph.named_buffers():
+        if name.startswith("latent_proj_shape") and "running" in name:
+            scale = float(b.abs().max())
+            e = float((gb[name].cpu() - b).abs().max())
+            bn = max(bn, e / scale)
+            if e > 1e-3 * scale:
+                bad.append(name)
+    log(f"[pretrain-cmp] step at batch {opt.batch_size}, GPU vs CPU: loss.sdf "
+        f"rel {err['sdf']:.2e} (tol 1e-5), loss.w_dist rel "
+        f"{err['w_dist']:.2e} (tol 2e-3); trainable gradients max "
+        f"norm-relative {grad_err:.2e} (tol 1e-4); post-step parameters max "
+        f"{par:.2e} lr (tol 0.05 lr), mean {mean:.2e} lr (tol 0.02 lr); "
+        f"latent_proj_shape running stats max rel "
+        f"{bn:.2e} (tol 1e-3); the frozen backbone and heads bit-identical, "
+        f"extr_fc moved")
+    if bad:
+        raise AssertionError(f"pretraining GPU vs CPU step: {bad}")
+
+
+def phase_sphere_fit():
+    """tests/test_pretrain.py::test_pretrain_fits_sphere's run on the card:
+    batch 2, 512 points, lr 1e-3, pre.viewpoint off, 300 steps; the last
+    loss.sdf below half the first, and at the last step the SDF within 0.1
+    of r - 0.5 both for that test's probe, one latent through the
+    eval-mode BatchNorm (`sphere_probe` (b)), and for the codes the loss
+    trains on (`sphere_probe` (a)). Both probes are logged every 100
+    steps."""
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    opt = pretrain_opt(2)
+    opt.pre.update(sample_points=512, viewpoint=False)
+    opt.optim.lr = 1e-3
+    runner = pretrain_runner(opt, "cuda")
+    losses, probes = [], {}
+    t0 = time.perf_counter()
+    for step in range(1, N_SPHERE + 1):
+        losses.append(float(runner.train_iteration(opt, edict()).sdf))
+        if step % 100 == 0:
+            probes[step] = sphere_probe(runner.graph, opt, runner.device,
+                                        step)
+    log(f"[sphere] {N_SPHERE} steps in {time.perf_counter() - t0:.1f} s: "
+        f"loss.sdf {losses[0]:.5f} -> {losses[-1]:.5f}; max |sdf - (r - "
+        f"0.5)| (training codes / eval-mode probe): "
+        + ", ".join(f"step {k} {a:.4f} / {b:.4f}"
+                    for k, (a, b) in probes.items())
+        + " (tol 0.1 on both at the last step)")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"sphere fit: loss {losses[0]} -> {losses[-1]}")
+    if not max(probes[N_SPHERE]) <= 0.1:
+        raise AssertionError(f"sphere fit: error (training codes, eval-mode "
+                             f"probe) {probes[N_SPHERE]}")
+
+
+# -------------------------------------------------------------- phase 11
+def phase_clip():
+    """The CLIP annotator with ViT-L/14 at full width (24 layers, width
+    1,024, 16 heads, 257 tokens; seeded weights) on CLIP_IMAGES synthetic
+    images a split at 224^2, batch 32: images/s of encode_split (the
+    second split, loader included) and of the tower alone on one batch,
+    peak memory; 2 embeddings against the CPU; the top-k of one split
+    against the CPU's; the three CSVs."""
+    import torch
+    from shapeclipper_torch.clipnn.annotator import Pix3DAnnotator
+    from shapeclipper_torch.config import options
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+
+    opt = options.load_options(os.path.join(REPO, "options", "clip",
+                                            "pix3d.yaml"))
+    opt.seed = SEED
+    opt.H, opt.W = opt.image_size
+    opt.data.update(dataset="synthetic", max_img_cat=CLIP_IMAGES)
+    opt.data.synthetic = edict(cat="synthetic")
+    opt.output_path = os.path.join(OUT_DIR, "clip")
+    opt.anno_root = os.path.join(OUT_DIR, "clip", "CLIP_NN")
+    os.makedirs(opt.output_path, exist_ok=True)
+    ann = Pix3DAnnotator(opt, "cuda")
+    ann.load_dataset(opt)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    feats = ann.encode_split(opt, ann.loaders["train"])
+    t0 = time.perf_counter()
+    ann.encode_split(opt, ann.loaders["val"])
+    split_s = time.perf_counter() - t0
+    n_val = len(ann.datasets["val"])
+    x = torch.from_numpy(np.stack(
+        [ann.datasets["val"][i]["rgb_input"]
+         for i in range(opt.batch_size)])).cuda()
+    with torch.no_grad():
+        tower_ms = cuda_ms(lambda: ann.tower(x), runs=5, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cpu_tower = copy.deepcopy(ann.tower).cpu()
+    with torch.no_grad():
+        got = ann.tower(x[:2]).cpu()
+        want = cpu_tower(x[:2].cpu())
+    emb_err = float(((got - want).norm(dim=-1)
+                     / want.norm(dim=-1)).max())
+    idx, _ = ann.calc_matches(opt, feats, k_nearest=opt.k_nearest)
+    cpu_ann = object.__new__(Pix3DAnnotator)
+    cpu_ann.device = torch.device("cpu")
+    idx_cpu, _ = cpu_ann.calc_matches(opt, feats, k_nearest=opt.k_nearest)
+    sims = torch.from_numpy(feats) @ torch.from_numpy(feats).T
+    rows, cols = np.nonzero(idx != idx_cpu)
+    gap = float(max((abs(float(sims[i, idx[i, j]] - sims[i, idx_cpu[i, j]]))
+                     for i, j in zip(rows, cols)), default=0.0))
+    t0 = time.perf_counter()
+    ann.compute_NN(opt)
+    nn_s = time.perf_counter() - t0
+    launches = read_launches()
+    csvs = [os.path.join(opt.anno_root, f"synthetic_{s}.csv")
+            for s in ("train", "val", "test")]
+    log(f"[clip] ViT-L/14 (seeded weights) at {opt.H}x{opt.W}, batch "
+        f"{opt.batch_size}: encode_split {n_val / split_s:.1f} images/s "
+        f"({n_val} images in {split_s:.2f} s, loader included); the tower "
+        f"alone {tower_ms:.2f} ms a batch of {opt.batch_size} = "
+        f"{1e3 * opt.batch_size / tower_ms:.1f} images/s; peak device "
+        f"memory {peak_gib:.3f} GiB; 2 embeddings GPU vs CPU max "
+        f"norm-relative {emb_err:.2e} (tol 1e-4); top-{opt.k_nearest} of "
+        f"the train split: {len(rows)} of {idx.size} indices differ from "
+        f"the CPU's, similarity gap {gap:.2e} (tol 1e-6); compute_NN of 3 "
+        f"splits {nn_s:.1f} s; kernel launches {launches}; card "
+        f"{card_line()}")
+    if emb_err > 1e-4:
+        raise AssertionError(f"CLIP embeddings GPU vs CPU: {emb_err}")
+    if gap > 1e-6:
+        raise AssertionError(f"CLIP top-k GPU vs CPU: gap {gap}")
+    missing = [c for c in csvs if not os.path.isfile(c)]
+    if missing:
+        raise AssertionError(f"compute_NN did not write {missing}")
+    return dict(images_s=n_val / split_s, tower_images_s=1e3 *
+                opt.batch_size / tower_ms, peak_gib=peak_gib)
+
+
+# -------------------------------------------------------------- phase 12
+def phase_pretrain_clis():
+    """`python -m shapeclipper_torch.pretrain` for 5 steps at the synthetic
+    config, `python -m shapeclipper_torch.train --load=` its latest.pt for
+    one tiny epoch, and `python -m shapeclipper_torch.clip_anno` with
+    ViT-B/32 on 8 images a split, on the card (the default)."""
+    import shutil
+    root = os.path.join(OUT_DIR, "clis_pre")
+    shutil.rmtree(root, ignore_errors=True)
+    out = run_cli("shapeclipper_torch.pretrain",
+                  ["--yaml=options/synthetic/config.yaml",
+                   f"--output_root={root}", "--name=pre"], ["--pre.iter=5"])
+    if "pretrain it 5/5" not in out:
+        raise AssertionError("pretrain CLI: no 'pretrain it 5/5' line")
+    pre = os.path.join(root, "synthetic_output", "pre", "latest.pt")
+    out = run_cli("shapeclipper_torch.train", [
+        "--yaml=options/synthetic/config.yaml", f"--output_root={root}",
+        "--name=run", "--batch_size=2", "--image_size=[32,32]",
+        "--render.rand_sample=32", "--render.n_samples_uniform=8",
+        "--eval.vox_res=12", "--eval.num_points=512",
+        "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!",
+        "--max_epoch=1", "--freq.eval=1"], [f"--load={pre}"])
+    for line in ("restoring sdf_network", "restoring latent_proj_shape",
+                 "restoring estimator", "skipping encoder", "Best CD"):
+        if line not in out:
+            raise AssertionError(f"train --load: no '{line}' in its output")
+    run_cli("shapeclipper_torch.clip_anno", [
+        "--yaml=options/clip/pix3d.yaml", "--data.dataset=synthetic",
+        "--data.synthetic.cat=synthetic", f"--output_root={root}",
+        f"--anno_root={root}/CLIP_NN", "--data.max_img_cat=8"],
+        ["--clip.model=vit_b32"])
+    for split in ("train", "val", "test"):
+        path = os.path.join(root, "CLIP_NN", f"synthetic_{split}.csv")
+        with open(path) as f:
+            n = sum(1 for _ in f)
+        if n != 9:
+            raise AssertionError(f"{path}: {n} lines, expected 9")
+    log("[cli] pretrain -> train --load (restoring sdf_network, skipping "
+        "encoder) -> clip_anno: synthetic_{train,val,test}.csv written")
 
 
 def main():
@@ -1585,6 +1956,9 @@ def main():
     nn["k5"]["err"] = max(nn["k5"]["err"], err5)
     api_launches = phase_chamfer_api()
     phase_clis()                                        # phase 9
+    phase_pretrain()                                    # phase 10
+    phase_clip()                                        # phase 11
+    phase_pretrain_clis()                               # phase 12
     guarded = [w for w in warnings if w.startswith(GUARD_WARNINGS)]
     if guarded:
         raise AssertionError(f"a guard swallowed a failure: {guarded}")

@@ -5,12 +5,24 @@ The second package of this repository, beside the JAX reference
 `shapeclipper_tpu` (whose package init imports jax). Module names follow the
 JAX package so each counterpart is easy to find.
 
-Ported so far: the single-image serving path (`python -m
-shapeclipper_torch.infer`): ResNet34 encoder + latent projections, ResNet18
-viewpoint estimator, the eval-mode VolSDF render, the dense SDF grid, host
-marching tetrahedra and the turntable. Every SDF evaluation on CUDA goes
-through the hand-written Hopper kernel `csrc/fused_sdf_fwd.cu`
-(`ops/fused_sdf.py`).
+The five entry points of the JAX package, each `python -m` with the same
+YAML files and flags plus `--device=cuda|cpu` (cuda by default):
+
+  * `shapeclipper_torch.pretrain`: sphere pretraining
+    (`models/pretrain_graph.py`, `train/pretrainer.py`);
+  * `shapeclipper_torch.clip_anno`: CLIP nearest-neighbour annotation
+    (`clipnn/`);
+  * `shapeclipper_torch.train`: the epoch loop, training steps and the
+    periodic evaluation (`train/`);
+  * `shapeclipper_torch.evaluate`: Chamfer-L1 and F-scores;
+  * `shapeclipper_torch.infer`: single-image serving.
+
+Every SDF evaluation of the render and the grid on CUDA goes through the
+hand-written Hopper kernels `csrc/fused_sdf_fwd.cu` (K1 / K3) and
+`csrc/fused_sdf_bwd.cu` (K2) (`ops/fused_sdf.py`), every nearest-neighbour
+sweep of the metrics through `csrc/chamfer.cu` (K4 / K5, `ops/chamfer.py`).
+`bridge.py` carries the JAX package's weights and optax Adam states
+across. Not ported: DDP, bf16, `loss_weight.category_reg`.
 """
 
 __version__ = "0.1.0"

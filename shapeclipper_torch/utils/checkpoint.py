@@ -5,7 +5,10 @@ Files keep the JAX package's names with torch's suffix: `latest.pt` on every
 save, copied to `best.pt` on an improved eval and to `checkpoint/ep{N}.pt`
 on a save that is not a `latest` one. Payload: epoch, iter, best_val,
 `graph` (the Graph's state_dict) and the optimizer states by name
-(`optim_full`, `optim_V`: `torch.optim.Adam` state_dicts).
+(`optim_full`, `optim_V`: `torch.optim.Adam` state_dicts; `optim` for the
+pretraining runner). `children=(...)` keeps only the top-level children
+whose name starts with one of them (the pretrain -> train hand-off, which
+`--load` restores per child).
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ def _to_cpu(obj):
 
 
 def write_checkpoint(path, graph_state, ep=0, it=0, best_val=math.inf,
-                     optim_states=None):
+                     optim_states=None, children=None):
     """Write one checkpoint file atomically; graph_state is a state_dict,
-    optim_states a dict of name -> optimizer state_dict."""
+    optim_states a dict of name -> optimizer state_dict. With `children`,
+    only the entries whose top-level name starts with one of them are kept
+    (the JAX package's `k.startswith(tuple(children))`)."""
+    if children is not None:
+        graph_state = {k: v for k, v in graph_state.items()
+                       if k.split(".")[0].startswith(tuple(children))}
     payload = dict(epoch=int(ep), iter=int(it), best_val=float(best_val),
                    graph=_to_cpu(dict(graph_state)))
     for name, state in (optim_states or {}).items():
@@ -41,12 +49,14 @@ def write_checkpoint(path, graph_state, ep=0, it=0, best_val=math.inf,
 
 
 def save_checkpoint(output_path, graph_state, optim_states=None, ep=0, it=0,
-                    best_val=math.inf, latest=False, best=False):
+                    best_val=math.inf, latest=False, best=False,
+                    children=None):
     """`output_path/latest.pt`; copied to `best.pt` when `best` and to
     `checkpoint/ep{ep}.pt` unless `latest`."""
     os.makedirs(os.path.join(output_path, "checkpoint"), exist_ok=True)
     latest_path = os.path.join(output_path, "latest.pt")
-    write_checkpoint(latest_path, graph_state, ep, it, best_val, optim_states)
+    write_checkpoint(latest_path, graph_state, ep, it, best_val, optim_states,
+                     children)
     if best:
         shutil.copy(latest_path, os.path.join(output_path, "best.pt"))
     if not latest:
