@@ -68,7 +68,27 @@ no CPU fallback):
      alone, peak memory, 2 embeddings and one split's top-k against the
      CPU, the three CSVs;
  12. the pretrain, `train --load=<the pretrain run>` and clip_anno CLIs;
- 13. the kernel summary line, the card line and the result line.
+ 13. data parallelism at the flagship config (batch 12, noise input
+     images, a camera step and two full steps on the same draws), each
+     run under `python -m torch.distributed.run` on this script
+     (`--ddp-worker`): one NCCL rank, its Runner under DDP, against the
+     Runner without a process group before and after it (bitwise or
+     within 1e-6; the full steps' times on either side), then two ranks
+     on the one card through gloo (6 samples each) against one process at
+     batch 12, in global and per_replica BatchNorm (losses, every
+     gradient, the post-step parameters and statistics; the camera step
+     and the first full step to tests/test_torch_ddp.py's bounds or twice
+     one process's own float32 noise under a reordered batch, the second
+     full step a reading); the K1 / K2 launches per step and the step
+     times; K1 and K2 timed at a rank's 6 x 32,768 beside 12 x 32,768;
+ 14. `train --distributed` under torchrun (one NCCL rank: DDP, the
+     sharded evaluation's gather) and `train` without it at a tiny size,
+     then `evaluate --resume` of each: equal reports and `Best CD`
+     (tests/test_torch_ddp_cli.py's set-up);
+ 15. `loss_weight.category_reg=1`: a batch-4 flagship step on the card
+     against the CPU (the loss term 1e-4, the centres' gradient 1e-3, the
+     post-step centres 0.05 lr);
+ 16. the kernel summary line, the card line and the result line.
 A warning from the guards that keep metric and visualization failures from
 stopping a training run fails the run.
 
@@ -1501,6 +1521,11 @@ def phase_chamfer_api():
     return launches
 
 
+DDP_STEPS = 3                   # a camera step, then two full steps
+DDP_TIMED = 8                   # then full steps timed only (NCCL x 1)
+DDP_TIMEOUT_S = 600
+
+
 # --------------------------------------------------------------- phase 9
 def run_cli(module, args, extra):
     """`python -m module *args *extra` in a subprocess on the card (the
@@ -1901,6 +1926,506 @@ def phase_pretrain_clis():
         "encoder) -> clip_anno: synthetic_{train,val,test}.csv written")
 
 
+# -------------------------------------------------------------- phase 13
+def rows_of(tree, idx):
+    """The rows `idx` of every array of a (nested) batch or draws tree."""
+    import torch
+    if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
+        return tree[idx]
+    if isinstance(tree, list):
+        return [rows_of(t, idx) for t in tree]
+    return type(tree)({k: rows_of(v, idx) for k, v in tree.items()})
+
+
+def global_draws(opt, batch, n_steps):
+    """Each step's draws for the global batch, drawn on the CPU from a seed
+    in the order a one-process step consumes them."""
+    import torch
+    from shapeclipper_torch.models.graph import step_draws
+    from shapeclipper_torch.train.trainer import batch_to_var
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    var = batch_to_var(batch, "cpu")
+    g = torch.Generator().manual_seed(SEED + 11)
+    return [step_draws(opt, var, edict(), g, "rgb_input_map_NN" in var)
+            for _ in range(n_steps)]
+
+
+def host_summary(prof, wall_ms, n_top=8):
+    """A profiled step's wall and device busy time, its top host operators
+    by self time (both threads: the forward's and autograd's) and every
+    collective's host time."""
+    import torch
+    cpu, busy = [], 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation:
+                busy += e.self_device_time_total / 1e3
+        else:
+            cpu.append(e)
+    comm = [e for e in cpu if any(w in e.key.lower() for w in (
+        "c10d", "nccl", "allreduce", "all_reduce", "broadcast", "gloo"))]
+
+    def fmt(events):
+        return "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.2f} "
+                         f"ms x{e.count}" for e in events) or "none"
+    top = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:n_top]
+    return (f"wall {wall_ms:.1f} ms, device busy {busy:.1f} ms; host self "
+            f"time, top: {fmt(top)}; collectives: {fmt(comm)}")
+
+
+def run_steps(opt, batch, draws, timed=0, profile=False):
+    """DDP_STEPS steps (iteration 0 a camera step) of a fresh flagship
+    Runner, then `timed` full steps on the last draws and, with `profile`,
+    one more under torch.profiler -> (per compared step the loss terms, the
+    gradients, the parameters and the BatchNorm statistics after it (rank
+    0's, broadcast), its ms, its K1 / K2 launches and the step module's
+    class; dict(timed=the timed steps' ms, profile=host_summary or
+    None))."""
+    import torch
+    from shapeclipper_torch import parallel
+    from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.train.trainer import batch_to_var
+    runner = train_runner(opt, "cuda")
+    var = batch_to_var(batch, runner.device)
+    out = []
+    for it, d in enumerate(draws):
+        runner.it = it
+        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = runner.train_iteration(opt, var,
+                                      draws=_to_tree(d, runner.device))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check_loss(f"{opt.tpu.bn_mode} step {it}", loss)
+        g = runner.graph
+        parallel.broadcast_buffers(g)
+        out.append(dict(
+            loss={k: float(v) for k, v in loss.items() if k != "finite"},
+            grads={n: p.grad.clone() for n, p in g.named_parameters()},
+            params={n: p.detach().clone() for n, p in g.named_parameters()},
+            stats={n: b.clone() for n, b in g.named_buffers()
+                   if "running" in n},
+            ms=ms, launches=(F.KERNEL.launches["grad"] - k1,
+                             F.BACKWARD.launches - k2),
+            wrapper=type(runner.step_model).__name__))
+    timed_ms = []
+    d = _to_tree(draws[-1], runner.device)
+    for it in range(len(draws), len(draws) + timed):
+        runner.it = it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.train_iteration(opt, var, draws=d)
+        torch.cuda.synchronize()
+        timed_ms.append(1e3 * (time.perf_counter() - t0))
+    summary = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        runner.it = len(draws) + timed
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.train_iteration(opt, var, draws=d)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        summary = host_summary(prof, wall_ms)
+    return out, dict(timed=timed_ms, profile=summary)
+
+
+def _to_tree(tree, device):
+    import torch
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, list):
+        return [_to_tree(t, device) for t in tree]
+    return type(tree)({k: _to_tree(v, device) for k, v in tree.items()})
+
+
+def step_errors(got, want, lr):
+    """One step of a run against another: loss terms (max relative),
+    gradients (per parameter norm-relative: max and its name), post-step
+    parameters (max |difference| and mean, in lr), running statistics (max
+    relative to their scale), and whether all of it is bitwise equal."""
+    import torch
+    loss = max(abs(got["loss"][k] - v) / max(abs(v), 1e-12)
+               for k, v in want["loss"].items())
+    grad = {n: float((got["grads"][n] - w).norm()
+                     / w.norm().clamp(min=1e-30))
+            for n, w in want["grads"].items()}
+    diffs = [(got["params"][n] - w).abs().reshape(-1)
+             for n, w in want["params"].items()]
+    stats = max(float((got["stats"][n] - w).abs().max()
+                      / w.abs().max().clamp(min=1e-30))
+                for n, w in want["stats"].items())
+    worst = max(grad, key=grad.get)
+    bitwise = (all(got["loss"][k] == v for k, v in want["loss"].items())
+               and all(torch.equal(got[part][n], w)
+                       for part in ("grads", "params", "stats")
+                       for n, w in want[part].items()))
+    return dict(loss=loss, grad=grad[worst], grad_name=worst,
+                param_max=float(max(d.max() for d in diffs)) / lr,
+                param_mean=float(torch.cat(diffs).mean()) / lr, stats=stats,
+                bitwise=bitwise)
+
+
+def ddp_worker(kind):
+    """One rank of `python -m torch.distributed.run ... chip_smoke.py
+    --ddp-worker KIND`: `nccl` joins torchrun's NCCL group on its own card;
+    `gloo` puts every rank on card 0 and joins through gloo. Each rank
+    takes DDP_STEPS steps on its rows of the flagship global batch (noise
+    input images) and the global draws, in each BatchNorm mode of the kind;
+    then rank 0 leaves the group, takes the same steps in one process at
+    the global batch on the same card, and writes the comparison to
+    OUT_DIR/ddp_KIND.json. Under NCCL the one-process steps run before the
+    group is joined and again after it is left (the card's own noise, and
+    step times on either side of DDP's), each followed by DDP_TIMED timed
+    full steps."""
+    import torch
+    sys.path.insert(0, REPO)
+    from shapeclipper_torch import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if kind == "nccl":
+        # deterministic cuDNN: one rank under DDP against no DDP is then a
+        # question of DDP's arithmetic alone
+        torch.backends.cudnn.deterministic = True
+    # the global batch's draws, before the process group (whose world
+    # size would make them this rank's)
+    base = flagship_opt()
+    batch = one_batch(base, noise_images=True)
+    draws = global_draws(base, batch, DDP_STEPS)
+    env = os.environ
+    W = int(env["WORLD_SIZE"])
+    modes = ("global",) if kind == "nccl" else ("global", "per_replica")
+
+    def mode_opt(mode, tag):
+        opt = flagship_opt()
+        opt.tpu.update(bn_mode=mode, bn_replicas=2 if mode == "per_replica"
+                       else None)
+        opt.output_path = os.path.join(OUT_DIR, f"ddp_{kind}_{tag}")
+        return opt
+
+    timed = DDP_TIMED if kind == "nccl" else 0
+    prof = kind == "nccl"
+    if kind == "nccl":
+        before = run_steps(mode_opt("global", "one_before"), batch, draws,
+                           timed, prof)
+        parallel.init_from_env("cuda")
+    else:
+        parallel.init(int(env["RANK"]), int(env["WORLD_SIZE"]),
+                      f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                      "cuda", backend="gloo", local_rank=0)
+    rank = parallel.rank()
+    mine = slice(rank, None, W)
+    ddp, ddp_extra = {}, {}
+    for mode in modes:
+        ddp[mode], ddp_extra[mode] = run_steps(
+            mode_opt(mode, f"r{rank}_{mode}"), rows_of(batch, mine),
+            [rows_of(d, mine) for d in draws], timed, prof)
+    parallel.barrier()
+    parallel.destroy()
+    if rank != 0:
+        return 0
+    lr = float(base.optim.lr)
+    arranged = [i for r in range(W) for i in range(r, base.batch_size, W)]
+    report = dict(world=W, lr=lr, card=card_line(), modes={}, floor={})
+    for mode in modes:
+        # one process at the global batch: the global mode in the loader's
+        # order, per_replica with the rows arranged [rank 0's; rank 1's]
+        # (its contiguous blocks are the ranks' batches)
+        order = list(range(base.batch_size)) if mode == "global" \
+            else arranged
+        ref, ref_extra = run_steps(mode_opt(mode, f"one_{mode}"),
+                                   rows_of(batch, order),
+                                   [rows_of(d, order) for d in draws], timed,
+                                   prof)
+        report["modes"][mode] = [
+            dict(step_errors(g, w, lr), ms=g["ms"], one_ms=w["ms"],
+                 launches=g["launches"], one_launches=w["launches"],
+                 wrapper=g["wrapper"], one_wrapper=w["wrapper"])
+            for g, w in zip(ddp[mode], ref)]
+        # the float32 noise of the same steps: one process before the group
+        # (NCCL), or summed in another order, every BatchNorm block's rows
+        # reversed
+        if kind == "nccl":
+            other, other_extra = before
+        else:
+            block = base.batch_size // (2 if mode == "per_replica" else 1)
+            perm = [order[b + block - 1 - i]
+                    for b in range(0, base.batch_size, block)
+                    for i in range(block)]
+            other, other_extra = run_steps(
+                mode_opt(mode, f"one_{mode}_perm"), rows_of(batch, perm),
+                [rows_of(d, perm) for d in draws])
+        report["floor"][mode] = [step_errors(p, w, lr)
+                                 for p, w in zip(other, ref)]
+        if kind == "nccl":
+            extra = dict(before=other_extra, ddp=ddp_extra[mode],
+                         after=ref_extra)
+            report["timed"] = {k: v["timed"] for k, v in extra.items()}
+            report["profile"] = {k: v["profile"] for k, v in extra.items()}
+    with open(os.path.join(OUT_DIR, f"ddp_{kind}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_ddp(kind, n):
+    """torchrun with `n` ranks of ddp_worker(kind) -> its report."""
+    path = os.path.join(OUT_DIR, f"ddp_{kind}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc_per_node={n}",
+                        os.path.join(REPO, "chip_smoke.py"), "--ddp-worker",
+                        kind], cwd=REPO, capture_output=True, text=True,
+                       timeout=DDP_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun {kind} x {n} failed "
+                             f"({r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    with open(path) as f:
+        report = json.load(f)
+    log(f"[ddp] torchrun --nproc_per_node={n} ({kind}): "
+        f"{time.perf_counter() - t0:.1f} s in all, processes included")
+    return report
+
+
+def describe(e):
+    return (f"loss max rel {e['loss']:.2e}, gradient max norm-rel "
+            f"{e['grad']:.2e} ({e['grad_name']}), parameters max "
+            f"{e['param_max']:.4f} lr / mean {e['param_mean']:.5f} lr, BN "
+            f"stats max rel {e['stats']:.2e}"
+            + (", bitwise equal" if e["bitwise"] else ""))
+
+
+def phase_ddp():
+    """(1) One NCCL rank under torchrun, its Runner wrapped in DDP (the
+    reducer's buckets, the unused-parameter search, NCCL all-reduces of the
+    gradients, the global BatchNorm moments and the coupled losses' rows),
+    against the Runner without a process group before and after it;
+    (2) two ranks on the one card through gloo, in global and per_replica
+    BatchNorm, against one process at the global batch of 12; both on the
+    flagship config, DDP_STEPS steps (a camera step, then full steps), the
+    same batch and draws. K1 / K2 launches per step, step times."""
+    rep = run_ddp("nccl", 1)
+    steps = rep["modes"]["global"]
+    for it, e in enumerate(steps):
+        phase = "camera" if it == 0 else "full"
+        want = (3, 1) if it == 0 else (3, 3)
+        if tuple(e["launches"]) != want or tuple(e["one_launches"]) != want:
+            raise AssertionError(f"NCCL step {it}: launches K1/K2 "
+                                 f"{e['launches']} / {e['one_launches']}, "
+                                 f"expected {want}")
+        if (e["wrapper"], e["one_wrapper"]) != ("DistributedDataParallel",
+                                                "TrainStep"):
+            raise AssertionError(f"NCCL step {it}: step modules "
+                                 f"{e['wrapper']} / {e['one_wrapper']}")
+        log(f"[ddp] NCCL x 1 under DDP, step {it} ({phase}), vs the Runner "
+            f"without a process group: {describe(e)}; {e['ms']:.1f} ms vs "
+            f"{e['one_ms']:.1f} ms; K1/K2 launches {e['launches'][0]}/"
+            f"{e['launches'][1]}")
+        f = rep["floor"]["global"][it]
+        log(f"[ddp]   the Runner without a process group, before against "
+            f"after (the card's own run-to-run noise): {describe(f)}")
+        # bitwise, or within 1e-6 (parameters: 1e-6 absolute), or within
+        # twice the card's own repeat noise
+        tol = dict(loss=1e-6, grad=1e-6, param_max=1e-6 / rep["lr"],
+                   stats=1e-6)
+        off = {k: e[k] for k, t in tol.items() if e[k] > max(t, 2 * f[k])}
+        if not e["bitwise"] and off:
+            raise AssertionError(f"NCCL x 1 step {it} differs from the "
+                                 f"Runner without DDP: {off}")
+    t = {k: statistics.median(v) for k, v in rep["timed"].items()}
+    log(f"[ddp] NCCL x 1: median of {DDP_TIMED} full steps, the Runner "
+        f"without a process group {t['before']:.1f} ms (before), under DDP "
+        f"{t['ddp']:.1f} ms, without {t['after']:.1f} ms (after): DDP "
+        f"{t['ddp'] / ((t['before'] + t['after']) / 2):.3f}x their mean; "
+        f"all: {json.dumps(rep['timed'])}; "
+        f"card {rep['card']}")
+    for k, line in rep["profile"].items():
+        log(f"[ddp] NCCL x 1, one more full step profiled ({k}): {line}")
+
+    rep = run_ddp("gloo", 2)
+    lr_tol = dict(loss=1e-5, grad=1e-4, param_max=2.0, param_mean=0.02,
+                  stats=1e-5)
+    bad = []
+    for mode, steps in rep["modes"].items():
+        for it, e in enumerate(steps):
+            f = rep["floor"][mode][it]
+            want = (3, 1) if it == 0 else (3, 3)
+            # the camera step and the first full step are held to the CPU
+            # test's bounds (tests/test_torch_ddp.py), or twice the float32
+            # noise of one process under a reordering of the batch; by the
+            # second full step that noise is as large as the signal, so it
+            # is a reading only
+            gated = it < 2
+            log(f"[ddp] gloo x 2 on one card, {mode} BN, step {it} "
+                f"({'camera' if it == 0 else 'full'}"
+                f"{'' if gated else ', a reading, not gated'}) vs one "
+                f"process at batch 12: {describe(e)}; one process reordered "
+                f"(the float32 floor): {describe(f)}; rank 0 {e['ms']:.1f} ms"
+                f" (6 samples) vs {e['one_ms']:.1f} ms (12); K1/K2 launches "
+                f"{e['launches'][0]}/{e['launches'][1]} per rank")
+            if tuple(e["launches"]) != want:
+                bad.append(f"{mode} step {it} launches {e['launches']}")
+            if e["wrapper"] != "DistributedDataParallel":
+                bad.append(f"{mode} step {it} ran {e['wrapper']}")
+            if gated:
+                tol = {k: max(v, 2 * f[k]) for k, v in lr_tol.items()}
+                bad += [f"{mode} step {it} {k} {e[k]:.3e} > {t:.3e}"
+                        for k, t in tol.items() if e[k] > t]
+    log("[ddp] gloo x 2: two processes share one card and exchange every "
+        "gradient bucket through host memory (gloo): a check of the "
+        "arithmetic, not a scaling figure")
+    if bad:
+        raise AssertionError(f"two ranks vs one process: {bad}")
+
+
+def phase_k1_k2_half():
+    """K1 and K2 at a rank's share of the flagship batch under two ranks
+    (6 x 32,768) beside the whole batch (12 x 32,768): CUDA-event times,
+    their plain versions' and bounds scaled to the work."""
+    import torch
+    from shapeclipper_torch.models.implicit import SDFNetwork
+    from shapeclipper_torch.ops import fused_sdf as F
+    g = torch.Generator().manual_seed(SEED + 2)
+    net = SDFNetwork(geometric_init=False, generator=g).cuda()
+    out = {}
+    for B in (6, 12):
+        N = 32768
+        pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).cuda()
+        lat = (torch.randn(B, 64, generator=g) * 0.3).cuda()
+        cots = [torch.randn(B, N, c, generator=g).cuda() for c in (1, 64, 3)]
+        with torch.no_grad():
+            kk, bb = F.prepare_fused_params(net, lat)
+            weights, bias = F.pack_fused_params(kk, bb)
+        k1 = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, True, True))
+        k2 = cuda_ms(lambda: F.BACKWARD.launch(
+            pts, weights, bias, cots[0][..., 0].contiguous(), cots[1],
+            cots[2], True))
+        # the plain versions: the forward with tangents, and the backward
+        # alone (autograd of one kept plain forward), as phases 2 and 3
+        with torch.inference_mode():
+            k1_plain = cuda_ms(lambda: F._forward_plain(
+                kk, bb, pts, *F._arch(net), True, True))
+        p = pts.clone().requires_grad_(True)
+        fwd = F._forward_plain(*F.prepare_fused_params(net, lat), p,
+                               *F._arch(net), True, True)
+        k2_plain = cuda_ms(lambda: torch.autograd.backward(
+            fwd, cots, retain_graph=True))
+        del fwd
+        _, (b1, by1) = forward_bound(B, N, True)
+        b2, by2 = bound(FLOP_K2 * B * N, k2_bytes(B, N))
+        out[B] = dict(k1=k1, k2=k2, k1_bound=b1, k2_bound=b2,
+                      k1_plain=k1_plain, k2_plain=k2_plain)
+        log(f"[ddp] K1 at {B} x {N}: {k1:.4f} ms (bound {b1:.4f} ms, {by1}, "
+            f"{100 * b1 / k1:.1f}%; plain {k1_plain:.4f} ms); K2: {k2:.4f} "
+            f"ms (bound {b2:.4f} ms, {by2}, {100 * b2 / k2:.1f}%; plain "
+            f"backward {k2_plain:.4f} ms)")
+    log(f"[ddp] a rank's half batch: K1 {out[6]['k1'] / out[12]['k1']:.3f}x "
+        f"and K2 {out[6]['k2'] / out[12]['k2']:.3f}x the whole batch's time; "
+        f"card {card_line()}")
+    return out
+
+
+def phase_ddp_cli():
+    """`python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+    shapeclipper_torch.train --distributed` (one NCCL rank) and the same
+    run without `--distributed`, one tiny epoch each with its evaluations,
+    then `evaluate --resume` of each: cd_cat.txt, f_score.txt, chamfer.txt
+    and the `Best CD` line must be equal. As tests/test_torch_ddp_cli.py,
+    `optim.lr=0` and camera steps only, so that both runs evaluate the
+    same weights and the reports compare the distributed loop."""
+    import shutil
+    root = os.path.join(OUT_DIR, "clis_ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    tiny = ["--yaml=options/synthetic/config.yaml", "--name=run",
+            "--batch_size=2", "--image_size=[32,32]",
+            "--render.rand_sample=32", "--render.n_samples_uniform=8",
+            "--eval.vox_res=12", "--eval.num_points=512",
+            "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!",
+            "--eval.dump!"]
+    train = ["--max_epoch=1", "--freq.eval=1", "--optim.lr=0",
+             "--optim.iter_camera=1000"]
+    best, reports = [], []
+    for tag, launch in (("one", []), ("ddp", [
+            "--standalone", "--nproc_per_node=1", "-m",
+            "shapeclipper_torch.train", "--distributed"])):
+        out_root = f"--output_root={os.path.join(root, tag)}"
+        module = "torch.distributed.run" if launch else \
+            "shapeclipper_torch.train"
+        out = run_cli(module, launch + tiny + [out_root], train)
+        best.append([ln for ln in out.splitlines()
+                     if ln.startswith("Best CD")])
+        run_cli("shapeclipper_torch.evaluate", tiny + [out_root],
+                ["--resume"])
+        run = os.path.join(root, tag, "synthetic_output", "run")
+        texts = {}
+        for name in ("cd_cat.txt", "f_score.txt", "chamfer.txt"):
+            with open(os.path.join(run, name)) as f:
+                texts[name] = f.read()
+        reports.append(texts)
+    if len(best[0]) != 1 or best[0] != best[1]:
+        raise AssertionError(f"Best CD lines differ: {best}")
+    differ = [n for n in reports[0] if reports[0][n] != reports[1][n]]
+    if differ:
+        raise AssertionError(f"train --distributed reports differ: {differ}")
+    log(f"[ddp-cli] train --distributed (one NCCL rank under DDP) and "
+        f"train: "
+        f"'{best[0][0]}' both; cd_cat.txt, f_score.txt, chamfer.txt equal")
+
+
+def phase_category_reg():
+    """`loss_weight.category_reg=1` (nine category centres): the first full
+    step at batch 4 on the card and on the CPU plain path from the same
+    weights and draws: the loss term, the centres' gradient and the
+    post-step centres: the loss 1e-4 relative, the gradient 1e-3
+    norm-relative (the centres read the train-mode BatchNorm'd codes), the
+    post-step centres 0.05 lr at most and 0.02 lr on the mean, as phase
+    10's card-vs-CPU step (Adam's first update moves a parameter by at most
+    lr, so a bound of lr or more holds nothing)."""
+    import torch
+    from shapeclipper_torch.train.trainer import batch_to_var
+    opt = flagship_opt(batch_size=4)
+    opt.loss_weight.category_reg = 1.0
+    opt.data.num_classes = 9
+    opt.output_path = os.path.join(OUT_DIR, "category_reg")
+    gpu = train_runner(opt, "cuda")
+    cpu = train_runner(opt, "cpu")
+    cpu.graph.load_state_dict(gpu.graph.state_dict())
+    c0 = cpu.graph.category_centers.detach().clone()
+    batch = one_batch(opt, noise_images=True)
+    draws = global_draws(opt, batch, 1)[0]
+    res = {}
+    for role, r in (("gpu", gpu), ("cpu", cpu)):
+        r.it = 1
+        loss = r.train_iteration(opt, batch_to_var(batch, r.device),
+                                 draws=_to_tree(draws, r.device))
+        c = r.graph.category_centers
+        res[role] = (float(loss.category_reg), c.grad.detach().cpu(),
+                     c.detach().cpu())
+    lr = float(opt.optim.lr)
+    (lg, gg, cg), (lc, gc, cc) = res["gpu"], res["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    grad_err = float((gg - gc).norm() / gc.norm())
+    par = float((cg - cc).abs().max()) / lr
+    mean = float((cg - cc).abs().mean()) / lr
+    moved = float((cc - c0).abs().max()) / lr
+    log(f"[category_reg] batch 4 full step, card vs CPU: loss term "
+        f"{lg:.6f} vs {lc:.6f} (rel {loss_err:.2e}, tol 1e-4); centres' "
+        f"gradient norm-rel {grad_err:.2e} (tol 1e-3), |grad| "
+        f"{float(gc.norm()):.3e}; post-step centres max {par:.2e} lr (tol "
+        f"0.05 lr), mean {mean:.2e} lr (tol 0.02 lr), the step moved them "
+        f"{moved:.3f} lr; card {card_line()}")
+    if not (lc > 0 and float(gc.norm()) > 0 and moved > 0.5):
+        raise AssertionError("category_reg: zero loss, gradient or step")
+    if loss_err > 1e-4 or grad_err > 1e-3 or par > 0.05 or mean > 0.02:
+        raise AssertionError(f"category_reg card vs CPU: loss {loss_err}, "
+                             f"gradient {grad_err}, post-step max {par} / "
+                             f"mean {mean} lr")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1959,6 +2484,10 @@ def main():
     phase_pretrain()                                    # phase 10
     phase_clip()                                        # phase 11
     phase_pretrain_clis()                               # phase 12
+    phase_ddp()                                         # phase 13
+    phase_k1_k2_half()
+    phase_ddp_cli()                                     # phase 14
+    phase_category_reg()                                # phase 15
     guarded = [w for w in warnings if w.startswith(GUARD_WARNINGS)]
     if guarded:
         raise AssertionError(f"a guard swallowed a failure: {guarded}")
@@ -2004,4 +2533,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2]))
     sys.exit(main())

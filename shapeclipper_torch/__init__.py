@@ -22,7 +22,9 @@ hand-written Hopper kernels `csrc/fused_sdf_fwd.cu` (K1 / K3) and
 `csrc/fused_sdf_bwd.cu` (K2) (`ops/fused_sdf.py`), every nearest-neighbour
 sweep of the metrics through `csrc/chamfer.cu` (K4 / K5, `ops/chamfer.py`).
 `bridge.py` carries the JAX package's weights and optax Adam states
-across. Not ported: DDP, bf16, `loss_weight.category_reg`.
+across. `parallel/` makes the training data parallel over DDP ranks
+(`torchrun ... -m shapeclipper_torch.train --distributed`). Not ported:
+bf16.
 """
 
 __version__ = "0.1.0"

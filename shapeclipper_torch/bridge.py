@@ -12,8 +12,9 @@ arrays (`np.asarray` of the flax trees) and returns the state_dict of
 Names: the ResNets use torchvision's (the names `scripts/convert_weights.py`
 keeps: `conv1`, `bn1`, `layer{i}.{j}.conv1`, `layer{i}.{j}.downsample.{0,1}`,
 `fc`); the estimator backbone is `estimator.feature_extractor` as in the
-reference; the MLPs keep `lin{l}`. `category_centers` (a training-only
-parameter) is not part of the serving graph and is skipped.
+reference; the MLPs keep `lin{l}`; `category_centers` (the parameter of
+`loss_weight.category_reg`, [num_classes, proj_latent_dim]) keeps its name
+and layout.
 
 A tree may be partial: only the children it holds are converted (a JAX
 pretraining checkpoint keeps `sdf_network`, `latent_proj_shape` and maybe
@@ -148,7 +149,9 @@ def state_dict_from_flax(params, batch_stats=None):
                 _dense(out, f"{name}.{lin}", leaf)
         elif name == "density":
             out["density.beta"] = _t(p["beta"])
-        elif name != "category_centers":
+        elif name == "category_centers":
+            out[name] = _t(p)
+        else:
             raise KeyError(f"unexpected top-level entry {name}")
     return out
 

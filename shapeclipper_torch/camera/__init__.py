@@ -12,15 +12,15 @@ def pose(R=None, t=None):
     """Build a [..., 3, 4] pose from rotation R [..., 3, 3] and/or t [..., 3]."""
     assert R is not None or t is not None
     if R is None:
-        t = torch.as_tensor(t, dtype=torch.float32)
-        R = torch.eye(3, dtype=torch.float32, device=t.device).expand(
+        t = torch.as_tensor(t, dtype=torch.get_default_dtype())
+        R = torch.eye(3, dtype=torch.get_default_dtype(), device=t.device).expand(
             *t.shape[:-1], 3, 3)
     elif t is None:
-        R = torch.as_tensor(R, dtype=torch.float32)
-        t = torch.zeros(R.shape[:-1], dtype=torch.float32, device=R.device)
+        R = torch.as_tensor(R, dtype=torch.get_default_dtype())
+        t = torch.zeros(R.shape[:-1], dtype=torch.get_default_dtype(), device=R.device)
     else:
-        R = torch.as_tensor(R, dtype=torch.float32)
-        t = torch.as_tensor(t, dtype=torch.float32).expand(R.shape[:-1])
+        R = torch.as_tensor(R, dtype=torch.get_default_dtype())
+        t = torch.as_tensor(t, dtype=torch.get_default_dtype()).expand(R.shape[:-1])
     return torch.cat([R, t[..., None]], dim=-1)
 
 
@@ -115,16 +115,16 @@ def pixel_grid_xy(H, W, model="perspective", ray_idx=None, device=None):
     row+0.5); orthographic: [-1, 1] ndc."""
     if ray_idx is None:
         if model == "perspective":
-            y = torch.arange(H, dtype=torch.float32, device=device) + 0.5
-            x = torch.arange(W, dtype=torch.float32, device=device) + 0.5
+            y = torch.arange(H, dtype=torch.get_default_dtype(), device=device) + 0.5
+            x = torch.arange(W, dtype=torch.get_default_dtype(), device=device) + 0.5
         else:
             assert H == W
             y = torch.linspace(-1.0, 1.0, H, device=device)
             x = torch.linspace(-1.0, 1.0, W, device=device)
         Y, X = torch.meshgrid(y, x, indexing="ij")
         return torch.stack([X, Y], dim=-1).reshape(-1, 2)
-    row = torch.div(ray_idx, W, rounding_mode="floor").to(torch.float32)
-    col = (ray_idx % W).to(torch.float32)
+    row = torch.div(ray_idx, W, rounding_mode="floor").to(torch.get_default_dtype())
+    col = (ray_idx % W).to(torch.get_default_dtype())
     if model == "perspective":
         x, y = col + 0.5, row + 0.5
     else:
@@ -170,7 +170,7 @@ def get_center_and_ray(opt, p, intr=None, ray_idx=None):
 
 def get_intr(opt, scale_focal):
     """Batched pinhole intrinsics [..., 3, 3] from a per-sample focal scale."""
-    scale_focal = torch.as_tensor(scale_focal, dtype=torch.float32)
+    scale_focal = torch.as_tensor(scale_focal, dtype=torch.get_default_dtype())
     zeros = torch.zeros_like(scale_focal)
     ones = torch.ones_like(scale_focal)
     f = opt.camera.focal * scale_focal

@@ -260,6 +260,12 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
+        if self.drop_last and self.num_shards > 1:
+            # whole global batches only: every shard gets the same number
+            # of batches, and batch k of the shards together is batch k of
+            # one process at the global batch size
+            glob = self.batch_size * self.num_shards
+            idx = idx[:len(idx) - len(idx) % glob]
         idx = idx[self.shard_id::self.num_shards]
         return idx
 

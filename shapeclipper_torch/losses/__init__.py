@@ -8,6 +8,15 @@ floor(n_valid * (1 - tol)) comparison selects the kept set. The rank uses
 stable sorts (`jnp.argsort` is stable; torch's default sort is not), so tied
 angles keep the same pixels on both sides. Norms are written as
 sqrt(sum + tiny) so that their gradients stay finite at zero vectors.
+
+Every loss is the global batch's, as the JAX package's single-controller
+step computes it. A mean of per-sample terms needs nothing under data
+parallelism (DDP's gradient mean is the global mean's gradient); the losses
+that couple the samples of the batch (`normal_loss`'s trim and its
+denominator, `cam_uniform_loss`'s sort, the trimmed `mse_loss` and
+`iou_loss`) first gather their inputs over the ranks
+(`parallel.gather_rows`, the identity in one process), so that every rank
+computes the global value.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import gather_rows
 
 
 def aggregate_loss(loss, weight=None):
@@ -29,10 +40,14 @@ def l1_loss(pred, label=0.0, weight=None):
 
 
 def mse_loss(pred, label=0.0, weight=None, tolerance=0.0):
-    loss = (pred - label) ** 2
     if tolerance > 1e-5:
         assert pred.dim() == 3 and pred.shape[2] in (1, 3)
         assert weight is None
+        pred = gather_rows(pred)
+        if torch.is_tensor(label) and label.dim() == pred.dim():
+            label = gather_rows(label)
+    loss = (pred - label) ** 2
+    if tolerance > 1e-5:
         loss_pixel = (loss.mean(dim=2).reshape(-1) if pred.shape[2] == 3
                       else loss.reshape(-1))
         loss_sorted = torch.sort(loss_pixel, stable=True).values
@@ -68,6 +83,10 @@ def normal_loss(normal_pred, normal_gt, mask, normal_l1=5.0, weight=None,
     if mask.dim() == 3:
         mask = mask[..., 0]
     assert normal_pred.shape == normal_gt.shape and normal_pred.dim() == 3
+    normal_pred, normal_gt, mask = (gather_rows(normal_pred),
+                                    gather_rows(normal_gt), gather_rows(mask))
+    if torch.is_tensor(weight):
+        weight = gather_rows(weight)
     maskf = mask.to(normal_pred.dtype)
     angular = 1.0 - (normal_pred * normal_gt).sum(dim=-1)
     l1 = (normal_pred - normal_gt).abs().sum(dim=-1)
@@ -95,6 +114,8 @@ def normal_loss(normal_pred, normal_gt, mask, normal_l1=5.0, weight=None,
 
 def iou_loss(inputs, targets, weight=None, tolerance=0.0):
     """Soft IoU with optional outlier replacement."""
+    if tolerance > 1e-5:
+        inputs, targets = gather_rows(inputs), gather_rows(targets)
     batch_size = inputs.shape[0]
     x = inputs.reshape(batch_size, -1)
     y = targets.reshape(batch_size, -1)
@@ -151,6 +172,7 @@ def cam_sym_loss(trig_orig, trig_flipped):
 def cam_uniform_loss(trig, emd_p=2):
     """1-D Wasserstein between the batch's azimuth trig statistics and a
     uniform circle prior."""
+    trig = gather_rows(trig)
     batch_size = trig.shape[0]
     cos_e, sin_e = trig[:, 0], trig[:, 1]
     prod_e = cos_e * sin_e

@@ -11,13 +11,20 @@ every `tpu.merge_*` flag false: query encode, estimator, render, then per
 neighbour view encode, estimator and render, so the BatchNorm running
 statistics update query first, then each view. BatchNorm follows the
 module's mode: `graph.train()` for full steps, `graph.eval()` for the
-camera phase (the JAX `bn_eval`). The port computes in float32 and ignores
-`tpu.merge_*`, `tpu.sdf_grad_mode`, `tpu.fold_eikonal`,
-`tpu.remat_renderer` and the bf16 dtypes.
+camera phase (the JAX `bn_eval`). Train-mode BatchNorm follows
+`tpu.bn_mode` as the JAX package's `_apply_bn`: `global` moments over the
+whole batch (summed over the ranks under data parallelism), or
+`per_replica` moments over `tpu.bn_replicas` contiguous blocks (default:
+the world size) with the running statistics from block 0. The port
+computes in float32 and ignores `tpu.merge_*`, `tpu.sdf_grad_mode`,
+`tpu.fold_eikonal`, `tpu.remat_renderer` and the bf16 dtypes.
 
 Random draws (stratified jitter, eikonal points, the Gumbel noise of the
-neighbour selection) are optional inputs in `draws`; an absent one is drawn
-from `generator`.
+neighbour selection) are optional inputs in `draws`; `step_draws` takes an
+absent one from `generator` at the global batch, in the order a one-process
+step consumes them, and this rank keeps its own rows.
+`loss_weight.category_reg` adds the `category_centers` parameter
+[num_classes, proj_latent_dim] and its loss.
 """
 
 from __future__ import annotations
@@ -30,11 +37,12 @@ from torch import nn
 
 from .. import camera
 from .. import losses as L
+from .. import parallel
 from ..render import renderer as renderlib
 from ..utils.easydict import EasyDict as edict
 from .estimator import Estimator
 from .implicit import Density, RGBNetwork, SDFNetwork
-from .layers import LatentProjection, batch_stats_frozen
+from .layers import LatentProjection, batch_stats_frozen, set_bn_mode
 from ..utils.log import log
 from .resnet import load_pretrained_npz, make_encoder
 
@@ -62,6 +70,40 @@ def pose_from_trig(opt, trig_azim, trig_elev, trig_theta, scale_focal,
     return camera.compose([pose_R, pose_T]), camera.get_intr(opt, scale_focal)
 
 
+def step_draws(opt, var, draws, generator, nn_active):
+    """`draws` with every absent draw of a training step taken from
+    `generator`: the global batch's tensor (this rank's rows times the world
+    size), in the order a one-process step consumes them (the query
+    render's jitter and eikonal points, the Gumbel noise, each neighbour
+    view's jitter), of which this rank keeps its rows."""
+    n = var.rgb_input_map.shape[0] * parallel.world_size()
+    dev = var.rgb_input_map.device
+
+    def rays(ray_idx):
+        return ray_idx.shape[1] if ray_idx is not None else opt.H * opt.W
+
+    out = edict(draws)
+    query_rays = var.get("ray_idx") if opt.render.rand_sample else None
+    out.render = renderlib.draw(opt, n, rays(query_rays), True, generator,
+                                dev, given=draws.get("render"))
+    if not nn_active:
+        return out
+    K = var.rgb_input_map_NN.shape[1]
+    if K != opt.reg.n_views and draws.get("nn_uniform") is None:
+        out.nn_uniform = parallel.local_rows(
+            1e-20 + (1.0 - 1e-20) * torch.rand(n, K, generator=generator,
+                                                device=dev))
+    nn_rays = (var.get("ray_idx_NN")
+               if opt.render.rand_sample and "ray_idx_NN" in var else None)
+    given = draws.get("render_NN") or [None] * opt.reg.n_views
+    out.render_NN = [
+        renderlib.draw(opt, n, rays(None if nn_rays is None
+                                    else nn_rays[:, 0]),
+                       False, generator, dev, given=given[v])
+        for v in range(opt.reg.n_views)]
+    return out
+
+
 class Graph(nn.Module):
     """Model bundle + the serving forward. `generator` seeds the
     initialisation (the port has no trained weights of its own)."""
@@ -82,8 +124,29 @@ class Graph(nn.Module):
         self.rgb_network = RGBNetwork.from_opt(opt, generator=g)
         self.density = Density(opt.arch.impl_sdf.beta_init)
         if opt.loss_weight.get("category_reg") is not None:
-            raise NotImplementedError("loss_weight.category_reg (the "
-                                      "category centres) is not ported")
+            self.category_centers = nn.Parameter(0.02 * torch.randn(
+                opt.data.num_classes, opt.arch.impl_sdf.proj_latent_dim,
+                generator=g))
+        self.bn_replicas = self.resolve_bn_replicas(opt)
+        W = parallel.world_size()
+        if self.bn_replicas == 1:   # the global batch's moments
+            set_bn_mode(self, sync=parallel.is_initialized())
+        elif self.bn_replicas % W:
+            raise ValueError(f"tpu.bn_replicas={self.bn_replicas} does not "
+                             f"divide over {W} ranks")
+        else:
+            set_bn_mode(self, replicas=self.bn_replicas // W)
+
+    @staticmethod
+    def resolve_bn_replicas(opt):
+        """The per-replica BatchNorm block count over the global batch
+        (`graph.py::_resolve_bn_replicas` of the JAX package): 1 unless
+        `tpu.bn_mode: per_replica`, then `tpu.bn_replicas`, else the world
+        size. Each rank takes `bn_replicas / W` blocks of its rows."""
+        tpu = opt.get("tpu", {})
+        if tpu.get("bn_mode", "global") != "per_replica":
+            return 1
+        return int(tpu.get("bn_replicas") or parallel.world_size())
 
     def load_pretrained_encoders(self):
         """ImageNet-pretrained initialisation from converted .npz files, as
@@ -134,13 +197,12 @@ class Graph(nn.Module):
 
     def render(self, pose, intr, scale_dist, proj_sdf, proj_rgb,
                ray_idx=None, training=False, compute_eikonal=None,
-               draws=None, generator=None):
+               draws=None):
         return renderlib.render(self.opt, self.sdf_network, self.rgb_network,
                                 self.density.beta, pose, intr, scale_dist,
                                 proj_sdf, proj_rgb, ray_idx=ray_idx,
                                 training=training,
-                                compute_eikonal=compute_eikonal, draws=draws,
-                                generator=generator)
+                                compute_eikonal=compute_eikonal, draws=draws)
 
     def forward(self, var, training=False, get_loss=False, draws=None,
                 generator=None, render=True):
@@ -210,6 +272,8 @@ class Graph(nn.Module):
         nn_active = ((lw.get("nearest_img") is not None
                       or lw.get("nearest_mask") is not None)
                      and "rgb_input_map_NN" in var)
+        if generator is not None:
+            draws = step_draws(opt, var, draws, generator, nn_active)
         self._encode_and_pose(var)
         normal_sup = var.get("normal_gt", var.get("normal_input"))
         if normal_sup is not None:
@@ -218,21 +282,21 @@ class Graph(nn.Module):
         out = self.render(var.pose, var.intr, var.scale_dist,
                           var.proj_latent_sdf, var.proj_latent_rgb,
                           ray_idx=ray_idx, training=True,
-                          draws=draws.get("render"), generator=generator)
+                          draws=draws.get("render"))
         self._set_render_outputs(var, out)
         if nn_active:
-            self.forward_NN(var, draws, generator)
+            self.forward_NN(var, draws)
         if not get_loss:
             return var
         return var, self.compute_loss(var)
 
-    def _nn_select(self, var, uniform=None, generator=None):
+    def _nn_select(self, var, uniform=None):
         """IoU-weighted neighbour selection (reference
         `model/graph.py:119-142`): stores idx_NN and input_NN_v in var and
         returns the per-view inputs. With K == V (the loader pre-selected
         the views, `data.preselect_NN`) the views are taken in order;
-        otherwise Gumbel top-k on the scores, the uniform noise [B, K] in
-        [1e-20, 1) given as `uniform` or drawn from `generator`."""
+        otherwise Gumbel top-k on the scores with the uniform noise
+        `uniform` [B, K] in [1e-20, 1) (`step_draws`)."""
         opt = self.opt
         K = var.rgb_input_map_NN.shape[1]
         V = opt.reg.n_views
@@ -250,11 +314,8 @@ class Graph(nn.Module):
             scores = (1.0 - inter / union) ** opt.reg.sample_temp   # [B,K]
             var.nn_scores = scores
             if uniform is None:
-                if generator is None:
-                    raise ValueError("neighbour selection needs `uniform` "
-                                     "or a generator")
-                uniform = 1e-20 + (1.0 - 1e-20) * torch.rand(
-                    B, K, generator=generator, device=dev)
+                raise ValueError("neighbour selection needs the draw "
+                                 "`nn_uniform`")
             logp = torch.log(torch.clamp(scores, min=1e-20))
             gumbel = -torch.log(-torch.log(uniform))
             idx_NN = torch.topk(logp + gumbel, V, dim=1).indices    # [B,V]
@@ -274,13 +335,13 @@ class Graph(nn.Module):
             sels.append(sel)
         return sels
 
-    def _nn_prepare(self, var, draws, generator):
+    def _nn_prepare(self, var, draws):
         """Neighbour selection + per-view encode and pose (reference
         `model/graph.py:114-205`), in view order after the query's, so the
         BatchNorm running statistics update as the JAX package's
         sequential path composes them."""
         opt = self.opt
-        sels = self._nn_select(var, draws.get("nn_uniform"), generator)
+        sels = self._nn_select(var, draws.get("nn_uniform"))
         prep = []
         for v, sel in enumerate(sels):
             # the NN view's own RGB latent; the SDF latent stays the query's
@@ -299,18 +360,17 @@ class Graph(nn.Module):
                              proj_rgb=proj_rgb_NN, ray_idx=sel.get("ray_idx")))
         return prep
 
-    def forward_NN(self, var, draws, generator):
+    def forward_NN(self, var, draws):
         """CLIP nearest-neighbour consistency branch, one render per view
         with the query's SDF latent (reference `model/graph.py:114-218`)."""
-        prep = self._nn_prepare(var, draws, generator)
+        prep = self._nn_prepare(var, draws)
         render_draws = draws.get("render_NN") or [None] * len(prep)
         for v, p in enumerate(prep):
             # the NN views' eikonal gradients feed no loss
             out = self.render(p["pose"], p["intr"], p["scale_dist"],
                               var.proj_latent_sdf, p["proj_rgb"],
                               ray_idx=p["ray_idx"], training=True,
-                              compute_eikonal=False, draws=render_draws[v],
-                              generator=generator)
+                              compute_eikonal=False, draws=render_draws[v])
             var[f"rgb_recon_NN_{v}"] = out.rgb
             var[f"mask_recon_NN_{v}"] = out.mask
             var[f"depth_recon_NN_{v}"] = out.depth
@@ -358,6 +418,10 @@ class Graph(nn.Module):
             loss.cam_sym = L.cam_sym_loss(
                 (var.trig_azim, var.trig_elev, var.trig_theta),
                 (est_f.trig_azim, est_f.trig_elev, est_f.trig_theta))
+        if lw.get("category_reg") is not None:
+            loss.category_reg = L.category_reg_loss(
+                var.proj_latent_sdf, self.category_centers,
+                var.category_label)
         if lw.get("nearest_img") is not None and "rgb_recon_NN_0" in var:
             loss.nearest_img = sum(
                 L.mse_loss(var[f"rgb_recon_NN_{v}"],

@@ -1,8 +1,11 @@
 """BottleneckLinear residual block and LatentProjection (counterpart of
 `shapeclipper_tpu/models/layers.py`).
 
-`BatchNorm` is the JAX package's `GroupBatchNorm` with `groups=1`; the
-grouped, merged-encoder paths are not ported.
+`BatchNorm` is the JAX package's `GroupBatchNorm` as `Graph._apply_bn` uses
+it: `groups=1`, or the per-replica split of `tpu.bn_mode: per_replica`
+(`replicas` contiguous blocks, the running statistics from block 0); the
+grouped, merged-encoder paths are not ported. Under data parallelism the
+global-batch moments are summed over the ranks (`sync`).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from .. import parallel
+
 
 def lecun_normal_(weight, generator=None):
     """Variance-1/fan_in normal init (flax Dense's default scale), drawn from
@@ -25,13 +30,21 @@ def lecun_normal_(weight, generator=None):
 
 class BatchNorm(_BatchNorm):
     """BatchNorm over [B, C] or [B, C, H, W] with `GroupBatchNorm`'s
-    (groups=1) semantics, under torch's state_dict names (weight, bias,
-    running_mean, running_var, num_batches_tracked).
+    semantics, under torch's state_dict names (weight, bias, running_mean,
+    running_var, num_batches_tracked).
 
     * eval mode: the running statistics, exactly as `nn.BatchNorm*d`;
     * train mode: the biased batch variance normalises, and the running
       statistics take `0.9 * running + 0.1 * batch` with the BIASED batch
       variance (`nn.BatchNorm*d` would use the unbiased one, n/(n-1) larger);
+    * `replicas = n` (train mode): the batch splits into n contiguous
+      blocks, each normalised with its own moments, and the running
+      statistics follow block 0 only (JAX's per-replica BN, DDP's per-GPU
+      BN with rank 0's buffers broadcast);
+    * `sync` (train mode): Σx, Σx² and the count are summed over the ranks
+      with autograd, so every rank normalises with the global batch's
+      moments (JAX's global BN across the data mesh; not
+      `nn.SyncBatchNorm`, whose running variance is the unbiased one);
     * train mode inside `batch_stats_frozen`: batch statistics, no update
       (the flipped cam_sym estimator pass, whose update JAX discards).
     """
@@ -40,6 +53,8 @@ class BatchNorm(_BatchNorm):
         # flax momentum 0.9 == torch momentum 0.1
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.update_stats = True
+        self.replicas = 1
+        self.sync = False
 
     def _check_input_dim(self, x):
         if x.dim() not in (2, 4):
@@ -52,17 +67,44 @@ class BatchNorm(_BatchNorm):
                                 self.weight, self.bias, False, 0.0, self.eps)
         # GroupBatchNorm's arithmetic, so that train mode (forward and
         # gradient) follows the JAX package also where var << mean^2
-        dims = [0] + list(range(2, x.dim()))
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        n = self.replicas
+        if n == 1:
+            xs, dims = x, [0] + list(range(2, x.dim()))
+            shape = [1, -1] + [1] * (x.dim() - 2)
+        else:   # [n, B / n, C, ...]: one set of moments per block
+            xs = x.reshape(n, x.shape[0] // n, *x.shape[1:])
+            dims = [1] + list(range(3, xs.dim()))
+            shape = [n, 1, -1] + [1] * (x.dim() - 2)
+        # Σx, Σx² over a count on the device in every mode, so that one
+        # rank under a process group computes exactly what no group does
+        s1, s2 = xs.sum(dim=dims), (xs * xs).sum(dim=dims)
+        count = s1.new_full((1,), x.numel() / (n * x.shape[1]))
+        if self.sync:
+            assert n == 1, "per-replica moments are never summed over ranks"
+            C = x.shape[1]
+            sums = parallel.all_reduce_sum(torch.cat([s1, s2, count]))
+            s1, s2, count = sums[:C], sums[C:2 * C], sums[-1:]
+        mean, mean2 = s1 / count, s2 / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                self.running_mean.lerp_(mean if n == 1 else mean[0],
+                                        self.momentum)
+                self.running_var.lerp_(var if n == 1 else var[0],
+                                       self.momentum)
                 self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = ((xs - mean.reshape(shape)) * mul.reshape(shape)
+             + self.bias.view([1, -1] + [1] * (x.dim() - 2)))
+        return y.reshape(x.shape)
+
+
+def set_bn_mode(module, replicas=1, sync=False):
+    """Every BatchNorm under `module` takes `replicas` blocks and, with
+    `sync`, the moments summed over the ranks."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.replicas, m.sync = int(replicas), bool(sync)
 
 
 @contextlib.contextmanager

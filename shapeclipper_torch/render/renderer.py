@@ -9,9 +9,10 @@ are -density'(sdf) * grad sdf. Training renders only the sampled rays
 uniform in the sample range, R near points one per ray) with the latent
 detached but not the points, which depend on the predicted pose.
 
-Random draws: each is an optional input (`draws.t_rand` [B,R,S],
-`draws.eik_idx` [B,R,1], `draws.eik_uniform` [B,R,3]); an absent one is
-drawn from `generator`, a `torch.Generator` on the render's device.
+Random draws: a training render takes them as inputs (`draws.t_rand`
+[B,R,S], `draws.eik_idx` [B,R,1], `draws.eik_uniform` [B,R,3]); `draw` takes
+them from a `torch.Generator` at the global batch (B times the world size)
+and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from typing import NamedTuple
 import torch
 
 from .. import camera
+from .. import parallel
 from ..models.implicit import laplace_density, laplace_density_dsdf
 from ..ops.fused_sdf import fused_sdf_forward, fused_sdf_train
+from ..utils.easydict import EasyDict as edict
 
 
 class RenderOutputs(NamedTuple):
@@ -41,20 +44,36 @@ def _safe_normalize(x, dim=-1, eps=1e-12):
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
-def _draw(draws, key, generator, make):
-    if draws is not None and draws.get(key) is not None:
-        return draws[key]
-    if generator is None:
-        raise ValueError(f"no draw {key!r} given and no generator to draw "
-                         "it from")
-    return make(generator)
+def draw(opt, n, n_rays, eikonal, generator, device, given=None):
+    """A training render's draws for the global batch of `n` samples, in
+    the order the render consumes them: t_rand [n, R, S], then with
+    `eikonal` eik_idx [n, R, 1] and eik_uniform [n, R, 3]; this rank keeps
+    its rows (`parallel.local_rows`). A draw in `given` (this rank's rows)
+    is kept and takes nothing from `generator`."""
+    S = opt.render.n_samples_uniform
+    makes = [("t_rand", lambda g: torch.rand(n, n_rays, S, generator=g,
+                                             device=device))]
+    if eikonal:
+        lo, hi = opt.arch.impl_sdf.eikonal_sample_range
+        makes += [("eik_idx", lambda g: torch.randint(
+                       0, S, (n, n_rays, 1), generator=g, device=device)),
+                  ("eik_uniform", lambda g: lo + (hi - lo) * torch.rand(
+                      n, n_rays, 3, generator=g, device=device))]
+    out = edict(given or {})
+    for key, make in makes:
+        if out.get(key) is None:
+            if generator is None:
+                raise ValueError(f"no draw {key!r} given and no generator "
+                                 "to draw it from")
+            out[key] = parallel.local_rows(make(generator))
+    return out
 
 
-def sample_z_vals(opt, n_rays, scale_dist, training=False, eikonal=False,
-                  draws=None, generator=None):
-    """Uniform depth samples in [dist*scale - 0.7, dist*scale + 0.7], with
-    stratified jitter when training -> (z_vals [B,R,S], z_eik [B,R,1] or
-    None): z_eik is one jittered sample per ray, for the eikonal points."""
+def sample_z_vals(opt, n_rays, scale_dist, draws=None):
+    """Uniform depth samples in [dist*scale - 0.7, dist*scale + 0.7], with a
+    training render's `draws` jittered by draws.t_rand -> (z_vals [B,R,S],
+    z_eik [B,R,1] or None): z_eik, where the draws hold eik_idx, is one
+    jittered sample per ray, for the eikonal points."""
     S = opt.render.n_samples_uniform
     B = scale_dist.shape[0]
     dev = scale_dist.device
@@ -62,18 +81,15 @@ def sample_z_vals(opt, n_rays, scale_dist, training=False, eikonal=False,
     far = opt.camera.dist * scale_dist[:, None, None] + 0.7
     t_vals = torch.linspace(0.0, 1.0, S, device=dev)
     z_vals = (near * (1.0 - t_vals) + far * t_vals).expand(B, n_rays, S)
-    if training:
-        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
-        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = _draw(draws, "t_rand", generator, lambda g: torch.rand(
-            B, n_rays, S, generator=g, device=dev))
-        z_vals = lower + (upper - lower) * t_rand
+    if draws is None:
+        return z_vals, None
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    z_vals = lower + (upper - lower) * draws.t_rand
     z_eik = None
-    if eikonal:
-        idx = _draw(draws, "eik_idx", generator, lambda g: torch.randint(
-            0, S, (B, n_rays, 1), generator=g, device=dev))
-        z_eik = torch.gather(z_vals, -1, idx.long())
+    if draws.get("eik_idx") is not None:
+        z_eik = torch.gather(z_vals, -1, draws.eik_idx.long())
     return z_vals, z_eik
 
 
@@ -92,7 +108,7 @@ def volume_rendering(z_vals, density):
 
 def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
            proj_latent_sdf, proj_latent_rgb, ray_idx=None, training=False,
-           compute_eikonal=None, draws=None, generator=None):
+           compute_eikonal=None, draws=None):
     """Render rgb / mask / depth / normal at the pixels `ray_idx` [B, R]
     (the dense H x W grid when None), plus the eikonal gradient norms
     [B, 2R] when `compute_eikonal` (default: `training`).
@@ -116,8 +132,15 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
     if opt.camera.model == "perspective":
         cam_loc = cam_loc.expand(B, R, 3)
 
-    z_vals, z_eik = sample_z_vals(opt, R, scale_dist, training,
-                                  compute_eikonal, draws, generator)
+    if training:
+        keys = ("t_rand",) + (("eik_idx", "eik_uniform") if compute_eikonal
+                              else ())
+        missing = [k for k in keys if (draws or {}).get(k) is None]
+        if missing:
+            raise ValueError(f"a training render needs the draws {missing} "
+                             "(`draw`, models/graph.py::step_draws)")
+    z_vals, z_eik = sample_z_vals(opt, R, scale_dist,
+                                  draws if training else None)
     points = cam_loc[:, :, None, :] + z_vals[..., None] * ray_dirs[:, :, None, :]
     points_flat = points.reshape(B, R * S, 3).contiguous()
 
@@ -148,10 +171,7 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
 
     grad_eikonal = None
     if compute_eikonal:
-        lo, hi = opt.arch.impl_sdf.eikonal_sample_range
-        eik_uniform = _draw(draws, "eik_uniform", generator,
-                            lambda g: lo + (hi - lo) * torch.rand(
-                                B, R, 3, generator=g, device=pose.device))
+        eik_uniform = draws.eik_uniform
         eik_near = cam_loc + z_eik * ray_dirs                        # [B,R,3]
         eik_points = torch.cat([eik_uniform, eik_near], dim=1).contiguous()
         _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,

@@ -11,8 +11,16 @@ the Chamfer distance) and `checkpoint/ep{N}.pt` under the run's folder.
 `--load=FILE` starts from that file's weights.
 
 `--device` defaults to cuda and raises when CUDA is absent; `--device=cpu`
-runs every kernel's plain PyTorch version. `--distributed` (DDP) is not
-ported yet.
+runs every kernel's plain PyTorch version.
+
+Data parallel (DDP), one process per rank:
+
+    torchrun --nproc_per_node=W -m shapeclipper_torch.train --distributed \
+        --yaml=... [--device=cpu]
+
+joins the process group of torchrun's environment (NCCL on
+`cuda:LOCAL_RANK`, gloo with `--device=cpu`); `batch_size` is the global
+batch. Without torchrun's environment, or NCCL without CUDA, it raises.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import os
 import sys
 
+from .. import parallel
 from ..config import options
 from ..utils.log import log
 from .trainer import Runner
@@ -33,17 +42,28 @@ def main(argv=None):
     device, argv = options.pop_device(argv)
     opt_cmd = options.parse_arguments(argv)
     if opt_cmd.pop("distributed", False):
-        raise SystemExit("--distributed (DDP) is not ported yet")
-    opt = options.set(opt_cmd=opt_cmd)
-    options.save_options_file(opt)
+        # the ranks share one console: each line leaves in one write
+        sys.stdout.reconfigure(line_buffering=True)
+        local_rank = parallel.init_from_env(device)
+        if device == "cuda":
+            device = f"cuda:{local_rank}"
+    try:
+        opt = options.set(opt_cmd=opt_cmd)
+        if parallel.world_size() > 1 and opt.get("seed") is None:
+            raise SystemExit("--distributed needs a seed: every rank must "
+                             "name the same run folder")
+        if parallel.is_main():
+            options.save_options_file(opt)
 
-    trainer = Runner(opt, device)
-    trainer.load_dataset(opt)
-    trainer.build_networks(opt)
-    trainer.setup_optimizer(opt)
-    trainer.restore_checkpoint(opt)
-    trainer.setup_visualizer(opt)
-    trainer.train(opt)
+        trainer = Runner(opt, device)
+        trainer.load_dataset(opt)
+        trainer.build_networks(opt)
+        trainer.setup_optimizer(opt)
+        trainer.restore_checkpoint(opt)
+        trainer.setup_visualizer(opt)
+        trainer.train(opt)
+    finally:
+        parallel.destroy()
 
 
 if __name__ == "__main__":

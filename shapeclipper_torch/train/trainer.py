@@ -9,6 +9,14 @@ Everything runs on one explicit `device`. On CUDA every SDF evaluation goes
 through the fused Hopper kernels (K1 / K3 forward, K2 backward) and every
 nearest-neighbour sweep of the metrics through K4; there is no CPU
 fallback.
+
+Under a process group (`parallel`, one process per rank) the Runner is data
+parallel: rank r loads its share of every global batch, `TrainStep` runs
+under `DistributedDataParallel`, the logged losses are the global batch's,
+and the training evaluation splits the test batches over the ranks and
+gathers their per-sample metrics, so that every rank takes the same best
+epoch. Rank 0 alone cleans the output folder and writes checkpoints,
+TensorBoard events and dumps; every rank restores.
 """
 
 from __future__ import annotations
@@ -21,7 +29,10 @@ import shutil
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
+from .. import parallel
 from ..eval3d import metrics as eval_3D
 from ..models.estimator import reset_scale_params
 from ..models.graph import Graph, summarize_loss
@@ -40,7 +51,8 @@ CAMERA_PHASE_INACTIVE = ("nearest_img", "nearest_mask", "nearest_normal",
 _STEP_AUX_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "scale_dist",
                   "trig_azim", "trig_elev", "trig_theta", "scale_focal")
 
-# configuration the JAX package reads that the port does not
+# configuration the JAX package reads that the port does not (tpu.bn_mode,
+# tpu.bn_replicas: models/graph.py; tpu.mesh: parallel.check_mesh)
 _IGNORED_TPU_KEYS = ("merge_nn_render", "merge_flip_estimator",
                      "merge_encoders", "sdf_grad_mode", "fold_eikonal",
                      "remat_renderer", "encoder_dtype", "implicit_dtype")
@@ -66,6 +78,29 @@ def to_host(var):
     return out
 
 
+class TrainStep(nn.Module):
+    """A training step's forward as one module, the unit DDP wraps:
+    `Graph.forward(training=True)`, its losses and `summarize_loss` ->
+    (loss.all, the loss terms detached, the `aux_keys` of the forward's var
+    detached). loss.all is the only output that autograd reaches, so DDP's
+    search for unused parameters finds exactly those the backward skips
+    (the camera phase leaves CAMERA_PHASE_INACTIVE out of loss.all)."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph = graph
+
+    def forward(self, var, non_act_loss_keys=(), aux_keys=(), draws=None,
+                generator=None):
+        out, loss = self.graph(var, training=True, get_loss=True,
+                               draws=draws, generator=generator)
+        loss = summarize_loss(self.graph.opt, loss, non_act_loss_keys)
+        terms = edict({k: v.detach() if torch.is_tensor(v) else v
+                       for k, v in loss.items() if k != "all"})
+        aux = edict({k: out[k].detach() for k in aux_keys if k in out})
+        return loss.all, terms, aux
+
+
 class Runner:
     def __init__(self, opt, device):
         self.opt = opt
@@ -74,7 +109,9 @@ class Runner:
             raise RuntimeError("device=cuda but torch.cuda.is_available() is "
                                "False")
         self.tb = None  # set by setup_visualizer
-        if os.path.isdir(opt.output_path) and not opt.get("resume"):
+        self.step_model = None  # set by _train_model
+        if (parallel.is_main() and os.path.isdir(opt.output_path)
+                and not opt.get("resume")):
             for filename in os.listdir(opt.output_path):
                 if "tfevents" in filename:
                     os.remove(os.path.join(opt.output_path, filename))
@@ -82,6 +119,7 @@ class Runner:
                     shutil.rmtree(os.path.join(opt.output_path, filename),
                                   ignore_errors=True)
         os.makedirs(opt.output_path, exist_ok=True)
+        parallel.barrier()
         self.viz_data = []
         self.timer = Timer()
         self.best_val, self.best_ep = math.inf, None
@@ -92,8 +130,17 @@ class Runner:
             f"shapeclipper_torch.data.{opt.data.dataset}")
         log.info("loading training data...")
         self.train_data = data.Dataset(opt, split="train")
+        # each rank loads positions rank, rank + W, ... of every global
+        # batch (JAX: trainer.py's per-process split; reference
+        # DistributedSampler)
+        W = parallel.world_size()
+        if opt.batch_size % W:
+            raise ValueError(f"batch_size {opt.batch_size} does not divide "
+                             f"over {W} ranks")
         self.train_loader = self.train_data.setup_loader(
-            opt, shuffle=True, seed=opt.seed or 0, batch_size=opt.batch_size)
+            opt, shuffle=True, seed=opt.seed or 0,
+            batch_size=opt.batch_size // W, shard_id=parallel.rank(),
+            num_shards=W)
         self.num_batches = len(self.train_loader)
         log.info("loading test data...")
         self.test_data = data.Dataset(opt, split=eval_split)
@@ -132,6 +179,7 @@ class Runner:
         eval.image_size; weights from a generator seeded with opt.seed, then
         the pretrained encoders where their .npz files exist."""
         log.info("building networks...")
+        parallel.check_mesh(opt)
         generator = torch.Generator().manual_seed(opt.seed or 0)
         graph = Graph(opt, generator=generator)
         graph.load_pretrained_encoders()
@@ -183,6 +231,9 @@ class Runner:
 
     def save_checkpoint(self, opt, ep=0, it=0, best_val=math.inf,
                         latest=False, best=False):
+        """Rank 0 writes; the other ranks return."""
+        if not parallel.is_main():
+            return
         ckpt.save_checkpoint(
             opt.output_path, self.graph.state_dict(),
             optim_states={"optim_full": self.optim_full.state_dict(),
@@ -200,7 +251,7 @@ class Runner:
         (ImportError without the `tensorboard` package)."""
         log.info("setting up visualizers...")
         self.tb = None
-        if opt.get("tb"):
+        if opt.get("tb") and parallel.is_main():
             from torch.utils.tensorboard import SummaryWriter
             self.tb = SummaryWriter(log_dir=opt.output_path, flush_secs=10)
 
@@ -226,7 +277,8 @@ class Runner:
             self.tb.flush()
             self.tb.close()
         log.title("TRAINING DONE")
-        log.info(f"Best CD: {self.best_val:.4f} @ epoch {self.best_ep}")
+        if parallel.is_main():
+            log.info(f"Best CD: {self.best_val:.4f} @ epoch {self.best_ep}")
 
     def _device_batches(self, loader):
         """The loader's batches as tensors on the device. The first
@@ -243,7 +295,7 @@ class Runner:
         loss = None
         for var in self._device_batches(self.train_loader):
             loss = self.train_iteration(opt, var)
-        if loss is not None:
+        if loss is not None and parallel.is_main():
             log.loss_train(opt, self.ep + 1, opt.optim.lr, loss["all"],
                            self.timer)
         if (self.ep + 1) % opt.freq.eval == 0:
@@ -265,7 +317,8 @@ class Runner:
         update them, the losses CAMERA_PHASE_INACTIVE stay out of loss.all,
         and optim_V updates the estimator only. Otherwise a full step:
         train-mode BatchNorm and optim_full over every parameter. Returns
-        the step's loss terms (detached)."""
+        the step's loss terms (detached; the global batch's under data
+        parallelism, the same on every rank)."""
         self.timer.begin_iter()
         camera_phase = self.it <= opt.optim.iter_camera
         optimizer = self.optim_V if camera_phase else self.optim_full
@@ -273,19 +326,24 @@ class Runner:
         # gradients never carry over, so a camera step's gradients on the
         # parameters it does not update never reach optim_full
         self.graph.zero_grad(set_to_none=True)
-        out, loss = self.graph(var, training=True, get_loss=True,
-                               draws=draws, generator=self.generator)
-        loss = summarize_loss(opt, loss, non_act_loss_keys=(
-            CAMERA_PHASE_INACTIVE if camera_phase else ()))
-        loss.all.backward()
+        aux_keys = (_STEP_AUX_KEYS + ("idx_NN",)
+                    + tuple(f"pose_NN_{v}" for v in range(opt.reg.n_views))
+                    + tuple(f"scale_dist_NN_{v}"
+                            for v in range(opt.reg.n_views)))
+        loss_all, loss, aux_var = self._train_model()(
+            var, CAMERA_PHASE_INACTIVE if camera_phase else (), aux_keys,
+            draws=draws, generator=self.generator)
+        # under DDP the backward also averages the gradients over the ranks,
+        # before the zero-fill and the step
+        loss_all.backward()
         for group in optimizer.param_groups:
             for p in group["params"]:
                 # optax updates every parameter, zero gradient or not
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         optimizer.step()
-        loss = edict({k: v.detach() if torch.is_tensor(v) else v
-                      for k, v in loss.items()})
+        loss.all = loss_all.detach()
+        loss = self._global_loss(loss)
 
         # one-step-delayed finite check: reading this step's flag would
         # synchronise with the device every step
@@ -297,14 +355,6 @@ class Runner:
                                  f"{terms}")
         self._pending_loss = (self.it, loss)
 
-        if self.tb and (self.it % opt.freq.vis == 0
-                        or self.it % opt.freq.scalar == 0):
-            aux_keys = (_STEP_AUX_KEYS + ("idx_NN",)
-                        + tuple(f"pose_NN_{v}" for v in range(opt.reg.n_views))
-                        + tuple(f"scale_dist_NN_{v}"
-                                for v in range(opt.reg.n_views)))
-            aux_var = edict({k: out[k].detach() for k in aux_keys
-                             if k in out})
         if self.it % opt.freq.vis == 0 and self.tb:
             # train-split panels from the live batch, with the CLIP-NN input
             # views chosen this step (reference `runner.py:260-261`)
@@ -324,6 +374,32 @@ class Runner:
                             getattr(self, "num_batches", 1))
         return loss
 
+    def _train_model(self):
+        """The TrainStep over the graph; under a process group, of any
+        world size, wrapped in DDP (built at the first step, after the
+        restores; rank 0's buffers are broadcast before every forward)."""
+        if self.step_model is None:
+            self.step_model = TrainStep(self.graph)
+            if parallel.is_initialized():
+                self.step_model = DistributedDataParallel(
+                    self.step_model, find_unused_parameters=True)
+        return self.step_model
+
+    def _global_loss(self, loss):
+        """The loss terms' means over the ranks; `finite` when every rank's
+        terms are."""
+        if not parallel.is_initialized():
+            return loss
+        keys = [k for k in loss if k != "finite"]
+        dtype = loss.all.dtype
+        vals = torch.stack([torch.as_tensor(loss[k], dtype=dtype,
+                                            device=self.device).mean()
+                            for k in keys] + [(~loss.finite).to(dtype)])
+        vals = parallel.mean_over_ranks(vals)
+        out = edict(zip(keys, vals[:-1]))
+        out.finite = vals[-1] == 0
+        return out
+
     @contextlib.contextmanager
     def _eval_mode(self):
         """BatchNorm on its running statistics and no autograd, for the
@@ -337,8 +413,9 @@ class Runner:
             self.graph.train(was_training)
 
     def save_vis_dumps(self, opt, folder):
-        """Eval-resolution renders of the visualization samples as PNGs."""
-        if not self.viz_data:
+        """Eval-resolution renders of the visualization samples as PNGs
+        (rank 0)."""
+        if not self.viz_data or not parallel.is_main():
             return
         os.makedirs(f"{opt.output_path}/{folder}", exist_ok=True)
         with self._eval_mode():
@@ -444,32 +521,27 @@ class Runner:
         (`training=False`) renders and dumps every sample unless
         `eval.dump` is false, and writes cd_cat.txt, f_score.txt and
         chamfer.txt; a training evaluation skips the render and, at its first
-        batch, dumps the visualization samples' rotating views. A ragged
-        last batch runs at its own size."""
+        batch, dumps the visualization samples' rotating views (rank 0). A
+        ragged last batch runs at its own size.
+
+        Under a process group a training evaluation runs test batch k on
+        rank k mod W, on rank 0's BatchNorm statistics, and gathers the
+        per-sample metrics; every rank then sums them in batch order, as
+        one process does, and returns the same value."""
         opt_e = self.graph_eval.opt
-        f_scores = []
-        metric_eval = dict(dist_acc=0.0, dist_cov=0.0)
-        acc_cat = [0.0] * opt.data.num_classes
-        comp_cat = [0.0] * opt.data.num_classes
-        counts_cat = [0.001] * opt.data.num_classes
-        n_seen = 0
+        W, rank = parallel.world_size(), parallel.rank()
+        shard = training and parallel.is_initialized()
+        parallel.broadcast_buffers(self.graph)
+        results = []   # (it, cats, cd_acc, cd_comp, f_score) per batch
         dump = (not training) and bool(opt.eval.get("dump", True))
 
         def finish(it, var, pending, cats):
-            nonlocal n_seen
             eval_3D.eval_metrics_finish(opt_e, var, pending,
                                         rng=np.random.RandomState(it))
-            n = len(cats)
-            f_scores.append(var.f_score)
-            n_seen += n
-            for i in range(n):
-                cat_idx = int(cats[i])
-                counts_cat[cat_idx] += 1
-                acc_cat[cat_idx] += float(var.cd_acc[i])
-                comp_cat[cat_idx] += float(var.cd_comp[i])
-            metric_eval["dist_acc"] += float(var.cd_acc.mean()) * n
-            metric_eval["dist_cov"] += float(var.cd_comp.mean()) * n
-            if it == 0 and training and self.viz_data:
+            results.append((it, cats, np.asarray(var.cd_acc),
+                            np.asarray(var.cd_comp),
+                            np.asarray(var.f_score)))
+            if it == 0 and training and self.viz_data and parallel.is_main():
                 if self.tb:
                     self.visualize_viz_data(opt, step=ep, split="eval")
                 self._dump_rotating_vis(opt, ep)
@@ -488,6 +560,8 @@ class Runner:
         with self._eval_mode():
             pending = None
             for it, batch in enumerate(self.test_loader):
+                if shard and it % W != rank:
+                    continue
                 cats = np.asarray(batch["category_label"])
                 var = self.graph_eval(batch_to_var(batch, self.device),
                                       render=dump)
@@ -498,14 +572,35 @@ class Runner:
                 pending = (it, var, level, cats)
             if pending is not None:
                 finish(*pending)
+        if shard:
+            results = sorted((r for part in parallel.all_gather_object(results)
+                              for r in part), key=lambda r: r[0])
 
+        f_scores = []
+        metric_eval = dict(dist_acc=0.0, dist_cov=0.0)
+        acc_cat = [0.0] * opt.data.num_classes
+        comp_cat = [0.0] * opt.data.num_classes
+        counts_cat = [0.001] * opt.data.num_classes
+        n_seen = 0
+        for _, cats, cd_acc, cd_comp, f_score in results:
+            n = len(cats)
+            f_scores.append(f_score)
+            n_seen += n
+            for i in range(n):
+                cat_idx = int(cats[i])
+                counts_cat[cat_idx] += 1
+                acc_cat[cat_idx] += float(cd_acc[i])
+                comp_cat[cat_idx] += float(cd_comp[i])
+            metric_eval["dist_acc"] += float(cd_acc.mean()) * n
+            metric_eval["dist_cov"] += float(cd_comp.mean()) * n
         if not training:
             self._write_eval_reports(opt, acc_cat, comp_cat, counts_cat,
                                      f_scores)
         for key in metric_eval:
             metric_eval[key] /= max(n_seen, 1)
-        log.loss_eval(opt, chamfer=(metric_eval["dist_acc"],
-                                    metric_eval["dist_cov"]))
+        if parallel.is_main():
+            log.loss_eval(opt, chamfer=(metric_eval["dist_acc"],
+                                        metric_eval["dist_cov"]))
         return (metric_eval["dist_acc"] + metric_eval["dist_cov"]) / 2
 
     def _write_eval_reports(self, opt, acc_cat, comp_cat, counts_cat,

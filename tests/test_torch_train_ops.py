@@ -145,6 +145,140 @@ def test_batchnorm_frozen_stats_pass(base_opt):
                for k, v in _running(mod.state_dict()).items())
 
 
+@pytest.mark.parametrize("mode", ["per_replica", "global"])
+def test_graph_encode_bn_modes_match_jax(base_opt, mode):
+    """`tpu.bn_mode: per_replica` with `bn_replicas: 2` at batch 4 (the case
+    of tests/test_group_bn.py::test_per_replica_bn_matches_split_forward):
+    every BatchNorm of `Graph.encode` normalises each half of the batch with
+    its own moments and the running statistics follow the first half, as
+    the JAX package's `Graph.encode`; `global` takes the whole batch's
+    moments.
+
+    Conditioning: a train-mode BatchNorm over two samples divides by their
+    difference, so the two frameworks' rounding of the convolutions
+    (~1e-6) comes out of the ResNet34 at 3e-5 of its scale, and out of the
+    latent projections' two-sample BatchNorms at up to 2e-2 when two
+    samples' codes nearly coincide, as they do for a seeded encoder on
+    noise images (JAX's own per-replica encode and its split forward
+    differ by 0.97 at 32 x 32). So 64 x 64 inputs, the encoder's fc kernel
+    scaled by 1000 to spread the codes apart, and 1e-4 of the scale for
+    the outputs and the encoder's running statistics, as the other
+    BatchNorm tests here. The latent projections' statistics of two nearly
+    parallel codes come from E[x^2] - E[x]^2 with cancellation; their
+    per-replica arithmetic is held on well-separated inputs by
+    test_latent_projection_per_replica_matches_jax."""
+    from shapeclipper_tpu.models.graph import Graph as JaxGraph
+    from shapeclipper_torch.models.graph import Graph
+
+    opt = base_opt.deepcopy()
+    opt.H = opt.W = 64
+    opt.tpu.update(bn_mode=mode, bn_replicas=2, encoder_dtype="float32")
+    opt.arch.enc_pretrained = False
+    jg = JaxGraph(opt)
+    assert jg.bn_replicas == (2 if mode == "per_replica" else 1)
+    state = jax.jit(jg.init)(jax.random.PRNGKey(0))
+    params, stats = _np(state["params"]), _np(state["batch_stats"])
+    params["encoder"]["fc"]["kernel"] = params["encoder"]["fc"]["kernel"] * 1e3
+    imgs = np.random.RandomState(1).uniform(
+        0, 1, (4, 64, 64, 3)).astype(np.float32)
+    ps, pr, lat, new_stats = jax.jit(
+        lambda p, s, x: jg.encode(p, s, x, True, False))(
+        params, stats, jnp.asarray(imgs))
+
+    graph = Graph(opt)
+    assert graph.bn_replicas == jg.bn_replicas
+    graph.load_state_dict(bridge.state_dict_from_flax(params, stats))
+    graph.train()
+    got = graph.encode(torch.from_numpy(imgs))
+    for g, w in zip(got, (ps, pr, lat)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+    want = {k: v for k, v in _running(bridge.state_dict_from_flax(
+        params, _np(new_stats))).items() if k.startswith("encoder.")}
+    have = {k: v for k, v in _running(graph.state_dict()).items()
+            if k.startswith("encoder.")}
+    assert set(have) == set(want) and want
+    for k, w in want.items():
+        torch.testing.assert_close(have[k], w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("replicas", [2, 3])
+def test_latent_projection_per_replica_matches_jax(replicas):
+    """LatentProjection with `replicas` BatchNorm blocks at batch 12 against
+    JAX's with `groups=replicas, stats_groups=(0,)` (what `_apply_bn` hands
+    it under per_replica): outputs and running statistics (block 0's) to
+    1e-4 of their scale, as the other BatchNorm tests here. Blocks of two
+    samples are left out: var = E[x^2] - E[x]^2 over two samples a, b
+    divides by |a - b|, and a channel with |a - b| ~ 0.01 turns the two
+    frameworks' Dense rounding into 2e-3 (measured)."""
+    from shapeclipper_torch.models.layers import set_bn_mode
+    jmod = JaxLatentProj(512, 64)
+    x = np.random.RandomState(5).randn(12, 512).astype(np.float32)
+    v = jax.jit(lambda k: jmod.init(k, jnp.asarray(x[:1]), train=False))(
+        jax.random.PRNGKey(3))
+    params, stats = _np(v["params"]), _randomize(v["batch_stats"], 4)
+    ref, mut = jax.jit(lambda v, x: jmod.apply(
+        v, x, train=True, groups=replicas, stats_groups=(0,),
+        mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x))
+    mod = LatentProjection(512, 64)
+    mod.load_state_dict(_prefixed(bridge._latent_proj, params, stats))
+    set_bn_mode(mod, replicas=replicas)
+    mod.train()
+    got = mod(torch.from_numpy(x))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(ref).max()))
+    want = _running(_prefixed(bridge._latent_proj, params,
+                              _np(mut["batch_stats"])))
+    for k, w in _running(mod.state_dict()).items():
+        torch.testing.assert_close(w, want[k], rtol=0,
+                                   atol=1e-4 * float(want[k].abs().max()),
+                                   msg=k)
+
+
+def test_per_replica_encode_is_the_split_forward(base_opt):
+    """The port's own per-replica `Graph.encode` at batch 4 equals its
+    global-mode encode of each half from the same statistics, bit for bit,
+    and its running statistics are the first half's chain
+    (test_per_replica_bn_matches_split_forward's assertions)."""
+    from shapeclipper_torch.models.graph import Graph
+
+    opt = base_opt.deepcopy()
+    opt.H = opt.W = 16
+    opt.tpu.update(bn_mode="per_replica", bn_replicas=2)
+    opt.arch.enc_pretrained = False
+    rep = Graph(opt, generator=torch.Generator().manual_seed(0))
+    opt_g = opt.deepcopy()
+    opt_g.tpu.bn_mode = "global"
+    halves = Graph(opt_g)
+    start = {k: v.clone() for k, v in rep.state_dict().items()}
+    imgs = torch.from_numpy(np.random.RandomState(1).uniform(
+        0, 1, (4, 16, 16, 3)).astype(np.float32))
+    rep.train()
+    got = rep.encode(imgs)
+    halves.train()
+    outs = []
+    for half in (imgs[:2], imgs[2:]):
+        halves.load_state_dict(start)
+        outs.append(halves.encode(half))
+        if not outs[1:]:
+            first = {k: v.clone() for k, v in _running(
+                halves.state_dict()).items()}
+    for g, h0, h1 in zip(got, *outs):
+        assert torch.equal(g, torch.cat([h0, h1])), "outputs"
+    for k, v in _running(rep.state_dict()).items():
+        assert torch.equal(v, first[k]), k
+    glob = Graph(opt_g)
+    glob.load_state_dict(start)
+    glob.train()
+    glob.encode(imgs)
+    assert any(not torch.equal(v, _running(glob.state_dict())[k])
+               for k, v in _running(rep.state_dict()).items())
+
+
 # ------------------------------------------------------------ fused_sdf_train
 def _sdf_case(B=2, N=300, plane=False):
     rng = np.random.RandomState(4)
