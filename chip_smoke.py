@@ -30,9 +30,22 @@ no CPU fallback):
      bench.py's overrides: synthetic data, batch 12, 224^2) on one
      pre-collated batch: step 0 (camera phase) and six full steps, launch
      counts per step (K1 3 / K2 1, then K1 3 / K2 3), every loss finite,
-     per-step times, peak memory, one step under torch.profiler; then the
-     first full step at batch 4 on the card and on the CPU plain path from
-     the same weights, optimizer state and draws;
+     per-step times, peak memory, one step under torch.profiler with
+     cuDNN's share; then the first full step at batch 4 on the card and on
+     the CPU plain path from the same weights, optimizer state and draws;
+     5a-5d. the YAML's own precision, `tpu.encoder_dtype` and
+     `tpu.implicit_dtype` bfloat16 (every phase above and below pins both
+     to float32 and keeps its float32 gate): (a) K1-bf16, K3-bf16 and
+     K2-bf16 against their bf16 plain versions at 262,144, 12 x 32,768,
+     vox 64 and 12 x 1,024, each held under half its distance from the
+     float32 kernel and timed beside it; (b) a camera and four full bf16
+     training steps with launch counts (K1-bf16 3 / K2-bf16 1, then 3 /
+     3, the float32 K1 / K2 none), the steady step, peak memory and a
+     profiled step with cuDNN's share; (c) three bf16 requests (K1-bf16
+     9, the float32 K3 3 per request); (d) a batch-4 full step on the card
+     against the CPU at implicit bfloat16 (gated: each MLP's gradient
+     under half its distance from float32) and with both keys bfloat16 (a
+     reading);
   6. convergence: 200 steps of options/synthetic/config.yaml with
      scripts/validate_training.py's overrides through the loader, with
      `Runner.evaluate` before and after (the Chamfer distance must fall);
@@ -176,6 +189,39 @@ FLOP_K3 = 2 * 28032              # per point, without
 # gradient, each with the same non-zero pattern as the forward product
 FLOP_K2 = 3 * FLOP_K1            # per point: 509,184
 
+# The bf16 instantiations (`mm_dtype="bfloat16"`): their bound is the
+# products' FLOPs at the H100 SXM's dense bf16 tensor-core peak plus the
+# elementwise FLOPs at the fp32 peak, or the bytes, whichever is larger.
+# Elementwise FLOPs a point needs, counting a transcendental as one: per
+# hidden primal value the bias and the activation pair (100 z, |z|, exp,
+# 1 + e, reciprocal, select, max, log1p, add, / 100: 11), per tangent value
+# the sigmoid scaling (3 tangents), the posenc (3 coordinates x 6
+# frequencies x scale, sin, cos; with tangents 36 x 2 more) and the output
+# layer's 65 bias adds. K2 adds per hidden value the activation's backward
+# (sigma'' 3, the tangents' sum 5, the primal cotangent 3, the tangent
+# cotangents 3) and the 385 bias-gradient sums.
+PEAK_BF16 = 989e12
+ELEM_K3 = 5 * 64 * 11 + 54 + 65                  # 3,639 per point
+ELEM_K1 = ELEM_K3 + 5 * 64 * 3 + 72              # 4,671
+ELEM_K2 = ELEM_K1 + 5 * 64 * 14 + 385            # 9,536
+# K1-bf16 / K3-bf16 / K2-bf16 against their bf16 plain versions. Both round
+# the same operands, but a float32 sum one ulp apart can round to the
+# neighbouring bf16 operand (2^-8 relative), which moves that point's
+# outputs by up to a few 1e-3 (measured at 262,144 points: 3.8e-3 on sdf in
+# 84 of them, where the whole bf16 change is 6.0e-3). So each check is
+# two-fold: the max abs error under a bound that such flips stay inside
+# and a wrong product does not, and the mean abs error under a tight bound
+# and under half the mean distance from the float32 kernel (measured: 2.6e-7
+# against 8.9e-4), which a kernel that quietly ran float32 products fails.
+BF16_MAX_TOL = dict(sdf=1e-2, feat=1e-2, grad=3e-2)
+BF16_MEAN_TOL = dict(sdf=1e-5, feat=1e-5, grad=2e-5)
+BF16_K2_MAX, BF16_K2_MEAN = 2e-2, 1e-4     # times max|ref| of each gradient
+N_BF16_STEPS = 4                 # full steps of the bf16 training phase
+N_BF16_REQUESTS = 3
+# kernels whose device time counts as cuDNN's in a profiled step
+CONV_KERNELS = ("cudnn", "implicit_gemm", "dgrad", "wgrad", "conv",
+                "nchwToNhwc", "nhwcToNchw")
+
 
 def log(msg):
     print(msg, flush=True)
@@ -208,9 +254,12 @@ def cuda_ms(fn, runs=10, warmup=3, calls=1):
     return statistics.median(times)
 
 
-def bound(flop, nbytes):
-    """(least ms on the card, 'operations' or 'bytes')."""
-    t_op, t_b = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flop, nbytes, mm_flop=0):
+    """(least ms on the card, 'operations' or 'bytes'): `flop` at the fp32
+    peak plus `mm_flop` (the bf16 products) at the bf16 tensor-core peak,
+    or `nbytes` at the memory rate."""
+    t_op = (flop / PEAK_FP32 + mm_flop / PEAK_BF16) * 1e3
+    t_b = nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
@@ -240,9 +289,13 @@ def within(got, want, atol, rtol):
     return float(err.max()), bool((err <= atol + rtol * want.abs()).all())
 
 
-def load_opt():
+def load_opt(dtype="float32"):
+    """options/pix3d/config.yaml with both `tpu.*_dtype` keys pinned to
+    `dtype` (the float32 phases keep their float32 gates; the YAML itself
+    says bfloat16)."""
     from shapeclipper_torch.config import options
     opt = options.load_options(CONFIG)
+    opt.tpu.update(encoder_dtype=dtype, implicit_dtype=dtype)
     opt.seed = SEED
     opt.H, opt.W = opt.image_size
     opt.output_path = OUT_DIR
@@ -319,13 +372,45 @@ def check_forward(got, want, where):
     return errs
 
 
-def forward_bound(B, N, compute_grad):
+def check_bf16(got, want, f32, where, max_tol, mean_tol, no_gap=()):
+    """Outputs of a bf16 kernel against its bf16 plain version (`want`) and
+    the float32 kernel (`f32`), dicts of tensors: every part finite and of
+    the same shape, its max abs error under `max_tol[part]`, its mean abs
+    error under `mean_tol[part]` and, but for the parts in `no_gap`, under
+    half its mean distance from the float32 kernel -> {part: (max err, mean
+    err, mean distance)}."""
+    import torch
+    res, bad = {}, []
+    for part, k in got.items():
+        r = want[part]
+        if k.shape != r.shape or not torch.isfinite(k).all():
+            raise AssertionError(f"{part} {where}: shape {tuple(k.shape)} "
+                                 "or non-finite")
+        e = (k - r).abs()
+        res[part] = (float(e.max()), float(e.mean()),
+                     float((k - f32[part]).abs().mean()))
+        if not (res[part][0] <= max_tol[part]
+                and res[part][1] <= mean_tol[part]
+                and (part in no_gap or res[part][1] < 0.5 * res[part][2])):
+            bad.append(part)
+    if bad:
+        raise AssertionError(f"the bf16 kernel {where} disagrees with its "
+                             f"bf16 plain version in {bad}: {res}")
+    return res
+
+
+def forward_bound(B, N, compute_grad, bf16=False):
     """K1 / K3's bound at B x N: the function's FLOPs, and its bytes (points,
-    sdf, features and tangents once, the weights and biases once)."""
+    sdf, features and tangents once, the weights and biases once). With
+    `bf16` the products run at the bf16 peak, the elementwise FLOPs at the
+    fp32 one, and the weights are 2 bytes each."""
     from shapeclipper_torch.ops import fused_sdf as F
     flop = (FLOP_K1 if compute_grad else FLOP_K3) * B * N
-    nbytes = 4 * (B * N * (3 + 65 + (3 if compute_grad else 0))
-                  + F.NUM_WEIGHTS + B * F.BIAS_WIDTH)
+    nbytes = (4 * (B * N * (3 + 65 + (3 if compute_grad else 0))
+                   + B * F.BIAS_WIDTH) + (2 if bf16 else 4) * F.NUM_WEIGHTS)
+    if bf16:
+        elem = (ELEM_K1 if compute_grad else ELEM_K3) * B * N
+        return flop, bound(elem, nbytes, mm_flop=flop)
     return flop, bound(flop, nbytes)
 
 
@@ -373,8 +458,11 @@ def phase_kernels(opt):
                     raise AssertionError(f"two launches differ at N={N}")
                 log(f"[kernel] two launches at B={B} N={N} "
                     f"compute_grad={cg}: bitwise equal")
-    for label, tag in (("K1", "ILb1"), ("K3", "ILb0")):
-        usage = ptxas_usage(F.KERNEL.ptxas_log, "fused_sdf_fwd_kernel" + tag)
+    for label, name in (("K1", "fused_sdf_fwd_kernelILb1E"),
+                        ("K3", "fused_sdf_fwd_kernelILb0E"),
+                        ("K1-bf16", "fused_sdf_fwd_bf16_kernelILb1E"),
+                        ("K3-bf16", "fused_sdf_fwd_bf16_kernelILb0E")):
+        usage = ptxas_usage(F.KERNEL.ptxas_log, name)
         log(f"[kernel] {label} ptxas: {usage[0]} registers, {usage[1]} bytes "
             f"spill stores, {usage[2]} bytes spill loads")
         if usage[1] or usage[2]:
@@ -473,13 +561,15 @@ def serve(runner, opt, image, stages=None):
     return var, level, mesh
 
 
-def profiled(tag, what, fn, n_top, watch=()):
+def profiled(tag, what, fn, n_top, watch=(), share=None):
     """Run `fn` once under torch.profiler and log its wall time, the device
     busy time (kernels, copies and sets; user-annotation ranges such as
     `Optimizer.step#Adam.step` span kernels already counted and are left
     out), the busy share, the top device events and, in or out of the top,
-    the events whose name holds a string of `watch` -> (wall ms, busy ms or
-    None when the trace holds no device time)."""
+    the events whose name holds a string of `watch`; with `share = (label,
+    strings)` the device time of the events whose name holds one of
+    `strings` and its part of the busy time -> (wall ms, busy ms or None
+    when the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -510,6 +600,12 @@ def profiled(tag, what, fn, n_top, watch=()):
         log(f"[{tag}] watched: " + ("; ".join(
             f"{k[:60]} {v:.3f} ms x{c}" for k, (v, c) in busy.items()
             if any(w in k for w in watch)) or "none in the trace"))
+    if share:
+        label, strings = share
+        part = sum(v for k, (v, _) in busy.items()
+                   if any(w in k for w in strings))
+        log(f"[{tag}] {label}: {part:.2f} ms of the {total:.1f} ms busy "
+            f"({100 * part / total:.1f}%)")
     return wall_ms, total
 
 
@@ -525,12 +621,12 @@ def phase_serve(opt):
     images = [request_image(i, opt.H, opt.W) for i in range(N_REQUESTS)]
     vox = opt.eval.vox_res
     n_chunks = -(-(vox + 1) ** 3 // 131072)
-    per_request = {"grad": 1 + N_VIEWS, "nograd": n_chunks}
+    per_request = {"grad": 1 + N_VIEWS, "nograd": n_chunks, "grad_bf16": 0,
+                   "nograd_bf16": 0}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    F.KERNEL.launches = {"grad": 0, "nograd": 0}
-    F.BACKWARD.launches = 0
+    reset_launches()
     latencies, outputs, stages = [], [], {}
     for i, image in enumerate(images):
         before = dict(F.KERNEL.launches)
@@ -545,7 +641,7 @@ def phase_serve(opt):
                                  f"expected {per_request}")
         outputs.append((var, level, mesh))
     launches = dict(F.KERNEL.launches)
-    if F.BACKWARD.launches:
+    if any(F.BACKWARD.launches.values()):
         raise AssertionError("serving launched the backward kernel")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -730,10 +826,13 @@ def phase_backward():
     for name, a, b in zip(("weights", "biases", "points"), first, second):
         if not torch.equal(a, b):
             raise AssertionError(f"two K2 launches differ in d {name}")
-    usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel")
-    log(f"[k2] two launches at the render shape: bitwise equal; ptxas: "
-        f"{usage[0]} registers, {usage[1]} bytes spill stores, {usage[2]} "
-        "bytes spill loads")
+    for label, tag in (("K2", "ILb0E"), ("K2-bf16", "ILb1E")):
+        usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel" + tag)
+        log(f"[k2] {label} ptxas: {usage[0]} registers, {usage[1]} bytes "
+            f"spill stores, {usage[2]} bytes spill loads")
+        if usage[1] or usage[2]:
+            raise AssertionError(f"{label} spills registers: {usage}")
+    log("[k2] two launches at the render shape: bitwise equal")
 
     # times at the eikonal shape, then at the render shape
     args = k2_args("eikonal")
@@ -787,12 +886,15 @@ def phase_backward():
 
 
 # --------------------------------------------------------------- phase 5
-def flagship_opt(batch_size=None):
+def flagship_opt(batch_size=None, dtype="float32"):
     """options/pix3d/config.yaml with bench.py's overrides: synthetic data,
-    224^2, batch 12 (or `batch_size`), seed 0, fp32, no TensorBoard."""
+    224^2, batch 12 (or `batch_size`), seed 0, both `tpu.*_dtype` keys
+    `dtype` (float32 unless a phase asks for the YAML's bfloat16), no
+    TensorBoard."""
     from shapeclipper_torch.config import options
     from shapeclipper_torch.utils.easydict import EasyDict as edict
     opt = options.load_options(CONFIG)
+    opt.tpu.update(encoder_dtype=dtype, implicit_dtype=dtype)
     if batch_size:
         opt.batch_size = batch_size
     opt.H, opt.W = opt.image_size
@@ -852,16 +954,16 @@ def phase_train():
     var = batch_to_var(one_batch(opt), runner.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    F.KERNEL.launches = {"grad": 0, "nograd": 0}
-    F.BACKWARD.launches = 0
+    reset_launches()
     times = []
     for step in range(1 + N_FULL_STEPS):
-        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches["float32"]
         t0 = time.perf_counter()
         loss = runner.train_iteration(opt, var)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        got = (F.KERNEL.launches["grad"] - k1, F.BACKWARD.launches - k2)
+        got = (F.KERNEL.launches["grad"] - k1,
+               F.BACKWARD.launches["float32"] - k2)
         want = (3, 1) if step == 0 else (3, 3)
         if got != want:
             raise AssertionError(f"step {step}: launches K1/K2 {got}, "
@@ -871,8 +973,10 @@ def phase_train():
             f"{times[-1]:.1f} ms, K1 {got[0]} / K2 {got[1]} launches, loss "
             + ", ".join(f"{k} {float(v):.4f}" for k, v in loss.items()
                         if k != "finite"))
-    launches = dict(k1=F.KERNEL.launches["grad"], k2=F.BACKWARD.launches,
-                    k3=F.KERNEL.launches["nograd"])
+    launches = read_launches()
+    if launches["k1_bf16"] or launches["k2_bf16"]:
+        raise AssertionError(f"the float32 step launched bf16 kernels: "
+                             f"{launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(times[2:])
     log(f"[train] flagship (batch {opt.batch_size}, {opt.H}x{opt.W}, "
@@ -882,7 +986,8 @@ def phase_train():
         f"steps 2-{N_FULL_STEPS}) {steady:.1f} ms; peak device memory "
         f"{peak_gib:.3f} GiB; launches {launches}")
     profiled("train", "one full step",
-             lambda: runner.train_iteration(opt, var), 8)
+             lambda: runner.train_iteration(opt, var), 8,
+             share=("cuDNN (convolution kernels)", CONV_KERNELS))
     return launches
 
 
@@ -984,6 +1089,306 @@ def phase_gpu_vs_cpu_step():
         raise AssertionError(f"GPU vs CPU step outside tolerance: {bad}")
 
 
+# ------------------------------------------------------- phases 5a-5d: bf16
+def phase_bf16_kernels(opt):
+    """(a) K1-bf16, K3-bf16 and K2-bf16 against their bf16 plain versions
+    (`mm_dtype="bfloat16"`) at the main path's shapes: K1 at the eval
+    render's 262,144 points and the training render's 12 x 32,768, K3 at
+    vox 64, K2 at 12 x 32,768 and 12 x 1,024 (eikonal); each also held
+    under half its distance from the float32 kernel (the size of the
+    precision change, logged), and timed beside the float32 kernel and the
+    plain version in the same call. K3-bf16 lies on no CLI path (as in the
+    JAX package): one `fused_sdf_forward(mm_dtype="bfloat16")` call, its
+    API check, is counted -> dict of results and that count."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    dev = torch.device("cuda")
+    net, cases = forward_cases(opt, dev)
+    res = {}
+    with torch.inference_mode():
+        for key, cg, pts, latent in cases[:3]:
+            B, N = pts.shape[:2]
+            label = f"{'K1' if cg else 'K3'}-bf16 B={B} N={N}"
+            if not cg:   # the API check: one launch through the wrapper
+                reset_launches()
+            k = F.fused_sdf_forward(net, pts, latent, cg, mm_dtype="bfloat16")
+            if not cg:
+                api = read_launches()["k3_bf16"]
+            k32 = F.fused_sdf_forward(net, pts, latent, cg)
+            torch.cuda.synchronize()
+            r = F.fused_sdf_forward_reference(net, pts, latent, cg,
+                                              mm_dtype="bfloat16")
+            parts = ("sdf", "feat", "grad")[:3 if cg else 2]
+            errs = check_bf16(dict(zip(parts, k)), dict(zip(parts, r)),
+                              dict(zip(parts, k32)), f"({label})",
+                              BF16_MAX_TOL, BF16_MEAN_TOL)
+            kernels, biases = F.prepare_fused_params(net, latent)
+            weights, bias = F.pack_fused_params(kernels, biases)
+            w16 = weights.to(torch.bfloat16)
+            ms = cuda_ms(lambda: F.KERNEL.launch(pts, w16, bias, cg, True,
+                                                 "bfloat16"))
+            ms32 = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, cg,
+                                                   True))
+            plain_ms = cuda_ms(lambda: F._forward_plain(
+                kernels, biases, pts, *F._arch(net), cg, True, "bfloat16"))
+            flop, (bound_ms, bound_by) = forward_bound(B, N, cg, bf16=True)
+            log(f"[bf16] {label}: against the bf16 plain version max / mean "
+                "abs err " + ", ".join(f"{p} {e[0]:.3e} / {e[1]:.3e}"
+                                       for p, e in errs.items())
+                + f" (tol {BF16_MAX_TOL} / {BF16_MEAN_TOL}); mean abs "
+                "distance from the float32 kernel " + ", ".join(
+                    f"{p} {e[2]:.3e}" for p, e in errs.items())
+                + f"; kernel {ms:.4f} ms, float32 kernel {ms32:.4f} ms "
+                f"({ms32 / ms:.2f}x), plain bf16 {plain_ms:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
+                "of it reached)")
+            res[(key, B)] = dict(err=max(e[0] for e in errs.values()), ms=ms,
+                                 f32_ms=ms32, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+
+    g = torch.Generator().manual_seed(SEED + 11)
+
+    def grads(pts, lat, cots, kernel, mm):
+        net.zero_grad()
+        p = pts.clone().requires_grad_(True)
+        lt = lat.clone().requires_grad_(True)
+        if kernel:
+            out = F.fused_sdf_train(net, p, lt, mm_dtype=mm)
+        else:
+            kk, bb = F.prepare_fused_params(net, lt)
+            out = F._forward_plain(kk, bb, p, *F._arch(net), True, True, mm)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        out = {n: q.grad.clone() for n, q in net.named_parameters()}
+        out.update(points=p.grad.clone(), latent=lt.grad.clone())
+        return out
+
+    for label, B, N in (("eikonal", 12, 1024), ("render", 12, 32768)):
+        pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+        lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+        cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+        got = grads(pts, lat, cots, True, "bfloat16")
+        want = grads(pts, lat, cots, False, "bfloat16")
+        f32 = grads(pts, lat, cots, True, "float32")
+        torch.cuda.synchronize()
+        scale = {k: max(float(w.abs().max()), 1e-3) for k, w in want.items()}
+        # the output bias's gradient sums the cotangents, which no product
+        # rounds: the same in both precisions
+        errs = check_bf16(got, want, f32, f"(K2-bf16 at {label})",
+                          {k: BF16_K2_MAX * v for k, v in scale.items()},
+                          {k: BF16_K2_MEAN * v for k, v in scale.items()},
+                          no_gap=("lin5.bias",))
+        with torch.no_grad():
+            weights, bias = F.pack_fused_params(
+                *F.prepare_fused_params(net, lat))
+        w16 = weights.to(torch.bfloat16)
+        args = (pts, bias, cots[0][..., 0].contiguous(), cots[1], cots[2])
+        ms = cuda_ms(lambda: F.BACKWARD.launch(args[0], w16, *args[1:], True,
+                                               "bfloat16"))
+        ms32 = cuda_ms(lambda: F.BACKWARD.launch(args[0], weights, *args[1:],
+                                                 True))
+        kk, bb = F.prepare_fused_params(net, lat)
+        pp = pts.clone().requires_grad_(True)
+        out = F._forward_plain(kk, bb, pp, *F._arch(net), True, True,
+                               "bfloat16")
+        plain_ms = cuda_ms(lambda: torch.autograd.backward(
+            out, cots, retain_graph=True))
+        del out
+        flop = FLOP_K2 * B * N
+        bound_ms, bound_by = bound(ELEM_K2 * B * N, k2_bytes(B, N),
+                                   mm_flop=flop)
+        rel = {k: (e[0] / scale[k], e[1] / scale[k], e[2] / scale[k])
+               for k, e in errs.items()}
+        top = max(rel, key=lambda k: rel[k][0])
+        mean = max(e[1] for e in rel.values())
+        log(f"[bf16] K2-bf16 {label} B={B} N={N}: against plain autograd "
+            f"of the bf16 plain version, over max|ref|, max abs err "
+            f"{rel[top][0]:.3e} ({top}), mean {mean:.3e} (tol {BF16_K2_MAX} "
+            f"/ {BF16_K2_MEAN}); points max / mean {rel['points'][0]:.3e} / "
+            f"{rel['points'][1]:.3e}, mean distance from the float32 pair "
+            f"points {rel['points'][2]:.3e}, lin0.weight "
+            f"{rel['lin0.weight'][2]:.3e}; K2-bf16 {ms:.4f} ms, float32 K2 "
+            f"{ms32:.4f} ms ({ms32 / ms:.2f}x), plain bf16 backward "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f}% of it reached)")
+        res[("k2", label)] = dict(err=max(e[0] for e in errs.values()), ms=ms,
+                                  f32_ms=ms32,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+    net.zero_grad()
+    return res, api
+
+
+def phase_train_bf16():
+    """(b) The flagship training step at the YAML's own dtypes (bf16
+    ResNets, K1-bf16 + K2-bf16 in every render, a bf16 RGB MLP): a camera
+    step and N_BF16_STEPS full steps on one batch, launch counts per step
+    (K1-bf16 3 / K2-bf16 1, then 3 / 3; the float32 K1 / K2 none), the
+    steady step, peak memory, one step under the profiler with cuDNN's
+    share of the busy time."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.train.trainer import batch_to_var
+
+    opt = flagship_opt(dtype="bfloat16")
+    runner = train_runner(opt, "cuda")
+    var = batch_to_var(one_batch(opt), runner.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for step in range(1 + N_BF16_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        loss = runner.train_iteration(opt, var)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        now = read_launches()
+        got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        want = dict(k1_bf16=3, k2_bf16=1 if step == 0 else 3)
+        if got != want:
+            raise AssertionError(f"bf16 step {step}: launches {got}, "
+                                 f"expected {want}")
+        check_loss(f"bf16 step {step}", loss)
+        log(f"[train-bf16] step {step} ({'camera' if step == 0 else 'full'}"
+            f"): {times[-1]:.1f} ms, launches {got}, loss "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in loss.items()
+                        if k != "finite"))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(times[2:])
+    log(f"[train-bf16] flagship at tpu.encoder_dtype = tpu.implicit_dtype = "
+        f"bfloat16: camera step {times[0]:.1f} ms, first full step "
+        f"{times[1]:.1f} ms, steady full step (median of steps "
+        f"2-{N_BF16_STEPS}) {steady:.1f} ms; peak device memory "
+        f"{peak_gib:.3f} GiB; launches {launches}")
+    profiled("train-bf16", "one bf16 full step",
+             lambda: runner.train_iteration(opt, var), 8,
+             share=("cuDNN (convolution kernels)", CONV_KERNELS))
+    return launches
+
+
+def phase_serve_bf16():
+    """(c) Single-image requests at the YAML's own dtypes: the bf16 ResNets,
+    K1-bf16 for the eval render and the turntable, the float32 K3 for the
+    grid; launch counts per request and the steady latency."""
+    import torch
+    from shapeclipper_torch.train.trainer import Runner
+
+    opt = load_opt(dtype="bfloat16")
+    runner = Runner(opt, "cuda")
+    runner.build_networks(opt)
+    runner.restore_checkpoint(opt)
+    vox = opt.eval.vox_res
+    per_request = dict(k1_bf16=1 + N_VIEWS,
+                       k3=-(-(vox + 1) ** 3 // 131072))
+    reset_launches()
+    latencies = []
+    for i in range(N_BF16_REQUESTS):
+        image = request_image(i, opt.H, opt.W)
+        before = read_launches()
+        t0 = time.perf_counter()
+        var, level, mesh = serve(runner, opt, image)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        now = read_launches()
+        got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        if got != per_request:
+            raise AssertionError(f"bf16 request {i}: launches {got}, "
+                                 f"expected {per_request}")
+        for key in ("rgb_recon_map", "normal_recon_map", "proj_latent_sdf"):
+            check_finite(f"bf16 request {i} {key}", var[key])
+        check_finite(f"bf16 request {i} level", level)
+        if mesh.vertices.shape[0] == 0:
+            raise AssertionError(f"bf16 request {i}: empty mesh")
+    launches = read_launches()
+    log(f"[serve-bf16] {N_BF16_REQUESTS} requests at the YAML's dtypes: "
+        + ", ".join(f"{t:.1f}" for t in latencies) + " ms (steady median "
+        f"{statistics.median(latencies[1:]):.1f} ms); launches per request "
+        f"{per_request}, in all {launches}")
+    return launches
+
+
+def _grad_roots(runner):
+    out = {}
+    for name, p in runner.graph.named_parameters():
+        out.setdefault(name.split(".")[0], []).append(
+            p.grad.detach().flatten().cpu())
+    import torch
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def phase_gpu_vs_cpu_step_bf16():
+    """(d) The first full step at batch 4 on the card and on the CPU plain
+    path, from the same weights and draws, in bf16. Gate: with
+    `tpu.implicit_dtype` bfloat16 (K1-bf16 + K2-bf16 and the bf16 RGB MLP
+    on the card, their plain versions on the CPU) and float32 ResNets,
+    every loss finite and each MLP root's gradient (SDF, RGB, beta) closer
+    to the CPU's, in norm, than half its distance from the card's float32
+    step (tests/test_torch_bf16*.py's rule). Reading: the same with both
+    keys bfloat16; train-mode BatchNorm over 4 samples turns bf16 rounding
+    flips into differences of the size of the bf16 effect
+    (tests/test_torch_bf16_step.py), so it is logged, not gated."""
+    import torch
+    from shapeclipper_torch.train.trainer import batch_to_var
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+
+    base = flagship_opt(batch_size=4)
+    batch = one_batch(base, noise_images=True)
+    B, R, S = 4, base.render.rand_sample, base.render.n_samples_uniform
+    g = torch.Generator().manual_seed(SEED + 5)
+    lo, hi = base.arch.impl_sdf.eikonal_sample_range
+    draws = edict(
+        render=edict(t_rand=torch.rand(B, R, S, generator=g),
+                     eik_idx=torch.randint(0, S, (B, R, 1), generator=g),
+                     eik_uniform=lo + (hi - lo) * torch.rand(
+                         B, R, 3, generator=g)),
+        render_NN=[edict(t_rand=torch.rand(B, R, S, generator=g))
+                   for _ in range(base.reg.n_views)])
+
+    def step(enc, imp, device):
+        opt = flagship_opt(batch_size=4)
+        opt.tpu.update(encoder_dtype=enc, implicit_dtype=imp)
+        opt.output_path = os.path.join(OUT_DIR, f"bf16_cmp_{device}")
+        r = train_runner(opt, device)
+        r.it = 1
+        d = edict(render=_to(draws.render, r.device),
+                  render_NN=_to(draws.render_NN, r.device))
+        t0 = time.perf_counter()
+        loss = r.train_iteration(opt, batch_to_var(batch, r.device), draws=d)
+        torch.cuda.synchronize()
+        check_loss(f"{enc}/{imp} step on {device}", loss)
+        log(f"[step-cmp-bf16] encoders {enc}, implicit {imp} on {device}: "
+            f"{1e3 * (time.perf_counter() - t0):.0f} ms")
+        return {k: float(v) for k, v in loss.items() if k != "finite"}, \
+            _grad_roots(r)
+
+    ref_loss, ref = step("float32", "float32", "cuda")
+    bad = []
+    for enc, gate in (("float32", True), ("bfloat16", False)):
+        lg, gg = step(enc, "bfloat16", "cuda")
+        lc, gc = step(enc, "bfloat16", "cpu")
+        rows = []
+        for root in ("sdf_network", "rgb_network", "density", "encoder",
+                     "estimator"):
+            norm = max(float(gc[root].norm()), 1e-30)
+            err = float((gg[root] - gc[root]).norm()) / norm
+            gap = float((gg[root] - ref[root]).norm()) / norm
+            rows.append(f"{root} {err:.2e} (gap {gap:.2e})")
+            if gate and root in MLP_ROOTS and not err < 0.5 * gap:
+                bad.append(f"{enc}: {root}")
+        lerr = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+        lgap = max(abs(lg[k] - ref_loss[k]) / max(abs(lc[k]), 1e-6)
+                   for k in lc)
+        log(f"[step-cmp-bf16] {'gate' if gate else 'reading'}, encoders "
+            f"{enc} + implicit bfloat16, card vs CPU: gradient norm-rel "
+            + ", ".join(rows) + f"; loss terms max rel {lerr:.2e} (from the "
+            f"card's float32 step {lgap:.2e})")
+    if bad:
+        raise AssertionError(f"bf16 card vs CPU step: {bad} not under half "
+                             "the gap to float32")
+
+
 # --------------------------------------------------------------- phase 6
 def phase_converge():
     """scripts/validate_training.py's run, N_CONVERGE steps, through
@@ -995,6 +1400,7 @@ def phase_converge():
                                             "config.yaml"))
     opt.update(name="validate", seed=SEED, resume=False, load=None, tb=None,
                batch_size=8, image_size=[64, 64], max_epoch=10 ** 6)
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     opt.H, opt.W = opt.image_size
     opt.data.update(max_img_cat=32, num_workers=2)
     opt.render.update(rand_sample=256, n_samples_uniform=32)
@@ -1354,21 +1760,17 @@ def phase_eval():
             return fn(x1, x2)
         return record
 
-    F.KERNEL.launches = {"grad": 0, "nograd": 0}
-    F.BACKWARD.launches = 0
-    C.KERNEL.launches = {"dist": 0, "argmin": 0}
+    reset_launches()
     with wrapped([(M, "chamfer_dists_sq", keep_clouds)]):
         t0 = time.perf_counter()
         cd, rows, fs = evaluate_collect(runner, opt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(k1=F.KERNEL.launches["grad"],
-                    k3=F.KERNEL.launches["nograd"],
-                    k2=F.BACKWARD.launches, k4=C.KERNEL.launches["dist"],
-                    k5=C.KERNEL.launches["argmin"])
+    launches = read_launches()
     vox = opt.eval.vox_res
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
-    want = dict(k1=n, k3=k3_per * n, k2=0, k4=2 * n, k5=0)
+    want = dict(k1=n, k3=k3_per * n, k2=0, k1_bf16=0, k3_bf16=0, k2_bf16=0,
+                k4=2 * n, k5=0)
     if launches != want:
         raise AssertionError(f"evaluation launches {launches}, expected "
                              f"{want}")
@@ -1580,16 +1982,22 @@ def phase_clis():
 def reset_launches():
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
-    F.KERNEL.launches = {"grad": 0, "nograd": 0}
-    F.BACKWARD.launches = 0
+    for key in F.KERNEL.launches:
+        F.KERNEL.launches[key] = 0
+    for key in F.BACKWARD.launches:
+        F.BACKWARD.launches[key] = 0
     C.KERNEL.launches = {"dist": 0, "argmin": 0}
 
 
 def read_launches():
+    """Every kernel's launches since `reset_launches` (`_bf16`: the bf16
+    instantiations)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
-    return dict(k1=F.KERNEL.launches["grad"], k3=F.KERNEL.launches["nograd"],
-                k2=F.BACKWARD.launches, k4=C.KERNEL.launches["dist"],
+    k, b = F.KERNEL.launches, F.BACKWARD.launches
+    return dict(k1=k["grad"], k3=k["nograd"], k2=b["float32"],
+                k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
+                k2_bf16=b["bfloat16"], k4=C.KERNEL.launches["dist"],
                 k5=C.KERNEL.launches["argmin"])
 
 
@@ -1990,7 +2398,7 @@ def run_steps(opt, batch, draws, timed=0, profile=False):
     out = []
     for it, d in enumerate(draws):
         runner.it = it
-        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+        k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches["float32"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = runner.train_iteration(opt, var,
@@ -2007,7 +2415,7 @@ def run_steps(opt, batch, draws, timed=0, profile=False):
             stats={n: b.clone() for n, b in g.named_buffers()
                    if "running" in n},
             ms=ms, launches=(F.KERNEL.launches["grad"] - k1,
-                             F.BACKWARD.launches - k2),
+                             F.BACKWARD.launches["float32"] - k2),
             wrapper=type(runner.step_model).__name__))
     timed_ms = []
     d = _to_tree(draws[-1], runner.device)
@@ -2345,7 +2753,8 @@ def phase_ddp_cli():
             "--render.rand_sample=32", "--render.n_samples_uniform=8",
             "--eval.vox_res=12", "--eval.num_points=512",
             "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!",
-            "--eval.dump!"]
+            "--eval.dump!", "--tpu.encoder_dtype=float32",
+            "--tpu.implicit_dtype=float32"]
     train = ["--max_epoch=1", "--freq.eval=1", "--optim.lr=0",
              "--optim.iter_camera=1000"]
     best, reports = [], []
@@ -2474,6 +2883,10 @@ def main():
     phase_cli(opt, image0)
     train_launches = phase_train()                      # phase 5
     phase_gpu_vs_cpu_step()
+    bf16, k3_bf16_api = phase_bf16_kernels(opt)         # phase 5a
+    bf16_launches = phase_train_bf16()                  # phase 5b
+    phase_serve_bf16()                                  # phase 5c
+    phase_gpu_vs_cpu_step_bf16()                        # phase 5d
     phase_converge()                                    # phase 6
     nn = phase_chamfer()                                # phase 7
     eval_launches, err4, err5 = phase_eval()            # phase 8
@@ -2510,6 +2923,28 @@ def main():
              replaces=REPLACES_BWD, launches=train_launches["k2"],
              max_abs_err=bwd["err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+             library_ms=None),
+        dict(name="fused_sdf_fwd (K1-bf16, compute_grad=True, bf16 "
+             "products)", route="cuda", source=SOURCE, replaces=REPLACES,
+             launches=bf16_launches["k1_bf16"],
+             max_abs_err=max(bf16[("grad", 1)]["err"],
+                             bf16[("grad", 12)]["err"]),
+             **{k: bf16[("grad", 12)][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
+             library_ms=None),
+        dict(name="fused_sdf_fwd (K3-bf16, compute_grad=False, bf16 "
+             "products)", route="cuda", source=SOURCE, replaces=REPLACES,
+             launches=k3_bf16_api, max_abs_err=bf16[("nograd", 1)]["err"],
+             **{k: bf16[("nograd", 1)][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
+             library_ms=None),
+        dict(name="fused_sdf_bwd (K2-bf16, bf16 products)", route="cuda",
+             source=SOURCE_BWD, replaces=REPLACES_BWD,
+             launches=bf16_launches["k2_bf16"],
+             max_abs_err=max(bf16[("k2", "render")]["err"],
+                             bf16[("k2", "eikonal")]["err"]),
+             **{k: bf16[("k2", "render")][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
              library_ms=None),
         dict(name="chamfer_nn (K4, distances)", route="cuda",
              source=SOURCE_NN, replaces=REPLACES_K4,

@@ -4,7 +4,7 @@ against each other on one NVIDIA GPU, at the shapes the port's paths give it.
 
     git show <commit>:shapeclipper_torch/csrc/fused_sdf_fwd.cu > build/old.cu
     python scripts/fwd_ab.py --build new=shapeclipper_torch/csrc/fused_sdf_fwd.cu \
-        --build old=build/old.cu
+        --build old=build/old.cu [--bf16]
 
 Each `--build LABEL=SOURCE` is compiled by nvcc for sm_90a (all at once,
 through `ops/cuda_lib.py::CudaLibrary.build`) into `build/fwd_ab/`; every
@@ -17,7 +17,9 @@ vox 100), every build is held against the plain PyTorch version
 two rounds, the builds in order and then in reverse (a, b, c, c, b, a).
 Prints each build's registers and spills, times, their mean and the share of
 the bound (`chip_smoke.forward_bound`), then one JSON line of the results.
-Imports no JAX.
+`--bf16` runs the bfloat16-product instantiations instead (sources whose
+entry takes `mm_bf16`), held against the plain version's bf16 products as
+`chip_smoke.py` holds them (`check_bf16`). Imports no JAX.
 """
 
 import argparse
@@ -47,12 +49,39 @@ def version_class():
         def __init__(self, source):
             super().__init__(OUT)
             self.source = source
+            with open(source) as f:
+                self.has_mm = "int mm_bf16" in f.read()
 
         def _bind(self, lib):
             fn = lib.scl_fused_sdf_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * (5 if self.has_mm else 4)
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+
+        def build(self, force=False):
+            lib = super().build(force)
+            if self.has_mm:
+                return lib
+            # an earlier source: float32 products only, no mm_bf16 argument
+            fn = lib.scl_fused_sdf_fwd
+
+            class Entry:
+                @staticmethod
+                def scl_fused_sdf_fwd(*a):
+                    if a[10]:
+                        raise ValueError("this source has no bf16 products")
+                    return fn(*a[:10], a[11])
+            self.lib = Entry
+            return Entry
+
+        def usage(self, compute_grad, bf16):
+            """ptxas's (registers, spill stores, spill loads) of an
+            instantiation."""
+            name = "fused_sdf_fwd_bf16_kernel" if bf16 else \
+                "fused_sdf_fwd_kernel"
+            return cs.ptxas_usage(self.ptxas_log,
+                                  f"{name}ILb{int(compute_grad)}E")
 
     return Version
 
@@ -61,7 +90,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--build", action="append", required=True,
                     help="LABEL=SOURCE")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bfloat16-product instantiations")
     args = ap.parse_args(argv)
+    mm = "bfloat16" if args.bf16 else "float32"
     import torch
     if not torch.cuda.is_available():
         print("fwd_ab.py needs an NVIDIA GPU", file=sys.stderr)
@@ -80,9 +112,8 @@ def main(argv=None):
     card = cs.card_line()
     print(f"card: {card}")
     for label, v in zip(labels, versions):
-        for what, tag in (("K1", "ILb1"), ("K3", "ILb0")):
-            regs, st, ld = cs.ptxas_usage(v.ptxas_log,
-                                          "fused_sdf_fwd_kernel" + tag)
+        for what, cg in (("K1", True), ("K3", False)):
+            regs, st, ld = v.usage(cg, args.bf16)
             print(f"[{label}] ptxas {what}: {regs} registers, {st}/{ld} "
                   "bytes spilled")
 
@@ -95,24 +126,33 @@ def main(argv=None):
             name = f"{'K1' if cg else 'K3'} {B} x {N:,}"
             weights, bias = F.pack_fused_params(
                 *F.prepare_fused_params(net, lat))
-            want = F.fused_sdf_forward_reference(net, pts, lat, cg)
+            want = F.fused_sdf_forward_reference(net, pts, lat, cg, mm)
+            w_mm = weights.to(torch.bfloat16) if args.bf16 else weights
 
-            def run(v):
-                sdf, feat, grad = v.launch(pts, weights, bias, cg, True)
+            def run(v, mm=mm, w=w_mm):
+                sdf, feat, grad = v.launch(pts, w, bias, cg, True, mm)
                 return sdf[..., None], feat, grad
 
             errs = {}
+            parts = ("sdf", "feat", "grad")[:3 if cg else 2]
             for label, v in zip(labels, versions):
                 got = run(v)
                 torch.cuda.synchronize()
-                errs[label] = cs.check_forward(got, want,
-                                               f"({label} at {name})")
+                where = f"({label} at {name})"
+                if args.bf16:   # chip_smoke.py's two-fold bf16 check
+                    f32 = run(v, "float32", weights)
+                    errs[label] = {p: e[0] for p, e in cs.check_bf16(
+                        dict(zip(parts, got)), dict(zip(parts, want)),
+                        dict(zip(parts, f32)), where, cs.BF16_MAX_TOL,
+                        cs.BF16_MEAN_TOL).items()}
+                else:
+                    errs[label] = cs.check_forward(got, want, where)
             times = {label: [] for label in labels}
             order = list(zip(labels, versions))
             for rnd in (order, order[::-1]):
                 for label, v in rnd:
                     times[label].append(cs.cuda_ms(lambda: run(v)))
-            _, (bound_ms, bound_by) = cs.forward_bound(B, N, cg)
+            _, (bound_ms, bound_by) = cs.forward_bound(B, N, cg, args.bf16)
             print(f"{name}: bound {bound_ms:.4f} ms ({bound_by})")
             results[name] = {"bound_ms": bound_ms}
             for label in labels:

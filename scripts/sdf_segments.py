@@ -87,8 +87,10 @@ def build(src, name):
     return ctypes.CDLL(so)
 
 
-def launcher(kind, lib, net, B, N, grad, dev):
-    """-> a function that launches the instrumented kernel once."""
+def launcher(kind, lib, net, B, N, grad, dev, has_mm):
+    """-> a function that launches the instrumented kernel once (the
+    float32 products; `has_mm`: the source's entry takes `mm_bf16`, which
+    earlier sources lack)."""
     import torch
     from shapeclipper_torch.ops import fused_sdf as F
     g = torch.Generator().manual_seed(0)
@@ -96,19 +98,20 @@ def launcher(kind, lib, net, B, N, grad, dev):
     lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
     with torch.no_grad():
         weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    mm = (0,) if has_mm else ()
     f32 = dict(device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "fwd":
         fn = lib.scl_fused_sdf_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (4 + len(mm)) \
+            + [ctypes.c_void_p]
         bufs = [pts, weights, bias, torch.empty(B, N, **f32),
                 torch.empty(B, N, 64, **f32), torch.empty(B, N, 3, **f32)]
-        args = (B, N, int(grad), 1, stream)
+        args = (B, N, int(grad), 1, *mm, stream)
     else:
         fn = lib.scl_fused_sdf_bwd
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 \
+            + [ctypes.c_int] * (4 + len(mm)) + [ctypes.c_void_p]
         cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
         grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
                    B * -(-N // F.BWD_TILE_POINTS))
@@ -119,7 +122,7 @@ def launcher(kind, lib, net, B, N, grad, dev):
                 torch.empty(grid, F.NUM_WEIGHTS, **f32),
                 torch.empty(grid, B, F.BIAS_WIDTH, **f32),
                 torch.empty(grid, F.BWD_STASH_FLOATS, **f32)]
-        args = (B, N, grid, 1, stream)
+        args = (B, N, grid, 1, *mm, stream)
 
     def launch():
         err = fn(*[b.data_ptr() for b in bufs], *args)
@@ -149,7 +152,8 @@ def main(argv=None):
     file, kernel = KERNELS[args.kernel]
     source = args.source or os.path.join(CSRC, file)
     with open(source) as f:
-        src, lines = instrument(f.read(), kernel)
+        text = f.read()
+    src, lines = instrument(text, kernel)
     label = args.label or args.kernel
     lib = build(src, label)
     lib.scl_segments_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -158,7 +162,8 @@ def main(argv=None):
     net = SDFNetwork(geometric_init=False,
                      generator=torch.Generator().manual_seed(0)).to(dev)
     B, N = args.B, args.N
-    launch = launcher(args.kernel, lib, net, B, N, not args.no_grad, dev)
+    launch = launcher(args.kernel, lib, net, B, N, not args.no_grad, dev,
+                      "int mm_bf16" in text)
     launch()
     torch.cuda.synchronize()
     if lib.scl_segments_read(None, 1):

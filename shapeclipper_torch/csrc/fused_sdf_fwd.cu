@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel `shapeclipper_tpu/ops/fused_sdf.py::
 // _forward_call` (the `pl.pallas_call` at line 311): both instantiations,
 // with tangents (K1: render / turntable normals / training) and without
-// (K3: the dense SDF grid).
+// (K3: the dense SDF grid), each with float32 products (described here, down
+// to the bf16 section) and with bf16 products (`_mm_cast("bfloat16")`: the
+// tensor-core kernel `fused_sdf_fwd_bf16_kernel` at the end of the file).
 //
 // What it computes, per point x of batch row b (default architecture):
 //   |x| symmetry on x0 (sign kept for the chain rule), posenc with 6
@@ -60,7 +62,10 @@
 //     and are not written); no padding of the inputs or outputs. No atomics:
 //     two launches are bitwise equal.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -463,33 +468,437 @@ cudaError_t launch(const float* points, const float* weights,
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// bf16 products: K1-bf16 / K3-bf16 on the tensor cores.
+//
+// What it computes: the function above with every product's operands
+// rounded to bfloat16 (nearest even) and float32 sums -- the JAX package's
+// `_mm_cast("bfloat16")`. Bias, activation, the tangents' sigmoid scaling
+// and the |x| sign stay float32; the outputs are float32.
+//
+// What bounds it on this card: with the products on the tensor cores
+// (989 TFLOP/s dense bf16 against 67 TFLOP/s fp32), the elementwise work --
+// softplus(100 z) and sigmoid(100 z) of every hidden primal value, the
+// tangents' scaling, the posenc -- and the issue slots it shares with the
+// products. The activations use the fast intrinsics (`act_pair_fast`):
+// their results are only ever bf16 operands.
+//
+// The design: one warp per tile, warps independent (no block barrier past
+// the weights' prologue), products by `mma.sync.aligned.m16n8k16.row.col.
+// f32.bf16.bf16.f32` (A 16 x 16 row-major, B 16 x 8, float32 accumulator).
+//   * A warp's rows are two m16 tiles. With tangents: 8 points, tile 0 =
+//     [primal rows; t_x rows], tile 1 = [t_y; t_z], so a thread (lane =
+//     4 g + t) holds point g's four rows at the same 16 columns of a layer
+//     (2 t, 2 t + 1 of each n8 tile), and activates its primal values and
+//     scales its tangent values by their sigmoid in registers. Without
+//     tangents: 32 points, 16 a tile, every row primal.
+//   * Registers carry the activations from layer to layer: the float32
+//     accumulator of n8 tiles 2 kk and 2 kk + 1 is exactly the A fragment of
+//     k16 step kk of the next product, so activate, round to bf16 pairs
+//     (`__floats2bfloat162_rn`) and go on; nothing goes through shared
+//     memory.
+//   * The posenc rows (39 features, padded to 48 = 3 k16 steps) are computed
+//     straight into A fragments: each thread evaluates the 12 features its
+//     fragment holds (sign(x0) folded into the x tangent, exact), kept for
+//     the skip layers 1 and 2.
+//   * The 28,032 weights sit in shared memory as bf16 B fragments, in
+//     fragment order (59 KB: each (matrix, k16 step, n8 tile) is 32 lanes x
+//     8 bytes), so a fragment is one conflict-free 8-byte load a lane. The
+//     output layer's 65 columns (sdf, 64 features) take 9 n8 tiles; with
+//     tangents the t_y / t_z tile computes the sdf column's tile alone.
+//   * Biases come through the read-only cache; the outputs are written from
+//     the accumulators (sdf and gradient by the lanes holding column 0).
+//   * The ragged tail of N reads points as 0 and is not written.
+// No atomics: two launches are bitwise equal.
+
+// Fragments of the packed matrices, in this order, each (k16 step, n8 tile)
+// a 64-word fragment: K0 [39 -> 48][64], K1h, K1pe, K2h, K2pe, K3, K4 and
+// K5 [64][65 -> 72].
+constexpr int kPeSteps = 3;                  // posenc k16 steps (48 rows)
+constexpr int kHSteps = kWidth / 16;         // hidden k16 steps (4)
+constexpr int kNT = kWidth / 8;              // hidden n8 tiles (8)
+constexpr int kNTOut = 9;                    // output n8 tiles (72 columns)
+constexpr int kFragK0 = 0;
+constexpr int kFragK1h = kFragK0 + kPeSteps * kNT;
+constexpr int kFragK1pe = kFragK1h + kHSteps * kNT;
+constexpr int kFragK2h = kFragK1pe + kPeSteps * kNT;
+constexpr int kFragK2pe = kFragK2h + kHSteps * kNT;
+constexpr int kFragK3 = kFragK2pe + kPeSteps * kNT;
+constexpr int kFragK4 = kFragK3 + kHSteps * kNT;
+constexpr int kFragK5 = kFragK4 + kHSteps * kNT;
+constexpr int kFrags = kFragK5 + kHSteps * kNTOut;      // 236
+constexpr int kBf16Warps = 4;                            // warps a block
+
+template <bool kGrad>
+struct Bf16Tile {
+  static constexpr int kPoints = kGrad ? 8 : 32;         // points a warp
+};
+
+// The packed-weight element of fragment word w (lane w / 2, register w % 2)
+// half e of fragment `frag`, or -1 for the padding.
+__device__ __forceinline__ int frag_source(int frag, int w, int e) {
+  int base, off, in, out, nt;
+  if (frag >= kFragK5) {
+    base = kFragK5; off = kOffK5; in = kWidth; out = kOut; nt = kNTOut;
+  } else {
+    // (first fragment, packed offset, rows) of the 64-column matrices
+    const int b[7] = {kFragK0, kFragK1h, kFragK1pe, kFragK2h, kFragK2pe,
+                      kFragK3, kFragK4};
+    const int o[7] = {kOffK0, kOffK1h, kOffK1pe, kOffK2h, kOffK2pe, kOffK3,
+                      kOffK4};
+    const int r[7] = {kPe, kWidth, kPe, kWidth, kPe, kWidth, kWidth};
+    int m = 6;
+    while (frag < b[m]) --m;
+    base = b[m]; off = o[m]; in = r[m]; out = kWidth; nt = kNT;
+  }
+  const int f = frag - base, kk = f / nt, j = f % nt;
+  const int lane = w / 2, reg = w % 2;
+  const int k = 16 * kk + 2 * (lane & 3) + 8 * reg + e;
+  const int n = 8 * j + (lane >> 2);
+  if (k >= in || n >= out) return -1;
+  return off + k * out + n;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// (softplus(100 p)/100, sigmoid(100 p)) from z = 100 p with the fast
+// intrinsics: both feed bf16 operands only (the next product's activations,
+// the tangents' scaling), whose rounding (2^-9 relative) is ~10^4 times
+// coarser than the intrinsics' errors.
+__device__ __forceinline__ void act_pair_fast(float z, float& act,
+                                              float& sig) {
+  const float e = __expf(-fabsf(z));
+  const float inv = __fdividef(1.f, 1.f + e);
+  sig = z >= 0.f ? inv : 1.f - inv;
+  act = (fmaxf(z, 0.f) + __logf(1.f + e)) * 0.01f;
+}
+
+// Two floats rounded to bf16 (nearest even), the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Posenc feature j of a point at (x, y, z) with x already |x0|: (value,
+// derivative along its own coordinate, that coordinate); 0 past 39.
+__device__ __forceinline__ void posenc_feature(int j, const float (&x)[3],
+                                               float& pe, float& dpe,
+                                               int& d) {
+  if (j < 3) {
+    pe = x[j]; dpe = 1.f; d = j;
+  } else if (j < kPe) {
+    const int q = j - 3, k = q / 6, r = q % 6;
+    d = r % 3;
+    const float f = (float)(1 << k);
+    float s, c;
+    sincosf(x[d] * f, &s, &c);
+    pe = r < 3 ? s : c;
+    dpe = r < 3 ? f * c : -f * s;
+  } else {
+    pe = 0.f; dpe = 0.f; d = -1;
+  }
+}
+
+// acc[m][j] += A[m][kk] x B(frag0 + kk * nt + j) over the k16 steps.
+template <int kSteps, int kTiles, int kM>
+__device__ __forceinline__ void product(float (&acc)[2][kNTOut][4],
+                                        const uint32_t (&a)[2][4][4],
+                                        const uint2* __restrict__ sB,
+                                        int frag0, int nt, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      const uint2 b = sB[(frag0 + kk * nt + j) * 32 + lane];
+#pragma unroll
+      for (int m = 0; m < kM; ++m) mma_bf16(acc[m][j], a[m][kk], b);
+    }
+  }
+}
+
+template <bool kGrad>
+__global__ void __launch_bounds__(32 * kBf16Warps)
+    fused_sdf_fwd_bf16_kernel(const float* __restrict__ points,
+                              const __nv_bfloat16* __restrict__ weights,
+                              const float* __restrict__ biases,
+                              float* __restrict__ sdf,
+                              float* __restrict__ feat,
+                              float* __restrict__ grad, int N,
+                              int tiles_per_batch, int total_tiles,
+                              int force_symmetry) {
+  constexpr int kP = Bf16Tile<kGrad>::kPoints;
+  extern __shared__ __align__(16) uint2 sB[];
+  {
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(weights);
+    uint32_t* s32 = reinterpret_cast<uint32_t*>(sB);
+    for (int i = threadIdx.x; i < kFrags * 64; i += blockDim.x) {
+      const int frag = i / 64, word = i % 64;
+      const int i0 = frag_source(frag, word, 0);
+      const int i1 = frag_source(frag, word, 1);
+      const uint32_t lo = i0 < 0 ? 0u : w[i0];
+      const uint32_t hi = i1 < 0 ? 0u : w[i1];
+      s32[i] = lo | (hi << 16);
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x / 32;
+  for (int tile = blockIdx.x * kBf16Warps + warp; tile < total_tiles;
+       tile += gridDim.x * kBf16Warps) {
+    const int b = tile / tiles_per_batch;
+    const int n0 = (tile % tiles_per_batch) * kP;
+    const float* bias = biases + (size_t)b * kBiasStride;
+
+    // ---- the posenc A fragments (kept for the skip layers). With
+    // tangents, rows [point g; its t_x] in tile 0 and [t_y; t_z] in tile 1;
+    // without, points g, g + 8 in tile 0 and 16 + g, 24 + g in tile 1.
+    uint32_t pe[2][4][4];
+    {
+      constexpr int kPts = kGrad ? 1 : 4;
+      float x[kPts][3], sgn[kPts];
+      bool valid[kPts];
+#pragma unroll
+      for (int q = 0; q < kPts; ++q) {
+        const int p = kGrad ? g : (q & 1) * 8 + (q >> 1) * 16 + g;
+        const int n = n0 + p;
+        valid[q] = n < N;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          x[q][d] = valid[q] ? points[((size_t)b * N + n) * 3 + d] : 0.f;
+        sgn[q] = 1.f;
+        if (force_symmetry) {
+          sgn[q] = x[q][0] < 0.f ? -1.f : 1.f;
+          x[q][0] = fabsf(x[q][0]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kPeSteps; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j0 = 16 * kk + 2 * t + 8 * h;
+          // v[row kind or point][pair]
+          float v[4][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (kGrad) {
+              float f, df;
+              int d;
+              posenc_feature(j0 + e, x[0], f, df, d);
+              v[0][e] = f;
+              v[1][e] = d == 0 ? sgn[0] * df : 0.f;
+              v[2][e] = d == 1 ? df : 0.f;
+              v[3][e] = d == 2 ? df : 0.f;
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                float f, df;
+                int d;
+                posenc_feature(j0 + e, x[q], f, df, d);
+                v[q][e] = f;
+              }
+            }
+          }
+          // tile m, register 2 h (row g) and 2 h + 1 (row g + 8)
+          pe[0][kk][2 * h] = pack_bf16(v[0][0], v[0][1]);
+          pe[0][kk][2 * h + 1] = pack_bf16(v[1][0], v[1][1]);
+          pe[1][kk][2 * h] = pack_bf16(v[2][0], v[2][1]);
+          pe[1][kk][2 * h + 1] = pack_bf16(v[3][0], v[3][1]);
+        }
+      }
+    }
+
+    // ---- hidden layers 0..4, the activations carried in registers
+    uint32_t h[2][4][4];
+    float acc[2][kNTOut][4];
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[m][j][r] = 0.f;
+        }
+      }
+      if (l > 0) {
+        const int frag = l == 1 ? kFragK1h : l == 2 ? kFragK2h
+                         : l == 3 ? kFragK3 : kFragK4;
+        product<kHSteps, kNT, 2>(acc, h, sB, frag, kNT, lane);
+      }
+      if (l < 3) {
+        const int frag = l == 0 ? kFragK0 : l == 1 ? kFragK1pe : kFragK2pe;
+        product<kPeSteps, kNT, 2>(acc, pe, sB, frag, kNT, lane);
+      }
+      // bias and activation; the next layer's A fragments
+      const float* bl = bias + l * kWidth;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float b0 = __ldg(bl + 8 * j + 2 * t);
+        const float b1 = __ldg(bl + 8 * j + 2 * t + 1);
+        float o[2][4];
+        if constexpr (kGrad) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float act, sig;
+            act_pair_fast(100.f * (acc[0][j][e] + (e ? b1 : b0)), act, sig);
+            o[0][e] = act;
+            o[0][2 + e] = acc[0][j][2 + e] * sig;   // t_x
+            o[1][e] = acc[1][j][e] * sig;           // t_y
+            o[1][2 + e] = acc[1][j][2 + e] * sig;   // t_z
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float sig;
+              act_pair_fast(100.f * (acc[m][j][r] + (r & 1 ? b1 : b0)),
+                            o[m][r], sig);
+            }
+          }
+        }
+        // n8 tile j is half (j & 1) of k16 step j / 2
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          h[m][j / 2][2 * (j & 1)] = pack_bf16(o[m][0], o[m][1]);
+          h[m][j / 2][2 * (j & 1) + 1] = pack_bf16(o[m][2], o[m][3]);
+        }
+      }
+    }
+
+    // ---- output layer: sdf + 64 features (9 n8 tiles); with tangents the
+    // [t_y; t_z] tile needs only the sdf column's tile
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int j = 0; j < kNTOut; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[m][j][r] = 0.f;
+      }
+    }
+    product<kHSteps, kNTOut, kGrad ? 1 : 2>(acc, h, sB, kFragK5, kNTOut,
+                                            lane);
+    if constexpr (kGrad) {
+#pragma unroll
+      for (int kk = 0; kk < kHSteps; ++kk) {
+        const uint2 b0 = sB[(kFragK5 + kk * kNTOut) * 32 + lane];
+        mma_bf16(acc[1][0], h[1][kk], b0);
+      }
+    }
+    const float* bo = bias + 5 * kWidth;
+    // rows of this thread: with tangents point g (tile 0, registers 0-1);
+    // without, points g, g + 8 (tile 0) and 16 + g, 24 + g (tile 1)
+#pragma unroll
+    for (int q = 0; q < (kGrad ? 1 : 4); ++q) {
+      const int m = q >> 1, half = q & 1;
+      const int p = kGrad ? g : m * 16 + half * 8 + g;
+      const int n = n0 + p;
+      if (n >= N) continue;
+      const size_t row = (size_t)b * N + n;
+#pragma unroll
+      for (int j = 0; j < kNTOut; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float v = acc[m][j][2 * half + e] + __ldg(bo + min(col, 64));
+          if (col == 0)
+            sdf[row] = v;
+          else if (col <= kWidth)
+            feat[row * kWidth + col - 1] = v;
+        }
+      }
+      if constexpr (kGrad) {
+        if (t == 0) {   // column 0 of the tangent rows
+          grad[row * 3] = acc[0][0][2];
+          grad[row * 3 + 1] = acc[1][0][0];
+          grad[row * 3 + 2] = acc[1][0][2];
+        }
+      }
+    }
+  }
+}
+
+template <bool kGrad>
+cudaError_t launch_bf16(const float* points, const __nv_bfloat16* weights,
+                        const float* biases, float* sdf, float* feat,
+                        float* grad, int B, int N, int force_symmetry,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)kFrags * 64 * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_sdf_fwd_bf16_kernel<kGrad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fused_sdf_fwd_bf16_kernel<kGrad>, 32 * kBf16Warps,
+           smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  constexpr int kP = Bf16Tile<kGrad>::kPoints;
+  const int tiles_per_batch = (N + kP - 1) / kP;
+  const long long total = (long long)tiles_per_batch * B;
+  if (total > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long blocks = (total + kBf16Warps - 1) / kBf16Warps;
+  const int grid = (int)(blocks < (long long)sms * per_sm
+                             ? blocks : (long long)sms * per_sm);
+  fused_sdf_fwd_bf16_kernel<kGrad><<<grid, 32 * kBf16Warps, smem, stream>>>(
+      points, weights, biases, sdf, feat, grad, N, tiles_per_batch,
+      (int)total, force_symmetry);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// points [B,N,3], weights packed as above (28,032 floats), biases [B,385];
-// sdf [B,N], feat [B,N,64], grad [B,N,3] (ignored unless compute_grad).
-// All float32, contiguous, on the current device. Returns a cudaError_t.
+// points [B,N,3], weights packed as above (28,032 floats, or their
+// bfloat16 copy with mm_bf16), biases [B,385]; sdf [B,N], feat [B,N,64],
+// grad [B,N,3] (ignored unless compute_grad). Float32 but for the bf16
+// weights, contiguous, on the current device. Returns a cudaError_t.
 extern "C" int scl_fused_sdf_fwd(const void* points, const void* weights,
                                  const void* biases, void* sdf, void* feat,
                                  void* grad, int B, int N, int compute_grad,
-                                 int force_symmetry, void* stream) {
+                                 int force_symmetry, int mm_bf16,
+                                 void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(points);
-  const float* w = static_cast<const float*>(weights);
   const float* bi = static_cast<const float*>(biases);
+  float* so = static_cast<float*>(sdf);
+  float* fo = static_cast<float*>(feat);
+  float* go = static_cast<float*>(grad);
+  if (mm_bf16) {
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(weights);
+    return (int)(compute_grad
+                     ? launch_bf16<true>(p, w, bi, so, fo, go, B, N,
+                                         force_symmetry, s)
+                     : launch_bf16<false>(p, w, bi, so, fo, nullptr, B, N,
+                                          force_symmetry, s));
+  }
+  const float* w = static_cast<const float*>(weights);
   if (compute_grad)
-    return (int)launch<true>(p, w, bi, static_cast<float*>(sdf),
-                             static_cast<float*>(feat),
-                             static_cast<float*>(grad), B, N, force_symmetry,
-                             s);
-  return (int)launch<false>(p, w, bi, static_cast<float*>(sdf),
-                            static_cast<float*>(feat), nullptr, B, N,
-                            force_symmetry, s);
+    return (int)launch<true>(p, w, bi, so, fo, go, B, N, force_symmetry, s);
+  return (int)launch<false>(p, w, bi, so, fo, nullptr, B, N, force_symmetry,
+                            s);
 }
 
 extern "C" int scl_fused_sdf_num_weights() { return kNumWeights; }
 
-// Points a tile holds, with tangents (K1) or without (K3).
-extern "C" int scl_fused_sdf_fwd_tile_points(int compute_grad) {
+// Points a tile holds, with tangents (K1) or without (K3): a block's tile
+// for the float32 products, a warp's for the bf16 ones.
+extern "C" int scl_fused_sdf_fwd_tile_points(int compute_grad, int mm_bf16) {
+  if (mm_bf16) return compute_grad ? Bf16Tile<true>::kPoints
+                                   : Bf16Tile<false>::kPoints;
   return compute_grad ? Smem<true>::kPoints : Smem<false>::kPoints;
 }

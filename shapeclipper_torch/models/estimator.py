@@ -3,7 +3,8 @@
 
 Extrinsics are three L2-normalized (cos, sin) pairs (azim / elev / theta),
 plus tanh-bounded size and perspective scales. The init forces elev = theta
-= 0 and scales = 1 (reference `model/view_estimator.py:58-70`).
+= 0 and scales = 1 (reference `model/view_estimator.py:58-70`). The
+backbone computes in `dtype` (`tpu.encoder_dtype`); the heads in float32.
 """
 
 from __future__ import annotations
@@ -32,13 +33,14 @@ def _normalize(x, eps=1e-12):
 
 
 class Estimator(nn.Module):
-    def __init__(self, size_range=0.2, perspect_range=0.0, generator=None):
+    def __init__(self, size_range=0.2, perspect_range=0.0, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.size_range = size_range
         self.perspect_range = perspect_range
         n = 512  # resnet18 feature width
         self.feature_extractor = resnet18(num_classes=None,
-                                          generator=generator)
+                                          generator=generator, dtype=dtype)
         self.extr_head = BottleneckLinear(n, zero_init=True,
                                           generator=generator)
         self.extr_fc = nn.Linear(n, 6)
@@ -60,10 +62,10 @@ class Estimator(nn.Module):
                 fc.bias.zero_()
 
     @staticmethod
-    def from_opt(opt, generator=None):
+    def from_opt(opt, generator=None, dtype=torch.float32):
         return Estimator(size_range=opt.camera.size_range,
                          perspect_range=opt.camera.perspect_range,
-                         generator=generator)
+                         generator=generator, dtype=dtype)
 
     def heads(self, feat):
         """Trig extrinsic + scale heads on backbone features [B, 512]."""

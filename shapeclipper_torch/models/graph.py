@@ -16,8 +16,16 @@ camera phase (the JAX `bn_eval`). Train-mode BatchNorm follows
 whole batch (summed over the ranks under data parallelism), or
 `per_replica` moments over `tpu.bn_replicas` contiguous blocks (default:
 the world size) with the running statistics from block 0. The port
-computes in float32 and ignores `tpu.merge_*`, `tpu.sdf_grad_mode`,
-`tpu.fold_eikonal`, `tpu.remat_renderer` and the bf16 dtypes.
+ignores `tpu.merge_*`, `tpu.sdf_grad_mode`, `tpu.fold_eikonal` and
+`tpu.remat_renderer`.
+
+Precision follows the JAX package's two keys. `tpu.encoder_dtype` is the
+compute dtype of the encoder's ResNet34 and the estimator's ResNet18
+(BatchNorm in float32, parameters float32); the latent projections and the
+heads stay float32. `tpu.implicit_dtype` is that of the SDF and RGB MLPs in
+every render (`renderer.render`): bf16 products in the fused SDF pair, a
+bf16 RGB MLP. The dense evaluation grid stays float32 (the JAX package's
+raw `sdf_network.apply`).
 
 Random draws (stratified jitter, eikonal points, the Gumbel noise of the
 neighbour selection) are optional inputs in `draws`; `step_draws` takes an
@@ -41,7 +49,7 @@ from .. import parallel
 from ..render import renderer as renderlib
 from ..utils.easydict import EasyDict as edict
 from .estimator import Estimator
-from .implicit import Density, RGBNetwork, SDFNetwork
+from .implicit import Density, RGBNetwork, SDFNetwork, compute_dtype
 from .layers import LatentProjection, batch_stats_frozen, set_bn_mode
 from ..utils.log import log
 from .resnet import load_pretrained_npz, make_encoder
@@ -112,8 +120,12 @@ class Graph(nn.Module):
         super().__init__()
         self.opt = opt
         g = generator
-        self.encoder = make_encoder(opt, generator=g)
-        self.estimator = Estimator.from_opt(opt, generator=g)
+        tpu = opt.get("tpu", {})
+        enc_dtype = compute_dtype(tpu.get("encoder_dtype"))
+        self.implicit_dtype = tpu.get("implicit_dtype") or "float32"
+        compute_dtype(self.implicit_dtype)     # raises on an unknown one
+        self.encoder = make_encoder(opt, generator=g, dtype=enc_dtype)
+        self.estimator = Estimator.from_opt(opt, generator=g, dtype=enc_dtype)
         self.latent_proj_shape = LatentProjection(
             opt.arch.latent_dim_shape, opt.arch.impl_sdf.proj_latent_dim,
             generator=g)
@@ -202,7 +214,8 @@ class Graph(nn.Module):
                                 self.density.beta, pose, intr, scale_dist,
                                 proj_sdf, proj_rgb, ray_idx=ray_idx,
                                 training=training,
-                                compute_eikonal=compute_eikonal, draws=draws)
+                                compute_eikonal=compute_eikonal, draws=draws,
+                                implicit_dtype=self.implicit_dtype)
 
     def forward(self, var, training=False, get_loss=False, draws=None,
                 generator=None, render=True):

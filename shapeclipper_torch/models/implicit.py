@@ -74,8 +74,8 @@ def _symmetric_posenc(points, posenc_res, force_symmetry):
         # |x0| as x0 * sign(x0) with sign(0) = 1: the JAX package's
         # d|x|/dx at 0 is 1, torch's 0
         x0 = points[..., :1]
-        points = torch.cat([x0 * torch.where(x0 < 0, -1.0, 1.0),
-                            points[..., 1:]], dim=-1)
+        sign = torch.where(x0 < 0, -1.0, 1.0).to(x0.dtype)
+        points = torch.cat([x0 * sign, points[..., 1:]], dim=-1)
     if posenc_res > 0:
         points = positional_encoding(points, posenc_res)
     return points
@@ -99,6 +99,31 @@ def factored_linear(lin, segments):
         offset += k
     assert offset == lin.in_features, (offset, lin.in_features)
     return out + lin.bias
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name):
+    """A `tpu.*_dtype` value (None: float32) -> the torch dtype."""
+    name = name or "float32"
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_call(module, dtype, *inputs):
+    """`module(*inputs)` with its parameters and inputs cast to `dtype`, the
+    output cast to float32: the JAX package's compute-cast apply
+    (`Graph._implicit_applies`). Gradients reach the float32 parameters
+    through the casts."""
+    if dtype == torch.float32:
+        return module(*inputs)
+    params = {k: v.to(dtype) for k, v in module.named_parameters()}
+    out = torch.func.functional_call(module, params,
+                                     tuple(x.to(dtype) for x in inputs))
+    return out.float()
 
 
 def _softplus100(x):

@@ -5,7 +5,10 @@
 it: `groups=1`, or the per-replica split of `tpu.bn_mode: per_replica`
 (`replicas` contiguous blocks, the running statistics from block 0); the
 grouped, merged-encoder paths are not ported. Under data parallelism the
-global-batch moments are summed over the ranks (`sync`).
+global-batch moments are summed over the ranks (`sync`). A bfloat16 input
+(the ResNets at `tpu.encoder_dtype: bfloat16`) is normalised in float32,
+moments and sums included, and the result is cast back to bfloat16, as
+`GroupBatchNorm(dtype=bfloat16)` does.
 """
 
 from __future__ import annotations
@@ -19,6 +22,11 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from .. import parallel
+
+
+def widen(x):
+    """A half-precision tensor as float32; any other as it is."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 def lecun_normal_(weight, generator=None):
@@ -46,7 +54,9 @@ class BatchNorm(_BatchNorm):
       moments (JAX's global BN across the data mesh; not
       `nn.SyncBatchNorm`, whose running variance is the unbiased one);
     * train mode inside `batch_stats_frozen`: batch statistics, no update
-      (the flipped cam_sym estimator pass, whose update JAX discards).
+      (the flipped cam_sym estimator pass, whose update JAX discards);
+    * every mode: a bfloat16 input normalised in float32, the output in
+      the input's dtype.
     """
 
     def __init__(self, channels):
@@ -62,9 +72,12 @@ class BatchNorm(_BatchNorm):
 
     def forward(self, x):
         self._check_input_dim(x)
+        dtype = x.dtype
+        x = widen(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(dtype)
         # GroupBatchNorm's arithmetic, so that train mode (forward and
         # gradient) follows the JAX package also where var << mean^2
         n = self.replicas
@@ -96,7 +109,7 @@ class BatchNorm(_BatchNorm):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = ((xs - mean.reshape(shape)) * mul.reshape(shape)
              + self.bias.view([1, -1] + [1] * (x.dim() - 2)))
-        return y.reshape(x.shape)
+        return y.reshape(x.shape).to(dtype)
 
 
 def set_bn_mode(module, replicas=1, sync=False):

@@ -5,6 +5,12 @@ Parameter names are torchvision's (`conv1`, `bn1`, `layer{i}.{j}.conv1`,
 `layer{i}.{j}.downsample.{0,1}`, `fc`), so converted ImageNet state_dicts
 (`scripts/convert_weights.py`) load as they are. The public layout is the JAX
 package's NHWC: images enter as [B, H, W, 3] and are permuted to NCHW here.
+
+`dtype` is the compute dtype, as flax's (`tpu.encoder_dtype`): the image is
+cast to it, the convolutions run in it with their float32 weights cast at
+use, BatchNorm normalises in float32 and returns it, and the pooled
+features are cast to float32 before `fc`. Parameters and statistics stay
+float32.
 """
 
 from __future__ import annotations
@@ -13,12 +19,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import BatchNorm, lecun_normal_
+from .layers import BatchNorm, lecun_normal_, widen
+
+
+class Conv2d(nn.Conv2d):
+    """A bias-free convolution in its input's dtype: the float32 weight is
+    cast at use."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 def _conv(in_ch, out_ch, k, stride, padding, generator):
-    conv = nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=padding,
-                     bias=False)
+    conv = Conv2d(in_ch, out_ch, k, stride=stride, padding=padding,
+                  bias=False)
     # flax variance_scaling(2.0, "fan_out", "normal")
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu",
                             generator=generator)
@@ -49,11 +63,13 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """BasicBlock ResNet on NHWC images in [0, 1]. `num_classes=None` returns
-    the pooled 512-d features."""
+    """BasicBlock ResNet on NHWC images in [0, 1], computed in `dtype`.
+    `num_classes=None` returns the pooled 512-d features (float32)."""
 
-    def __init__(self, stage_sizes, num_classes=1000, generator=None):
+    def __init__(self, stage_sizes, num_classes=1000, generator=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3, generator)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -75,28 +91,32 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).contiguous()             # NHWC -> NCHW
+        if self.dtype != torch.float32:   # float32 keeps the input's dtype
+            x = x.to(self.dtype)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        x = x.mean(dim=(2, 3))                              # [B, 512]
+        x = widen(x.mean(dim=(2, 3)))                       # [B, 512]
         return x if self.fc is None else self.fc(x)
 
 
-def resnet18(num_classes=None, generator=None):
-    return ResNet((2, 2, 2, 2), num_classes=num_classes, generator=generator)
+def resnet18(num_classes=None, generator=None, dtype=torch.float32):
+    return ResNet((2, 2, 2, 2), num_classes=num_classes, generator=generator,
+                  dtype=dtype)
 
 
-def resnet34(num_classes=None, generator=None):
-    return ResNet((3, 4, 6, 3), num_classes=num_classes, generator=generator)
+def resnet34(num_classes=None, generator=None, dtype=torch.float32):
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, generator=generator,
+                  dtype=dtype)
 
 
-def make_encoder(opt, generator=None):
+def make_encoder(opt, generator=None, dtype=torch.float32):
     """Image encoder with fc sized to the shape + rgb latent dims."""
     out_dim = opt.arch.latent_dim_shape + opt.arch.latent_dim_rgb
     if opt.arch.enc_network == "resnet34":
-        return resnet34(num_classes=out_dim, generator=generator)
+        return resnet34(num_classes=out_dim, generator=generator, dtype=dtype)
     if opt.arch.enc_network == "resnet18":
-        return resnet18(num_classes=out_dim, generator=generator)
+        return resnet18(num_classes=out_dim, generator=generator, dtype=dtype)
     raise ValueError(opt.arch.enc_network)
 
 

@@ -17,6 +17,13 @@ Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
     `torch.autograd.Function`, or raise.
 There is no fallback from CUDA to the plain version.
 
+`mm_dtype` is the JAX package's `_mm_cast` switch: "float32", or
+"bfloat16", where every product inside the pair rounds both of its operands
+to bfloat16 and accumulates in float32 while everything elementwise stays
+float32. The kernels have an instantiation for each; the plain version
+takes its bf16 products from `_CastProduct`, whose backward rounds the
+cotangent and the saved operands before each product, as K2 does.
+
 Each library builds at first use from this package's own source into
 `build/` at the repository root (`ops/cuda_lib.py`: `nvcc`, plain C
 interface, loaded with ctypes); `cuda_lib.build_kernels` runs every
@@ -43,12 +50,16 @@ KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
                    latent_dim=64)
 NUM_WEIGHTS = 28032
 BIAS_WIDTH = 5 * 64 + 65
-# K1's and K3's tile in points (`csrc/fused_sdf_fwd.cu`: Smem::kPoints)
+# K1's and K3's tile in points (`csrc/fused_sdf_fwd.cu`: Smem::kPoints), and
+# a warp's tile of their bf16 instantiations (Bf16Tile::kPoints)
 FWD_TILE_POINTS = {"grad": 64, "nograd": 256}
+FWD_TILE_POINTS_BF16 = {"grad": 8, "nograd": 32}
 # K2's tile (`csrc/fused_sdf_bwd.cu`: kPoints) and the floats of its
 # per-block pre-activation stash (5 hidden layers x 128 rows x 64)
 BWD_TILE_POINTS = 32
 BWD_STASH_FLOATS = 5 * 4 * BWD_TILE_POINTS * 64
+# the products' operand types of the pair (`_mm_cast` in the JAX package)
+MM_DTYPES = ("float32", "bfloat16")
 
 
 def _coord_masks(n_freqs, device=None):
@@ -99,6 +110,46 @@ def pack_fused_params(kernels, biases):
     return weights, bias
 
 
+def _check_mm_dtype(mm_dtype):
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be one of {MM_DTYPES}, got "
+                         f"{mm_dtype!r}")
+
+
+def _round_bf16(x):
+    """x rounded to bfloat16 (nearest even) and held in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _CastProduct(torch.autograd.Function):
+    """a [..., K] @ w [K, M] with both operands rounded to bfloat16 and the
+    product taken in float32: the bf16 form of every product of K1 / K3.
+    Its backward is K2's: the cotangent and the saved operands are rounded
+    before each product (autograd through `.to(bfloat16)` casts would round
+    after the product instead)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        a16, w16 = _round_bf16(a), _round_bf16(w)
+        ctx.save_for_backward(a16, w16)
+        return a16 @ w16
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, w16 = ctx.saved_tensors
+        g16 = _round_bf16(g)
+        da = g16 @ w16.t() if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = (a16.reshape(-1, a16.shape[-1]).t()
+                  @ g16.reshape(-1, g16.shape[-1]))
+        return da, dw
+
+
+def _product(mm_dtype):
+    return torch.matmul if mm_dtype == "float32" else _CastProduct.apply
+
+
 def _act_pair(prim):
     """(softplus(100x)/100, sigmoid(100x)) sharing one exp, as the kernel."""
     z = 100.0 * prim
@@ -110,7 +161,9 @@ def _act_pair(prim):
 
 
 def _forward_plain(kernels, biases, points, n_freqs, skip_in, n_hidden,
-                   compute_grad, force_symmetry):
+                   compute_grad, force_symmetry, mm_dtype="float32"):
+    _check_mm_dtype(mm_dtype)
+    mm = _product(mm_dtype)
     x = points
     if force_symmetry:
         # |x0| as x0 * sign0: the JAX package's d|x|/dx at 0 is 1, torch's 0
@@ -138,11 +191,11 @@ def _forward_plain(kernels, biases, points, n_freqs, skip_in, n_hidden,
     for l in range(n_hidden + 1):
         Ka, Kb = kernels[l]
         if l == 0:
-            out = rows @ Ka                                    # [B,R,N,W]
+            out = mm(rows, Ka)                                 # [B,R,N,W]
         elif l in skip_in:
-            out = h @ Ka + rows @ Kb
+            out = mm(h, Ka) + mm(rows, Kb)
         else:
-            out = h @ Ka
+            out = mm(h, Ka)
         prim = out[:, 0] + biases[l][:, None]                  # [B,N,W]
         if l < n_hidden:
             act, sig = _act_pair(prim)
@@ -162,50 +215,78 @@ def _forward_plain(kernels, biases, points, n_freqs, skip_in, n_hidden,
 
 
 def fused_sdf_forward_reference(sdf_network, points, latent,
-                                compute_grad=False):
+                                compute_grad=False, mm_dtype="float32"):
     """Plain torch version of the kernel, on any device. points [B, N, 3],
     latent [B, C] -> (sdf [B,N,1], feat [B,N,C'], grad [B,N,3] or None)."""
     n_freqs, skip_in, n_hidden = _arch(sdf_network)
     kernels, biases = prepare_fused_params(sdf_network, latent)
     return _forward_plain(kernels, biases, points, n_freqs, skip_in,
-                          n_hidden, compute_grad, sdf_network.force_symmetry)
+                          n_hidden, compute_grad, sdf_network.force_symmetry,
+                          mm_dtype)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
+def _launch_key(compute_grad, mm_dtype):
+    return ("grad" if compute_grad else "nograd") + (
+        "_bf16" if mm_dtype == "bfloat16" else "")
+
+
+def _weights_arg(weights, mm_dtype):
+    """The packed weights as the instantiation reads them: float32, or their
+    bfloat16 copy (56 KB) for the bf16 products."""
+    want = torch.float32 if mm_dtype == "float32" else torch.bfloat16
+    if weights.dtype == torch.float32 and want == torch.bfloat16:
+        weights = weights.to(torch.bfloat16)
+    if weights.dtype != want or weights.numel() != NUM_WEIGHTS \
+            or not weights.is_contiguous():
+        raise TypeError(f"the {mm_dtype} kernels take {NUM_WEIGHTS} "
+                        f"contiguous {want} weights, got {weights.dtype} "
+                        f"{tuple(weights.shape)}")
+    return weights
+
+
 class FusedSdfKernel(CudaLibrary):
     """The forward library and its launch counts. `launches` counts launches
-    of each instantiation ('grad' = K1, 'nograd' = K3); it is incremented
-    where the kernel is launched and nowhere else."""
+    of each instantiation ('grad' = K1, 'nograd' = K3, with '_bf16' for the
+    bfloat16 products); it is incremented where the kernel is launched and
+    nowhere else."""
 
     stem = "scl_fused_sdf"
     source = _SOURCE
 
     def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
-        self.launches = {"grad": 0, "nograd": 0}
+        self.launches = {_launch_key(g, m): 0 for m in MM_DTYPES
+                         for g in (True, False)}
 
     def _bind(self, lib):
         fn = lib.scl_fused_sdf_fwd
         fn.argtypes = ([ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.scl_fused_sdf_num_weights.argtypes = []
         lib.scl_fused_sdf_num_weights.restype = ctypes.c_int
         if lib.scl_fused_sdf_num_weights() != NUM_WEIGHTS:
             raise RuntimeError("fused SDF library packs a different layout")
-        lib.scl_fused_sdf_fwd_tile_points.argtypes = [ctypes.c_int]
+        lib.scl_fused_sdf_fwd_tile_points.argtypes = [ctypes.c_int] * 2
         lib.scl_fused_sdf_fwd_tile_points.restype = ctypes.c_int
-        for key, grad in (("grad", 1), ("nograd", 0)):
-            if lib.scl_fused_sdf_fwd_tile_points(grad) != FWD_TILE_POINTS[key]:
-                raise RuntimeError("fused SDF library walks a different tile")
+        for mm, tiles in ((0, FWD_TILE_POINTS), (1, FWD_TILE_POINTS_BF16)):
+            for key, grad in (("grad", 1), ("nograd", 0)):
+                if lib.scl_fused_sdf_fwd_tile_points(grad, mm) != tiles[key]:
+                    raise RuntimeError("fused SDF library walks a different "
+                                       "tile")
 
-    def launch(self, points, weights, biases, compute_grad, force_symmetry):
-        """points [B,N,3], weights [28032], biases [B,385] (float32,
-        contiguous, one CUDA device) -> (sdf [B,N], feat [B,N,64],
-        grad [B,N,3] or None)."""
+    def launch(self, points, weights, biases, compute_grad, force_symmetry,
+               mm_dtype="float32"):
+        """points [B,N,3], weights [28032] (float32; bfloat16 or float32
+        for `mm_dtype="bfloat16"`), biases [B,385] (float32, contiguous, one
+        CUDA device) -> (sdf [B,N], feat [B,N,64], grad [B,N,3] or None),
+        float32."""
+        _check_mm_dtype(mm_dtype)
+        weights = _weights_arg(weights, mm_dtype)
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
@@ -220,29 +301,29 @@ class FusedSdfKernel(CudaLibrary):
                 sdf.data_ptr(), feat.data_ptr(),
                 grad.data_ptr() if compute_grad else None,
                 B, N, int(bool(compute_grad)), int(bool(force_symmetry)),
-                stream)
+                int(mm_dtype == "bfloat16"), stream)
         if err != 0:
             raise RuntimeError(f"fused SDF kernel launch failed: cudaError "
                                f"{err}")
-        self.launches["grad" if compute_grad else "nograd"] += 1
+        self.launches[_launch_key(compute_grad, mm_dtype)] += 1
         return sdf, feat, grad
 
 
 class FusedSdfBackwardKernel(CudaLibrary):
     """The backward library (K2, `csrc/fused_sdf_bwd.cu`). `launches`
-    counts its launches, incremented where it is launched and nowhere
-    else."""
+    counts its launches per `mm_dtype` ('float32', 'bfloat16'),
+    incremented where it is launched and nowhere else."""
 
     stem = "scl_fused_sdf_bwd"
     source = _SOURCE_BWD
 
     def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
-        self.launches = 0
+        self.launches = {m: 0 for m in MM_DTYPES}
 
     def _bind(self, lib):
         fn = lib.scl_fused_sdf_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for name in ("scl_fused_sdf_bwd_num_weights",
@@ -255,11 +336,13 @@ class FusedSdfBackwardKernel(CudaLibrary):
             raise RuntimeError("fused SDF backward stashes a different tile")
 
     def launch(self, points, weights, biases, sbar, fbar, gbar,
-               force_symmetry):
-        """points [B,N,3], weights [28032], biases [B,385] and the
-        cotangents sbar [B,N], fbar [B,N,64], gbar [B,N,3] (float32,
-        contiguous, one CUDA device) -> (d weights [28032], d biases
-        [B,385], d points [B,N,3])."""
+               force_symmetry, mm_dtype="float32"):
+        """points [B,N,3], weights [28032] (as `FusedSdfKernel.launch`),
+        biases [B,385] and the cotangents sbar [B,N], fbar [B,N,64],
+        gbar [B,N,3] (float32, contiguous, one CUDA device) -> (d weights
+        [28032], d biases [B,385], d points [B,N,3]), float32."""
+        _check_mm_dtype(mm_dtype)
+        weights = _weights_arg(weights, mm_dtype)
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
@@ -284,11 +367,11 @@ class FusedSdfBackwardKernel(CudaLibrary):
                 dpoints.data_ptr(), dweights.data_ptr(), dbiases.data_ptr(),
                 dk_partial.data_ptr(), db_partial.data_ptr(),
                 stash.data_ptr(), B, N, grid, int(bool(force_symmetry)),
-                stream)
+                int(mm_dtype == "bfloat16"), stream)
         if err != 0:
             raise RuntimeError(f"fused SDF backward launch failed: cudaError "
                                f"{err}")
-        self.launches += 1
+        self.launches[mm_dtype] += 1
         return dweights, dbiases, dpoints
 
 
@@ -325,13 +408,15 @@ def _check_cuda_inputs(sdf_network, points, latent):
                              f"{points.device}")
 
 
-def fused_sdf_forward(sdf_network, points, latent, compute_grad=False):
+def fused_sdf_forward(sdf_network, points, latent, compute_grad=False,
+                      mm_dtype="float32"):
     """points [B, N, 3], latent [B, C] -> (sdf [B,N,1], feat [B,N,64],
-    grad [B,N,3] or None). CPU tensors take the plain version; CUDA tensors
-    run the Hopper kernel."""
+    grad [B,N,3] or None), with the products' operands in `mm_dtype`. CPU
+    tensors take the plain version; CUDA tensors run the Hopper kernel."""
+    _check_mm_dtype(mm_dtype)
     if points.device.type == "cpu":
         return fused_sdf_forward_reference(sdf_network, points, latent,
-                                           compute_grad)
+                                           compute_grad, mm_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no fused SDF path for device {points.device}")
     if torch.is_grad_enabled() and (
@@ -344,7 +429,8 @@ def fused_sdf_forward(sdf_network, points, latent, compute_grad=False):
     weights, bias = pack_fused_params(
         *prepare_fused_params(sdf_network, latent))
     sdf, feat, grad = KERNEL.launch(points, weights, bias,
-                                    compute_grad, sdf_network.force_symmetry)
+                                    compute_grad, sdf_network.force_symmetry,
+                                    mm_dtype)
     return sdf[..., None], feat, grad
 
 
@@ -355,45 +441,52 @@ class _FusedSdfTrain(torch.autograd.Function):
     `fused_sdf_train` does around its `custom_vjp` in the JAX package."""
 
     @staticmethod
-    def forward(ctx, weights, biases, points, force_symmetry):
-        sdf, feat, grad = KERNEL.launch(points, weights, biases, True,
-                                        force_symmetry)
-        ctx.save_for_backward(points, weights, biases)
-        ctx.force_symmetry = force_symmetry
+    def forward(ctx, weights, biases, points, force_symmetry, mm_dtype):
+        # the bf16 instantiations read one bfloat16 copy of the weights
+        wk = _weights_arg(weights.detach(), mm_dtype)
+        sdf, feat, grad = KERNEL.launch(points, wk, biases, True,
+                                        force_symmetry, mm_dtype)
+        ctx.save_for_backward(points, wk, biases)
+        ctx.force_symmetry, ctx.mm_dtype = force_symmetry, mm_dtype
         return sdf, feat, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, sbar, fbar, gbar):
-        points, weights, biases = ctx.saved_tensors
+        points, wk, biases = ctx.saved_tensors
         # unused outputs arrive as zeros (autograd materializes them)
         dweights, dbiases, dpoints = BACKWARD.launch(
-            points, weights, biases, sbar.contiguous(), fbar.contiguous(),
-            gbar.contiguous(), ctx.force_symmetry)
-        return dweights, dbiases, dpoints, None
+            points, wk, biases, sbar.contiguous(), fbar.contiguous(),
+            gbar.contiguous(), ctx.force_symmetry, ctx.mm_dtype)
+        return dweights, dbiases, dpoints, None, None
 
 
-def fused_sdf_train(sdf_network, points, latent, detach_latent=False):
+def fused_sdf_train(sdf_network, points, latent, detach_latent=False,
+                    mm_dtype="float32"):
     """Differentiable (sdf [B,N,1], feat [B,N,64], grad [B,N,3]) for
-    points [B, N, 3] and latent [B, C]; gradients reach the SDF network's
-    parameters, the latent (unless `detach_latent`) and the points.
+    points [B, N, 3] and latent [B, C], with the products' operands in
+    `mm_dtype`; gradients reach the SDF network's parameters, the latent
+    (unless `detach_latent`) and the points.
 
     CPU tensors: plain autograd through `_forward_plain(compute_grad=True)`
     (the counterpart of the JAX package's `sdf_fwdmode_xla`, and the plain
     version of the K1 + K2 pair). CUDA tensors: K1 forward and K2 backward,
     or an error; there is no fallback."""
+    _check_mm_dtype(mm_dtype)
     if detach_latent:
         latent = latent.detach()
     n_freqs, skip_in, n_hidden = _arch(sdf_network)
     if points.device.type == "cpu":
         kernels, biases = prepare_fused_params(sdf_network, latent)
         return _forward_plain(kernels, biases, points, n_freqs, skip_in,
-                              n_hidden, True, sdf_network.force_symmetry)
+                              n_hidden, True, sdf_network.force_symmetry,
+                              mm_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no fused SDF path for device {points.device}")
     _check_cuda_inputs(sdf_network, points, latent)
     weights, bias = pack_fused_params(
         *prepare_fused_params(sdf_network, latent))
     sdf, feat, grad = _FusedSdfTrain.apply(weights, bias, points,
-                                           sdf_network.force_symmetry)
+                                           sdf_network.force_symmetry,
+                                           mm_dtype)
     return sdf[..., None], feat, grad

@@ -4,7 +4,12 @@
 The SDF and its point gradient come from one fused SDF call: at eval
 `fused_sdf_forward(compute_grad=True)` (K1 on CUDA, no gradients), in
 training `fused_sdf_train` (K1 forward, K2 backward on CUDA). Volume normals
-are -density'(sdf) * grad sdf. Training renders only the sampled rays
+are -density'(sdf) * grad sdf. `implicit_dtype` (`tpu.implicit_dtype`) is
+the precision of both MLPs, as the JAX package's `Graph._implicit_applies`:
+with "bfloat16" the fused SDF pair takes bf16 products (`mm_dtype`, the
+kernels' bf16 instantiations) and the RGB MLP runs with its parameters and
+inputs cast to bfloat16, its output cast back to float32. Training renders
+only the sampled rays
 `ray_idx`, jitters the depth samples, and evaluates the eikonal points (R
 uniform in the sample range, R near points one per ray) with the latent
 detached but not the points, which depend on the predicted pose.
@@ -23,7 +28,8 @@ import torch
 
 from .. import camera
 from .. import parallel
-from ..models.implicit import laplace_density, laplace_density_dsdf
+from ..models.implicit import (cast_call, compute_dtype, laplace_density,
+                               laplace_density_dsdf)
 from ..ops.fused_sdf import fused_sdf_forward, fused_sdf_train
 from ..utils.easydict import EasyDict as edict
 
@@ -108,7 +114,7 @@ def volume_rendering(z_vals, density):
 
 def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
            proj_latent_sdf, proj_latent_rgb, ray_idx=None, training=False,
-           compute_eikonal=None, draws=None):
+           compute_eikonal=None, draws=None, implicit_dtype="float32"):
     """Render rgb / mask / depth / normal at the pixels `ray_idx` [B, R]
     (the dense H x W grid when None), plus the eikonal gradient norms
     [B, 2R] when `compute_eikonal` (default: `training`).
@@ -116,6 +122,7 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
     pose [B, 3, 4], intr [B, 3, 3], scale_dist [B], latents [B, C]."""
     if compute_eikonal is None:
         compute_eikonal = training
+    rgb_dtype = compute_dtype(implicit_dtype)
     B = pose.shape[0]
     S = opt.render.n_samples_uniform
     if opt.render.sampler != "uniform" or opt.render.normal_model != "volume":
@@ -146,15 +153,17 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
 
     if training:
         sdf, sdf_feat, grad_sdf = fused_sdf_train(
-            sdf_network, points_flat, proj_latent_sdf)
+            sdf_network, points_flat, proj_latent_sdf,
+            mm_dtype=implicit_dtype)
     else:
         sdf, sdf_feat, grad_sdf = fused_sdf_forward(
-            sdf_network, points_flat, proj_latent_sdf, compute_grad=True)
+            sdf_network, points_flat, proj_latent_sdf, compute_grad=True,
+            mm_dtype=implicit_dtype)
     density = laplace_density(sdf, beta).reshape(B, R, S)
     normal_flat = -laplace_density_dsdf(sdf, beta) * grad_sdf         # [B,RS,3]
 
-    rgb = rgb_network(points_flat, proj_latent_rgb, sdf_feat).reshape(
-        B, R, S, 3)
+    rgb = cast_call(rgb_network, rgb_dtype, points_flat, proj_latent_rgb,
+                    sdf_feat).reshape(B, R, S, 3)
 
     weights, _ = volume_rendering(z_vals, density)                   # [B,R,S]
     depth_values = (weights * (z_vals * depth_fac)).sum(dim=-1, keepdim=True)
@@ -175,7 +184,8 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
         eik_near = cam_loc + z_eik * ray_dirs                        # [B,R,3]
         eik_points = torch.cat([eik_uniform, eik_near], dim=1).contiguous()
         _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,
-                                         proj_latent_sdf, detach_latent=True)
+                                         proj_latent_sdf, detach_latent=True,
+                                         mm_dtype=implicit_dtype)
         # sqrt(max(.)) keeps the gradient finite at a zero SDF gradient
         grad_eikonal = torch.sqrt(torch.clamp(
             (grad_eik * grad_eik).sum(dim=-1), min=1e-24))           # [B,2R]

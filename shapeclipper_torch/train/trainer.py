@@ -51,11 +51,30 @@ CAMERA_PHASE_INACTIVE = ("nearest_img", "nearest_mask", "nearest_normal",
 _STEP_AUX_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "scale_dist",
                   "trig_azim", "trig_elev", "trig_theta", "scale_focal")
 
-# configuration the JAX package reads that the port does not (tpu.bn_mode,
-# tpu.bn_replicas: models/graph.py; tpu.mesh: parallel.check_mesh)
-_IGNORED_TPU_KEYS = ("merge_nn_render", "merge_flip_estimator",
-                     "merge_encoders", "sdf_grad_mode", "fold_eikonal",
-                     "remat_renderer", "encoder_dtype", "implicit_dtype")
+# the `tpu:` configuration the port honours (tpu.bn_mode, tpu.bn_replicas,
+# tpu.encoder_dtype, tpu.implicit_dtype: models/graph.py; tpu.mesh:
+# parallel.check_mesh), and what else the JAX package reads, which the port
+# ignores and names in its log
+HONOURED_TPU_KEYS = ("mesh", "bn_mode", "bn_replicas", "encoder_dtype",
+                     "implicit_dtype")
+IGNORED_TPU_KEYS = ("merge_nn_render", "merge_flip_estimator",
+                    "merge_encoders", "sdf_grad_mode", "fold_eikonal",
+                    "remat_renderer", "fused_eval", "device_isosurface",
+                    "donate_state", "eval_pipeline", "profile_iters")
+
+
+def tpu_keys_note(opt):
+    """The log line on the `tpu:` configuration: the keys of `opt.tpu` that
+    the port ignores, and what it does instead."""
+    tpu = opt.get("tpu", {})
+    ignored = [k for k in IGNORED_TPU_KEYS if k in tpu]
+    return (f"the port ignores tpu.{{{', '.join(ignored)}}}: sequential "
+            "encoders and renders, every CUDA SDF evaluation through the "
+            "fused kernels (K1 / K3 + K2), no device isosurface, no "
+            "profiler window; it honours tpu.{"
+            + ", ".join(HONOURED_TPU_KEYS) + "}: encoders in "
+            f"{tpu.get('encoder_dtype') or 'float32'}, implicit MLPs in "
+            f"{tpu.get('implicit_dtype') or 'float32'}")
 
 
 def batch_to_var(batch, device):
@@ -190,10 +209,7 @@ class Runner:
         # the step's random draws (JAX: PRNGKey(seed + 7))
         self.generator = torch.Generator(self.device).manual_seed(
             (opt.seed or 0) + 7)
-        ignored = [k for k in _IGNORED_TPU_KEYS if k in opt.get("tpu", {})]
-        log.info(f"the port ignores tpu.{{{', '.join(ignored)}}}: float32, "
-                 "sequential encoders and renders, every CUDA SDF "
-                 "evaluation through the fused kernels (K1 + K2)")
+        log.info(tpu_keys_note(opt))
 
     # ------------------------------------------------------------ optimizer
     def setup_optimizer(self, opt):

@@ -41,6 +41,7 @@ def reg_opt(base_opt, out):
     # cross-entropy is 0 with zero gradients)
     opt.data.num_classes = 9
     opt.arch.enc_pretrained = False
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     return opt
 
 
@@ -110,6 +111,7 @@ def test_centres_train_in_full_steps_only(base_opt, tmp_path):
     opt.data.update(num_workers=0, max_img_cat=2)
     opt.render.update(rand_sample=16, n_samples_uniform=8)
     opt.arch.enc_pretrained = False
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     opt.loss_weight.category_reg = 1.0
     # the synthetic samples are all of category 0: three centres give the
     # cross-entropy something to separate

@@ -228,10 +228,10 @@ def _k2_check(dev, B, N, plane=False, detach_latent=False, unused=False,
         cots[0].zero_()
         cots[1].zero_()
     pts, lat, cots = pts.to(dev), lat.to(dev), [c.to(dev) for c in cots]
-    before = dict(F.KERNEL.launches), F.BACKWARD.launches
+    before = dict(F.KERNEL.launches), F.BACKWARD.launches["float32"]
     got = _train_grads(net, pts, lat, cots, True, detach_latent)
     assert F.KERNEL.launches["grad"] == before[0]["grad"] + 1
-    assert F.BACKWARD.launches == before[1] + 1
+    assert F.BACKWARD.launches["float32"] == before[1] + 1
     want = _train_grads(net, pts, lat, cots, False, detach_latent,
                         ref_dtype)
     torch.cuda.synchronize()
@@ -303,13 +303,124 @@ def test_training_call_launches_k1_and_k2(dev):
     raises: there is no fallback to the plain version."""
     net, pts, lat = _case(dev, 40, True)
     pts.requires_grad_(True)
-    k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches
+    k1, k2 = F.KERNEL.launches["grad"], F.BACKWARD.launches["float32"]
     s, f, g = F.fused_sdf_train(net, pts, lat)
-    assert (F.KERNEL.launches["grad"], F.BACKWARD.launches) == (k1 + 1, k2)
+    assert (F.KERNEL.launches["grad"],
+            F.BACKWARD.launches["float32"]) == (k1 + 1, k2)
     g.norm(dim=-1).sum().backward()
-    assert F.BACKWARD.launches == k2 + 1
+    assert F.BACKWARD.launches["float32"] == k2 + 1
     with pytest.raises(TypeError, match="float32"):
         F.fused_sdf_train(net, pts.double(), lat)
+
+
+# ------------------------------------------------- K1 / K3 / K2, bf16 products
+# The bf16 instantiations against the plain version with the same bf16
+# products (`mm_dtype="bfloat16"`). Kernel and plain version round the same
+# operands, but their float32 sums differ in order, and a difference of one
+# float32 ulp can move an operand to the neighbouring bfloat16 value (2^-8
+# relative): hence tolerances ten times the float32 ones (sdf / feature
+# atol 2e-4; gradient atol 5e-3, rtol 5e-3; K2 atol 1e-3 * max|ref|, rtol
+# 2e-3: at B x N = 3 x 1,000 one point gradient of 9,000 lay 5.9e-4 * max|ref|
+# from the plain version, where the float32 pair lies 1.7e-2 away). Each check also asserts that the kernel lies from its plain
+# version under half as far as from the float32 kernel, so that a kernel
+# that quietly ran float32 products fails.
+BF16_SDF_TOL = dict(atol=2e-4, rtol=0.0)
+BF16_GRAD_TOL = dict(atol=5e-3, rtol=5e-3)
+BF16_K2_ATOL, BF16_K2_RTOL = 1e-3, 2e-3
+
+
+def _max_gap(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("N", [33, 1000])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_matches_plain(dev, compute_grad, N):
+    """K1-bf16 / K3-bf16 at B = 2 and ragged N, one launch each, against
+    the plain version's bf16 products; farther from the float32 kernel."""
+    net, pts, lat = _fwd_case(dev, 2, N, seed=N)
+    key = "grad_bf16" if compute_grad else "nograd_bf16"
+    with torch.inference_mode():
+        before = dict(F.KERNEL.launches)
+        got = F.fused_sdf_forward(net, pts, lat, compute_grad,
+                                  mm_dtype="bfloat16")
+        assert F.KERNEL.launches[key] == before[key] + 1
+        assert sum(F.KERNEL.launches.values()) == sum(before.values()) + 1
+        want = F.fused_sdf_forward_reference(net, pts, lat, compute_grad,
+                                             mm_dtype="bfloat16")
+        f32 = F.fused_sdf_forward(net, pts, lat, compute_grad)
+        torch.cuda.synchronize()
+    for name, k, r, r32, tol in zip(("sdf", "feat", "grad"), got, want, f32,
+                                    (BF16_SDF_TOL, BF16_SDF_TOL,
+                                     BF16_GRAD_TOL)):
+        if r is None:
+            assert k is None and not compute_grad
+            continue
+        assert k.dtype == torch.float32 and torch.isfinite(k).all(), name
+        torch.testing.assert_close(k, r, **tol, msg=name)
+        assert _max_gap(k, r) < 0.5 * _max_gap(k, r32), name
+
+
+@pytest.mark.parametrize("B,N", [(2, 300), (3, 1000)])
+def test_bf16_backward_kernel_matches_plain(dev, B, N):
+    """K2-bf16 at ragged N: the weight, latent and point gradients through
+    K1-bf16 + K2-bf16 against plain autograd with `_CastProduct`'s bf16
+    backward products; farther from the float32 pair."""
+    g = torch.Generator().manual_seed(B * 1000 + N)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+
+    def grads(kernel, mm_dtype):
+        net.zero_grad()
+        p = pts.clone().requires_grad_(True)
+        l = lat.clone().requires_grad_(True)
+        if kernel:
+            out = F.fused_sdf_train(net, p, l, mm_dtype=mm_dtype)
+        else:
+            kk, bb = F.prepare_fused_params(net, l)
+            out = F._forward_plain(kk, bb, p, *F._arch(net), True,
+                                   net.force_symmetry, mm_dtype)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        out = {n: q.grad.clone() for n, q in net.named_parameters()}
+        out.update(points=p.grad.clone(), latent=l.grad.clone())
+        return out
+
+    k2 = F.BACKWARD.launches["bfloat16"]
+    got = grads(True, "bfloat16")
+    assert F.BACKWARD.launches["bfloat16"] == k2 + 1
+    want = grads(False, "bfloat16")
+    f32 = grads(True, "float32")
+    torch.cuda.synchronize()
+    rel = {k: (_max_gap(got[k], w) / max(float(w.abs().max()), 1e-3),
+               _max_gap(got[k], f32[k]) / max(float(w.abs().max()), 1e-3))
+           for k, w in want.items()}
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3)
+        torch.testing.assert_close(
+            got[k], w, atol=BF16_K2_ATOL * scale, rtol=BF16_K2_RTOL,
+            msg=lambda m, k=k: f"{k}: {m} ({rel[k]})")
+    for k in ("points", "latent", "lin0.weight", "lin5.weight"):
+        assert _max_gap(got[k], want[k]) < 0.5 * _max_gap(got[k], f32[k]), \
+            (k, rel[k])
+
+
+def test_bad_mm_dtype_raises(dev):
+    """An mm_dtype the kernels lack raises; so do float32 products handed
+    the bfloat16 weights. Nothing falls back to another instantiation."""
+    net, pts, lat = _case(dev, 40, True)
+    with torch.inference_mode():
+        before = dict(F.KERNEL.launches)
+        for bad in ("float16", "bf16", None):
+            with pytest.raises(ValueError, match="mm_dtype"):
+                F.fused_sdf_forward(net, pts, lat, True, mm_dtype=bad)
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+        with pytest.raises(TypeError, match="float32"):
+            F.KERNEL.launch(pts, weights.to(torch.bfloat16), bias, True, True)
+        assert F.KERNEL.launches == before
+    with pytest.raises(ValueError, match="mm_dtype"):
+        F.fused_sdf_train(net, pts, lat, mm_dtype="float16")
 
 
 # ---------------------------------------------------------------- K4 / K5

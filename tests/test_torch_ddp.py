@@ -57,6 +57,7 @@ def make_opt(out, mode):
     opt.data.update(num_workers=0, max_img_cat=B, preselect_NN=False)
     opt.render.update(rand_sample=16, n_samples_uniform=8)
     opt.arch.update(enc_pretrained=False, enc_network="resnet18")
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     opt.tpu.update(bn_mode=mode, bn_replicas=2 if mode == "per_replica"
                    else None)
     opt.freq.update(save_vis=10 ** 6, ckpt_latest=10 ** 6)

@@ -31,7 +31,8 @@ TINY = ["--yaml=options/synthetic/config.yaml", "--name=run",
         "--render.rand_sample=32", "--render.n_samples_uniform=8",
         "--eval.vox_res=12", "--eval.num_points=512",
         "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!",
-        "--device=cpu", "--eval.dump!"]
+        "--device=cpu", "--eval.dump!", "--tpu.encoder_dtype=float32",
+        "--tpu.implicit_dtype=float32"]
 TRAIN = ["--freq.eval=1", "--optim.lr=0", "--optim.iter_camera=1000"]
 REPORTS = ("cd_cat.txt", "f_score.txt", "chamfer.txt")
 

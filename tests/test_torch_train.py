@@ -65,7 +65,7 @@ VAR_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "intr",
             "mask_recon_NN_0", "normal_recon_NN_0", "pose_NN_0", "idx_NN")
 
 
-def train_opt(base_opt, tmp_path, grad_mode):
+def train_opt(base_opt, tmp_path, grad_mode, dtype="float32"):
     opt = base_opt.deepcopy()
     opt.update(image_size=[64, 64], batch_size=B, seed=0, resume=False,
                load=None, tb=None, output_path=str(tmp_path), max_epoch=1)
@@ -77,7 +77,7 @@ def train_opt(base_opt, tmp_path, grad_mode):
     opt.render.update(rand_sample=R, n_samples_uniform=S)
     opt.reg.n_views = 1
     opt.arch.enc_pretrained = False
-    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32",
+    opt.tpu.update(encoder_dtype=dtype, implicit_dtype=dtype,
                    sdf_grad_mode=grad_mode, merge_nn_render=False,
                    merge_flip_estimator=False, merge_encoders=False)
     opt.freq.update(save_vis=10 ** 6, ckpt_latest=10 ** 6)
@@ -165,16 +165,20 @@ def jax_step(opt, params, stats, batch, key, camera):
         var={k: np.asarray(v) for k, v in var.items()})
 
 
-def jax_run(base_opt, tmp_path, grad_mode):
-    """The inputs and the JAX full and camera steps, for one mode."""
-    opt = train_opt(base_opt, tmp_path, grad_mode)
+def jax_run(base_opt, tmp_path, grad_mode, camera_only=False,
+            dtype="float32"):
+    """The inputs and the JAX full and camera steps, for one mode
+    (`camera_only`: the camera step alone, `full` None), with the encoders
+    and the implicit MLPs in `dtype`."""
+    opt = train_opt(base_opt, tmp_path, grad_mode, dtype)
     params, stats = perturbed_state(opt)
     batch = make_batch(opt)
     key = jax.random.PRNGKey(5)
     return SimpleNamespace(
         opt=opt, params=params, stats=stats, batch=batch,
         draws=step_draws(key, opt),
-        full=jax_step(opt, params, stats, batch, key, False),
+        full=(None if camera_only
+              else jax_step(opt, params, stats, batch, key, False)),
         camera=jax_step(opt, params, stats, batch, key, True))
 
 

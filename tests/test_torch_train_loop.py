@@ -40,6 +40,7 @@ TINY = ["--yaml=options/synthetic/config.yaml", "--batch_size=2",
 
 def loop_opt(base_opt, out, max_img_cat=4):
     opt = base_opt.deepcopy()
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     opt.update(image_size=[32, 32], batch_size=2, seed=0, resume=False,
                load=None, tb=False, output_path=str(out), max_epoch=2)
     opt.H, opt.W = opt.image_size

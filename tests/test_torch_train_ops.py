@@ -172,7 +172,8 @@ def test_graph_encode_bn_modes_match_jax(base_opt, mode):
 
     opt = base_opt.deepcopy()
     opt.H = opt.W = 64
-    opt.tpu.update(bn_mode=mode, bn_replicas=2, encoder_dtype="float32")
+    opt.tpu.update(bn_mode=mode, bn_replicas=2, encoder_dtype="float32",
+                   implicit_dtype="float32")
     opt.arch.enc_pretrained = False
     jg = JaxGraph(opt)
     assert jg.bn_replicas == (2 if mode == "per_replica" else 1)
