@@ -38,7 +38,10 @@ no CPU fallback):
      to float32 and keeps its float32 gate): (a) K1-bf16, K3-bf16 and
      K2-bf16 against their bf16 plain versions at 262,144, 12 x 32,768,
      vox 64 and 12 x 1,024, each held under half its distance from the
-     float32 kernel and timed beside it; (b) a camera and four full bf16
+     float32 kernel and timed beside it; K2-bf16 (the tensor-core kernel of
+     `csrc/fused_sdf_bwd_bf16.cu`) also bitwise equal over two launches at
+     12 x 32,768, with its registers and spills from the ptxas log (a spill
+     fails the run); (b) a camera and four full bf16
      training steps with launch counts (K1-bf16 3 / K2-bf16 1, then 3 /
      3, the float32 K1 / K2 none), the steady step, peak memory and a
      profiled step with cuDNN's share; (c) three bf16 requests (K1-bf16
@@ -91,8 +94,9 @@ no CPU fallback):
      batch 12, in global and per_replica BatchNorm (losses, every
      gradient, the post-step parameters and statistics; the camera step
      and the first full step to tests/test_torch_ddp.py's bounds or twice
-     one process's own float32 noise under a reordered batch, the second
-     full step a reading); the K1 / K2 launches per step and the step
+     one process's own float32 noise, the largest under three reorderings
+     of the batch, the second full step a reading; deterministic cuDNN, so
+     that each run reads the same); the K1 / K2 launches per step and the step
      times; K1 and K2 timed at a rank's 6 x 32,768 beside 12 x 32,768;
  14. `train --distributed` under torchrun (one NCCL rank: DDP, the
      sharded evaluation's gather) and `train` without it at a tiny size,
@@ -126,6 +130,7 @@ CONFIG = os.path.join(REPO, "options", "pix3d", "config.yaml")
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 SOURCE = "shapeclipper_torch/csrc/fused_sdf_fwd.cu"
 SOURCE_BWD = "shapeclipper_torch/csrc/fused_sdf_bwd.cu"
+SOURCE_BWD_BF16 = "shapeclipper_torch/csrc/fused_sdf_bwd_bf16.cu"
 SOURCE_NN = "shapeclipper_torch/csrc/chamfer.cu"
 REPLACES = "shapeclipper_tpu/ops/fused_sdf.py:311"
 REPLACES_BWD = "shapeclipper_tpu/ops/fused_sdf.py:617"
@@ -826,12 +831,11 @@ def phase_backward():
     for name, a, b in zip(("weights", "biases", "points"), first, second):
         if not torch.equal(a, b):
             raise AssertionError(f"two K2 launches differ in d {name}")
-    for label, tag in (("K2", "ILb0E"), ("K2-bf16", "ILb1E")):
-        usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel" + tag)
-        log(f"[k2] {label} ptxas: {usage[0]} registers, {usage[1]} bytes "
-            f"spill stores, {usage[2]} bytes spill loads")
-        if usage[1] or usage[2]:
-            raise AssertionError(f"{label} spills registers: {usage}")
+    usage = ptxas_usage(F.BACKWARD.ptxas_log, "fused_sdf_bwd_kernel")
+    log(f"[k2] K2 ptxas: {usage[0]} registers, {usage[1]} bytes spill "
+        f"stores, {usage[2]} bytes spill loads")
+    if usage[1] or usage[2]:
+        raise AssertionError(f"K2 spills registers: {usage}")
     log("[k2] two launches at the render shape: bitwise equal")
 
     # times at the eikonal shape, then at the render shape
@@ -1183,6 +1187,22 @@ def phase_bf16_kernels(opt):
                 *F.prepare_fused_params(net, lat))
         w16 = weights.to(torch.bfloat16)
         args = (pts, bias, cots[0][..., 0].contiguous(), cots[1], cots[2])
+        if label == "render":
+            # two launches on the same inputs are bitwise equal; no spills
+            a = F.BACKWARD.launch(args[0], w16, *args[1:], True, "bfloat16")
+            b = F.BACKWARD.launch(args[0], w16, *args[1:], True, "bfloat16")
+            torch.cuda.synchronize()
+            for name, x, y in zip(("weights", "biases", "points"), a, b):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"two K2-bf16 launches differ in d "
+                                         f"{name}")
+            usage = ptxas_usage(F.BACKWARD.ptxas_log,
+                                "fused_sdf_bwd_bf16_kernel")
+            log(f"[bf16] K2-bf16 two launches at B={B} N={N}: bitwise "
+                f"equal; ptxas: {usage[0]} registers, {usage[1]} bytes spill "
+                f"stores, {usage[2]} bytes spill loads")
+            if usage[1] or usage[2]:
+                raise AssertionError(f"K2-bf16 spills registers: {usage}")
         ms = cuda_ms(lambda: F.BACKWARD.launch(args[0], w16, *args[1:], True,
                                                "bfloat16"))
         ms32 = cuda_ms(lambda: F.BACKWARD.launch(args[0], weights, *args[1:],
@@ -1926,6 +1946,10 @@ def phase_chamfer_api():
 DDP_STEPS = 3                   # a camera step, then two full steps
 DDP_TIMED = 8                   # then full steps timed only (NCCL x 1)
 DDP_TIMEOUT_S = 600
+# the one-process reorderings of each BatchNorm block's rows whose largest
+# difference from the loader's order is the gloo gate's float32 floor:
+# (reversed, rotated by half a block)
+DDP_REORDERINGS = ((True, False), (False, True), (True, True))
 
 
 # --------------------------------------------------------------- phase 9
@@ -2476,6 +2500,18 @@ def step_errors(got, want, lr):
                 bitwise=bitwise)
 
 
+STEP_ERROR_KEYS = ("loss", "grad", "param_max", "param_mean", "stats")
+
+
+def envelope(errs):
+    """The largest of several step_errors readings, key by key (the
+    gradient's name from the reading with the largest gradient error)."""
+    worst = max(errs, key=lambda e: e["grad"])
+    return dict({k: max(e[k] for e in errs) for k in STEP_ERROR_KEYS},
+                grad_name=worst["grad_name"],
+                bitwise=all(e["bitwise"] for e in errs))
+
+
 def ddp_worker(kind):
     """One rank of `python -m torch.distributed.run ... chip_smoke.py
     --ddp-worker KIND`: `nccl` joins torchrun's NCCL group on its own card;
@@ -2493,10 +2529,10 @@ def ddp_worker(kind):
     from shapeclipper_torch import parallel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if kind == "nccl":
-        # deterministic cuDNN: one rank under DDP against no DDP is then a
-        # question of DDP's arithmetic alone
-        torch.backends.cudnn.deterministic = True
+    # deterministic cuDNN: one rank under DDP against no DDP is then a
+    # question of DDP's arithmetic alone, and two ranks against one process
+    # read the same from one run to the next
+    torch.backends.cudnn.deterministic = True
     # the global batch's draws, before the process group (whose world
     # size would make them this rank's)
     base = flagship_opt()
@@ -2553,20 +2589,29 @@ def ddp_worker(kind):
                  wrapper=g["wrapper"], one_wrapper=w["wrapper"])
             for g, w in zip(ddp[mode], ref)]
         # the float32 noise of the same steps: one process before the group
-        # (NCCL), or summed in another order, every BatchNorm block's rows
-        # reversed
+        # (NCCL), or summed in other orders, every BatchNorm block's rows
+        # reordered in each of DDP_REORDERINGS (the largest difference of
+        # each step, and each reordering's)
         if kind == "nccl":
             other, other_extra = before
+            report["floor"][mode] = [step_errors(p, w, lr)
+                                     for p, w in zip(other, ref)]
         else:
             block = base.batch_size // (2 if mode == "per_replica" else 1)
-            perm = [order[b + block - 1 - i]
-                    for b in range(0, base.batch_size, block)
-                    for i in range(block)]
-            other, other_extra = run_steps(
-                mode_opt(mode, f"one_{mode}_perm"), rows_of(batch, perm),
-                [rows_of(d, perm) for d in draws])
-        report["floor"][mode] = [step_errors(p, w, lr)
-                                 for p, w in zip(other, ref)]
+            each = []
+            for rev, rot in DDP_REORDERINGS:
+                within = [(block - 1 - i if rev else i) for i in range(block)]
+                within = [within[(i + block // 2 * rot) % block]
+                          for i in range(block)]
+                perm = [order[b + i] for b in range(0, base.batch_size, block)
+                        for i in within]
+                other, _ = run_steps(
+                    mode_opt(mode, f"one_{mode}_perm"), rows_of(batch, perm),
+                    [rows_of(d, perm) for d in draws])
+                each.append([step_errors(p, w, lr)
+                             for p, w in zip(other, ref)])
+            report["floor"][mode] = [envelope(s) for s in zip(*each)]
+            report.setdefault("floor_each", {})[mode] = each
         if kind == "nccl":
             extra = dict(before=other_extra, ddp=ddp_extra[mode],
                          after=ref_extra)
@@ -2664,17 +2709,23 @@ def phase_ddp():
             want = (3, 1) if it == 0 else (3, 3)
             # the camera step and the first full step are held to the CPU
             # test's bounds (tests/test_torch_ddp.py), or twice the float32
-            # noise of one process under a reordering of the batch; by the
-            # second full step that noise is as large as the signal, so it
-            # is a reading only
+            # noise of one process under the largest of DDP_REORDERINGS of
+            # the batch; by the second full step that noise is as large as
+            # the signal, so it is a reading only
             gated = it < 2
+            spread = "; ".join(
+                f"{k} " + "/".join(f"{s[it][k]:.2e}" for s in
+                                   rep["floor_each"][mode])
+                for k in STEP_ERROR_KEYS)
             log(f"[ddp] gloo x 2 on one card, {mode} BN, step {it} "
                 f"({'camera' if it == 0 else 'full'}"
                 f"{'' if gated else ', a reading, not gated'}) vs one "
                 f"process at batch 12: {describe(e)}; one process reordered "
-                f"(the float32 floor): {describe(f)}; rank 0 {e['ms']:.1f} ms"
-                f" (6 samples) vs {e['one_ms']:.1f} ms (12); K1/K2 launches "
-                f"{e['launches'][0]}/{e['launches'][1]} per rank")
+                f"{len(DDP_REORDERINGS)} ways (the float32 floor, the largest "
+                f"of each): {describe(f)} [each: {spread}]; rank 0 "
+                f"{e['ms']:.1f} ms (6 samples) vs {e['one_ms']:.1f} ms (12); "
+                f"K1/K2 launches {e['launches'][0]}/{e['launches'][1]} per "
+                f"rank")
             if tuple(e["launches"]) != want:
                 bad.append(f"{mode} step {it} launches {e['launches']}")
             if e["wrapper"] != "DistributedDataParallel":
@@ -2863,8 +2914,9 @@ def main():
     # compiled afresh even where `build/` holds them, so that phases 2 and 3
     # read this run's ptxas log
     cuda_lib.build_kernels(force=True)
-    log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} and {SOURCE_NN} "
-        f"(three nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
+    log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} with "
+        f"{SOURCE_BWD_BF16}, and {SOURCE_NN} (three nvcc runs at once) in "
+        f"{time.perf_counter() - t0:.2f} s")
     for lib in cuda_lib.libraries():
         log(lib.ptxas_log.strip())
     warnings = []
@@ -2938,8 +2990,9 @@ def main():
              **{k: bf16[("nograd", 1)][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
              library_ms=None),
-        dict(name="fused_sdf_bwd (K2-bf16, bf16 products)", route="cuda",
-             source=SOURCE_BWD, replaces=REPLACES_BWD,
+        dict(name="fused_sdf_bwd_bf16 (K2-bf16, bf16 products on the tensor "
+             "cores)", route="cuda", source=SOURCE_BWD_BF16,
+             replaces=REPLACES_BWD,
              launches=bf16_launches["k2_bf16"],
              max_abs_err=max(bf16[("k2", "render")]["err"],
                              bf16[("k2", "eikonal")]["err"]),

@@ -4,9 +4,12 @@
     python scripts/sdf_segments.py --kernel fwd [--B 12] [--N 32768]
         [--no-grad] [--source FILE]
     python scripts/sdf_segments.py --kernel bwd [--B 12] [--N 32768]
+    python scripts/sdf_segments.py --kernel bwd-bf16 [--B 12] [--N 32768]
 
-Builds the forward (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`, K1 / K3) or
-the backward (`fused_sdf_bwd.cu`, K2) once more, or another version of it
+Builds the forward (`shapeclipper_torch/csrc/fused_sdf_fwd.cu`, K1 / K3),
+the backward (`fused_sdf_bwd.cu`, K2) or its bf16 kernel
+(`fused_sdf_bwd_bf16.cu`, K2-bf16, linked with the entry point of
+`fused_sdf_bwd.cu`) once more, or another version of it
 given by `--source` (an earlier design, say), into `build/sdf_segments/`,
 with a clock64() read after every __syncthreads() from the top of the
 source's namespace to the end of the main kernel (so barriers in helper
@@ -29,7 +32,9 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "shapeclipper_torch", "csrc")
 KERNELS = {"fwd": ("fused_sdf_fwd.cu", "fused_sdf_fwd_kernel("),
-           "bwd": ("fused_sdf_bwd.cu", "fused_sdf_bwd_kernel(")}
+           "bwd": ("fused_sdf_bwd.cu", "fused_sdf_bwd_kernel("),
+           "bwd-bf16": ("fused_sdf_bwd_bf16.cu",
+                        "fused_sdf_bwd_bf16_kernel(")}
 OUT = os.path.join(REPO, "build", "sdf_segments")
 MAX_SEGMENTS = 64
 
@@ -73,7 +78,9 @@ def instrument(src, kernel):
     return out, lines
 
 
-def build(src, name):
+def build(src, name, extra=()):
+    """Compile the instrumented source, with `extra` sources linked into the
+    same library, and load it."""
     os.makedirs(OUT, exist_ok=True)
     cu = os.path.join(OUT, f"{name}_segments.cu")
     so = os.path.join(OUT, f"lib{name}_segments.so")
@@ -83,14 +90,14 @@ def build(src, name):
                         "nvcc")
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", so, cu], check=True)
+                    "-o", so, cu, *extra], check=True)
     return ctypes.CDLL(so)
 
 
 def launcher(kind, lib, net, B, N, grad, dev, has_mm):
     """-> a function that launches the instrumented kernel once (the
-    float32 products; `has_mm`: the source's entry takes `mm_bf16`, which
-    earlier sources lack)."""
+    float32 products, or the bf16 ones for `bwd-bf16`; `has_mm`: the
+    source's entry takes `mm_bf16`, which earlier sources lack)."""
     import torch
     from shapeclipper_torch.ops import fused_sdf as F
     g = torch.Generator().manual_seed(0)
@@ -98,7 +105,8 @@ def launcher(kind, lib, net, B, N, grad, dev, has_mm):
     lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
     with torch.no_grad():
         weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
-    mm = (0,) if has_mm else ()
+    bf16 = kind == "bwd-bf16"
+    mm = (int(bf16),) if has_mm else ()
     f32 = dict(device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "fwd":
@@ -113,15 +121,19 @@ def launcher(kind, lib, net, B, N, grad, dev, has_mm):
         fn.argtypes = [ctypes.c_void_p] * 12 \
             + [ctypes.c_int] * (4 + len(mm)) + [ctypes.c_void_p]
         cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+        tile = F.BWD_TILE_POINTS_BF16 if bf16 else F.BWD_TILE_POINTS
         grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
-                   B * -(-N // F.BWD_TILE_POINTS))
+                   B * -(-N // tile))
+        if bf16:
+            weights = weights.to(torch.bfloat16)
         bufs = [pts, weights, bias, cots[0][..., 0].contiguous(), cots[1],
                 cots[2], torch.empty(B, N, 3, **f32),
                 torch.empty(F.NUM_WEIGHTS, **f32),
                 torch.empty(B, F.BIAS_WIDTH, **f32),
                 torch.empty(grid, F.NUM_WEIGHTS, **f32),
                 torch.empty(grid, B, F.BIAS_WIDTH, **f32),
-                torch.empty(grid, F.BWD_STASH_FLOATS, **f32)]
+                torch.empty(grid, F.BWD_STASH_FLOATS_BF16 if bf16
+                            else F.BWD_STASH_FLOATS, **f32)]
         args = (B, N, grid, 1, *mm, stream)
 
     def launch():
@@ -155,7 +167,15 @@ def main(argv=None):
         text = f.read()
     src, lines = instrument(text, kernel)
     label = args.label or args.kernel
-    lib = build(src, label)
+    # the backward's entry point also launches the bf16 kernel of its own
+    # file, linked as it is, and the bf16 kernel is launched through it
+    if args.kernel == "bwd-bf16":
+        extra = (os.path.join(CSRC, "fused_sdf_bwd.cu"),)
+    elif "scl_fused_sdf_bwd_bf16_launch" in text:
+        extra = (os.path.join(CSRC, "fused_sdf_bwd_bf16.cu"),)
+    else:
+        extra = ()
+    lib = build(src, label, extra)
     lib.scl_segments_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
 
     dev = torch.device("cuda")
@@ -163,7 +183,7 @@ def main(argv=None):
                      generator=torch.Generator().manual_seed(0)).to(dev)
     B, N = args.B, args.N
     launch = launcher(args.kernel, lib, net, B, N, not args.no_grad, dev,
-                      "int mm_bf16" in text)
+                      "int mm_bf16" in text or args.kernel == "bwd-bf16")
     launch()
     torch.cuda.synchronize()
     if lib.scl_segments_read(None, 1):

@@ -2,11 +2,10 @@
 // the forward kernel with tangents (`fused_sdf_fwd.cu`, compute_grad=1).
 //
 // Replaces the Pallas TPU kernel `shapeclipper_tpu/ops/fused_sdf.py::
-// _backward_call` (the `pl.pallas_call` at line 617), with float32 products
-// and, as the template's kBf16 instantiation (K2-bf16), with bf16 products
-// (`_mm_cast("bfloat16")`): the same design with every product's operands
-// rounded to bfloat16 and multiplied by fmaf (bf16 operands, FMA; the
-// tensor cores are not used yet).
+// _backward_call` (the `pl.pallas_call` at line 617) with float32 products.
+// Its bf16-product form (`_mm_cast("bfloat16")`, K2-bf16) runs on the tensor
+// cores in `fused_sdf_bwd_bf16.cu`; the C entry point below launches either,
+// then the sum of the per-block partials that both write.
 //
 // What it computes. Given the cotangents of the forward's outputs
 // (sdf [B,N], feature [B,N,64], point gradient [B,N,3]) it returns
@@ -65,8 +64,6 @@
 //   RT       [40][132]          =  5,280  ( 21,120 B)  posenc rows (row 39 = 0)
 //   sign     [32]               =     32  (    128 B)
 //   total                         52,056  (208,224 B)
-//   bf16 only: the primal rows' float32 cotangents [65][33] = 2,145
-//   (8,580 B), total 54,201 (216,804 B)
 // Strides. The weight row stride 68 is a multiple of 4 (16-byte rows) with
 // 68 / 4 = 17 odd: the forward read W[k][4 cg ..] walks 8 consecutive float4
 // of one row per quarter-warp, and the transposed read W[kg + 16 i][4 c ..]
@@ -102,7 +99,6 @@
 // the result is bitwise the same for a given grid (one block per SM, fixed
 // per card). No atomics.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -150,16 +146,11 @@ constexpr int kSmCT = kSmHT + kWidth * kLd;           // [65][kLd]
 constexpr int kSmRT = kSmCT + kOut * kLd;             // [40][kLd]
 constexpr int kSmSign = kSmRT + 40 * kLd;             // [32]
 constexpr int kSmFloats = kSmSign + kPoints;
-// the bf16 instantiation adds the primal rows' float32 cotangents [65][33]
-// (CT holds them rounded: the bias gradients sum the unrounded ones)
-constexpr int kCPld = kPoints + 1;
-constexpr int kSmCP = kSmFloats;
-constexpr int kSmFloatsBf16 = kSmCP + kOut * kCPld;
 
 static_assert(kSmHT % 4 == 0 && kSmCT % 4 == 0 && kSmRT % 4 == 0 &&
               kWld % 4 == 0 && (kWld / 4) % 2 == 1 && kLd % 4 == 0 &&
               (kLd / 4) % 2 == 1, "16-byte rows, conflict-free strides");
-static_assert(kSmFloatsBf16 * 4 <= 232448, "fits the 227 KB per block");
+static_assert(kSmFloats * 4 <= 232448, "fits the 227 KB per block");
 static_assert((kRows / 8) * (kWidth / 4) == kThreads, "thread tiling");
 
 __device__ __forceinline__ void act_pair(float prim, float& act, float& sig) {
@@ -168,29 +159,6 @@ __device__ __forceinline__ void act_pair(float prim, float& act, float& sig) {
   const float inv = 1.f / (1.f + e);
   sig = z >= 0.f ? inv : 1.f - inv;
   act = (fmaxf(z, 0.f) + log1pf(e)) / 100.f;
-}
-
-// A product's operand: as it is (float32 products), or rounded to bfloat16
-// (nearest even) and held in float32, so that the fmaf of two operands
-// multiplies exactly and accumulates in float32 (the bf16 products).
-template <bool kBf16>
-__device__ __forceinline__ float mm_in(float x) {
-  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float4 mm_in4(float4 v) {
-  return make_float4(mm_in<kBf16>(v.x), mm_in<kBf16>(v.y), mm_in<kBf16>(v.z),
-                     mm_in<kBf16>(v.w));
-}
-
-// Packed weight i: float32, or its bfloat16 copy.
-template <bool kBf16>
-__device__ __forceinline__ float load_weight(const void* w, int i) {
-  if constexpr (kBf16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i]);
-  return static_cast<const float*>(w)[i];
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -203,16 +171,16 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c,
 }
 
 // Forward product: acc[i][j] += sum_k inT[k][r0 + i] * W[wrow + k][c0 + j]
-// over k < K; kRnd rounds inT's entries to bfloat16 as they are loaded.
-template <int K, bool kRnd = false>
+// over k < K.
+template <int K>
 __device__ __forceinline__ void fwd_product(const float* __restrict__ inT,
                                             const float* __restrict__ sW,
                                             int wrow, int c0, int r0,
                                             float (&acc)[8][4]) {
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    const float4 a0 = mm_in4<kRnd>(ld4(inT + k * kLd + r0));
-    const float4 a1 = mm_in4<kRnd>(ld4(inT + k * kLd + r0 + 4));
+    const float4 a0 = ld4(inT + k * kLd + r0);
+    const float4 a1 = ld4(inT + k * kLd + r0 + 4);
     const float4 w = ld4(sW + (wrow + k) * kWld + c0);
     const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float wv[4] = {w.x, w.y, w.z, w.w};
@@ -272,9 +240,8 @@ __device__ __forceinline__ void bwd_product(const float* __restrict__ coT,
 // Weight gradient: dK[k][c] += sum_r inT[k][r] * coT[c][r] over the tile's
 // 128 rows, for a [KIN][KOUT] matrix at offset goff of this block's slice;
 // thread (kq, cg) owns k = 4 kq + i, c = cg + 16 j (c < 64). inT has
-// 4 * ceil(KIN / 4) readable rows. kRndIn rounds inT's entries to
-// bfloat16 as they are loaded.
-template <int KIN, int KOUT, bool kRndIn>
+// 4 * ceil(KIN / 4) readable rows.
+template <int KIN, int KOUT>
 __device__ __forceinline__ void dk_accumulate(const float* __restrict__ inT,
                                               const float* __restrict__ coT,
                                               float* __restrict__ dkp,
@@ -303,7 +270,7 @@ __device__ __forceinline__ void dk_accumulate(const float* __restrict__ inT,
     for (int r = 0; r < kRows; r += 4) {
       float4 a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = mm_in4<kRndIn>(ld4(ip + i * kLd + r));
+      for (int i = 0; i < 4; ++i) a[i] = ld4(ip + i * kLd + r);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         b[j] = ld4(cp + 16 * j * kLd + r);
@@ -336,7 +303,7 @@ __device__ __forceinline__ void dk_accumulate(const float* __restrict__ inT,
     float t = 0.f;
 #pragma unroll
     for (int r = 32 * seg; r < 32 * seg + 32; r += 4) {
-      const float4 a = mm_in4<kRndIn>(ld4(inT + k * kLd + r));
+      const float4 a = ld4(inT + k * kLd + r);
       const float4 b = ld4(coT + kWidth * kLd + r);
       t = fmaf(a.x, b.x, t);
       t = fmaf(a.y, b.y, t);
@@ -350,19 +317,16 @@ __device__ __forceinline__ void dk_accumulate(const float* __restrict__ inT,
 }
 
 // d(bias of layer l)[c] += sum over the tile's points of the primal-row
-// cotangent; one fixed thread per column. The float32 instantiation reads
-// CT's primal rows, the bf16 one their unrounded copy (`kSmCP`).
-template <int COLS, bool kBf16>
+// cotangent; one fixed thread per column.
+template <int COLS>
 __device__ __forceinline__ void db_accumulate(const float* __restrict__ coT,
-                                              const float* __restrict__ sCP,
                                               float* __restrict__ dbp_b,
                                               int l, int tid) {
   if (tid < COLS) {
     const float prev = dbp_b[l * kWidth + tid];
     float s = 0.f;
 #pragma unroll 8
-    for (int p = 0; p < kPoints; ++p)
-      s += kBf16 ? sCP[tid * kCPld + p] : coT[tid * kLd + 4 * p];
+    for (int p = 0; p < kPoints; ++p) s += coT[tid * kLd + 4 * p];
     dbp_b[l * kWidth + tid] = prev + s;
   }
 }
@@ -383,9 +347,7 @@ __device__ __forceinline__ void load_stash(const float* __restrict__ stl,
 
 // H (post-activation rows) of this thread's pairs into sHT, one float4 per
 // (point, channel); the primal entries of pre become the sigmoid, which the
-// activation's backward reads. H is only ever a product's operand, so the
-// bf16 instantiation stores it rounded.
-template <bool kBf16>
+// activation's backward reads.
 __device__ __forceinline__ void build_h(float (&pre)[4][8],
                                        float* __restrict__ sHT, int r0,
                                        int kg) {
@@ -396,9 +358,8 @@ __device__ __forceinline__ void build_h(float (&pre)[4][8],
       float* v = pre[i] + 4 * pi;
       float act, sig;
       act_pair(v[0], act, sig);
-      st4(sHT + (kg + 16 * i) * kLd + r0 + 4 * pi, mm_in<kBf16>(act),
-          mm_in<kBf16>(v[1] * sig), mm_in<kBf16>(v[2] * sig),
-          mm_in<kBf16>(v[3] * sig));
+      st4(sHT + (kg + 16 * i) * kLd + r0 + 4 * pi, act, v[1] * sig,
+          v[2] * sig, v[3] * sig);
       v[0] = sig;
     }
   }
@@ -433,7 +394,6 @@ __device__ __forceinline__ void act_backward(const float (&pre)[4][8],
 // thread's point-gradient sums: xb[pi][i] += C_R[prim][j] dpe_j +
 // C_R[tangent d_j][j] d2pe_j, with dpe_j the tangent row's entry in RT and
 // d2pe_j = -f_j^2 pe_j (0 for the raw coordinates).
-template <bool kBf16>
 __device__ __forceinline__ void posenc_cotangent(
     const float* __restrict__ sCT, const float* __restrict__ sW, int wrow,
     const float* __restrict__ sRT, int kg, int r0, const int (&dj)[3],
@@ -460,20 +420,9 @@ __device__ __forceinline__ void posenc_cotangent(
   }
 }
 
-// kBf16: the bfloat16-product instantiation (the JAX package's
-// `_mm_cast("bfloat16")`): every product -- the recompute's H W, the
-// weight gradients H^T C and the carried cotangents C W^T -- has both
-// operands rounded to bfloat16 (the weights once per block; H and the
-// cotangents where they are stored, the primal rows' cotangents also kept
-// unrounded for the bias gradients; the posenc rows as the products load
-// them, their float32 values feeding the posenc backward) and multiplies
-// them by fmaf in float32, exact for two bf16 values, with float32 sums and
-// partials; everything elementwise stays float32. Same tiles, 8.6 KB more
-// shared memory, no tensor cores.
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_sdf_bwd_kernel(const float* __restrict__ points,
-                         const void* __restrict__ weights,
+                         const float* __restrict__ weights,
                          const float* __restrict__ biases,
                          const float* __restrict__ sbar,
                          const float* __restrict__ fbar,
@@ -490,7 +439,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sCT = smem + kSmCT;
   float* sRT = smem + kSmRT;
   float* sSign = smem + kSmSign;
-  float* sCP = smem + kSmCP;   // bf16 only
 
   const int tid = threadIdx.x;
   const int rg = tid / 16;         // rows 8 rg .. 8 rg + 7 (points 2rg, 2rg+1)
@@ -526,8 +474,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = tid; i < nin[m] * kWld; i += kThreads) {
         const int k = i / kWld, c = i % kWld;
         sW[(rows0[m] + k) * kWld + c] =
-            c < nout ? load_weight<kBf16>(weights, offs[m] + k * nout + c)
-                     : 0.f;
+            c < nout ? weights[offs[m] + k * nout + c] : 0.f;
       }
     }
   }
@@ -589,13 +536,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j) bv[j] = __ldg(bias_b + l * kWidth + c0 + j);
       if (l == 0) {
-        fwd_product<kPe, kBf16>(sRT, sW, kRowK0, c0, r0, acc);
+        fwd_product<kPe>(sRT, sW, kRowK0, c0, r0, acc);
       } else if (l == 1) {
         fwd_product<kWidth>(hin, sW, kRowK1h, c0, r0, acc);
-        fwd_product<kPe, kBf16>(sRT, sW, kRowK1pe, c0, r0, acc);
+        fwd_product<kPe>(sRT, sW, kRowK1pe, c0, r0, acc);
       } else if (l == 2) {
         fwd_product<kWidth>(hin, sW, kRowK2h, c0, r0, acc);
-        fwd_product<kPe, kBf16>(sRT, sW, kRowK2pe, c0, r0, acc);
+        fwd_product<kPe>(sRT, sW, kRowK2pe, c0, r0, acc);
       } else {
         fwd_product<kWidth>(hin, sW, l == 3 ? kRowK3 : kRowK4, c0, r0, acc);
       }
@@ -616,10 +563,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pi = 0; pi < 2; ++pi) {
           float act, sig;
           act_pair(acc[4 * pi][j], act, sig);
-          h[4 * pi] = mm_in<kBf16>(act);
+          h[4 * pi] = act;
 #pragma unroll
-          for (int d = 1; d < 4; ++d)
-            h[4 * pi + d] = mm_in<kBf16>(acc[4 * pi + d][j] * sig);
+          for (int d = 1; d < 4; ++d) h[4 * pi + d] = acc[4 * pi + d][j] * sig;
         }
         float* dst = hout + (c0 + j) * kLd + r0;
         st4(dst, h[0], h[1], h[2], h[3]);
@@ -640,8 +586,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         gbar[bn * 3 + 2]);
       else if (n < N)
         v.x = fbar[bn * kWidth + c - 1];
-      if constexpr (kBf16) sCP[c * kCPld + p] = v.x;
-      *reinterpret_cast<float4*>(dst) = mm_in4<kBf16>(v);
+      *reinterpret_cast<float4*>(dst) = v;
     }
     __syncthreads();
 
@@ -650,8 +595,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // that of the layer below, whose H the next step builds
     float cur[4][8], nxt[4][8];
     load_stash(st + (kHidden - 1) * kRows * kWidth, r0, kg, cur);
-    dk_accumulate<kWidth, kOut, false>(sHT, sCT, dkp, kOffK5, tid);
-    db_accumulate<kOut, kBf16>(sCT, sCP, dbp_b, 5, tid);
+    dk_accumulate<kWidth, kOut>(sHT, sCT, dkp, kOffK5, tid);
+    db_accumulate<kOut>(sCT, dbp_b, 5, tid);
     float ch[4][8];
     float xb[2][3];
 #pragma unroll
@@ -683,17 +628,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float* dst = sCT + (kg + 16 * i) * kLd + r0;
-        st4(dst, mm_in<kBf16>(ch[i][0]), mm_in<kBf16>(ch[i][1]),
-            mm_in<kBf16>(ch[i][2]), mm_in<kBf16>(ch[i][3]));
-        st4(dst + 4, mm_in<kBf16>(ch[i][4]), mm_in<kBf16>(ch[i][5]),
-            mm_in<kBf16>(ch[i][6]), mm_in<kBf16>(ch[i][7]));
-        if constexpr (kBf16) {
-          sCP[(kg + 16 * i) * kCPld + 2 * rg] = ch[i][0];
-          sCP[(kg + 16 * i) * kCPld + 2 * rg + 1] = ch[i][4];
-        }
+        st4(dst, ch[i][0], ch[i][1], ch[i][2], ch[i][3]);
+        st4(dst + 4, ch[i][4], ch[i][5], ch[i][6], ch[i][7]);
       }
       if (l >= 1) {
-        build_h<kBf16>(nxt, sHT, r0, kg);
+        build_h(nxt, sHT, r0, kg);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -702,27 +641,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();
       if (l >= 2) load_stash(st + (l - 2) * kRows * kWidth, r0, kg, nxt);
-      db_accumulate<kWidth, kBf16>(sCT, sCP, dbp_b, l, tid);
+      db_accumulate<kWidth>(sCT, dbp_b, l, tid);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
         for (int rr = 0; rr < 8; ++rr) ch[i][rr] = 0.f;
       }
       if (l == 0) {
-        dk_accumulate<kPe, kWidth, kBf16>(sRT, sCT, dkp, kOffK0, tid);
-        posenc_cotangent<kBf16>(sCT, sW, kRowK0, sRT, kg, r0, dj, f2, xb);
+        dk_accumulate<kPe, kWidth>(sRT, sCT, dkp, kOffK0, tid);
+        posenc_cotangent(sCT, sW, kRowK0, sRT, kg, r0, dj, f2, xb);
       } else if (l == 1 || l == 2) {
-        dk_accumulate<kWidth, kWidth, false>(
-            sHT, sCT, dkp, l == 1 ? kOffK1h : kOffK2h, tid);
-        dk_accumulate<kPe, kWidth, kBf16>(
-            sRT, sCT, dkp, l == 1 ? kOffK1pe : kOffK2pe, tid);
-        posenc_cotangent<kBf16>(sCT, sW, l == 1 ? kRowK1pe : kRowK2pe, sRT,
-                                kg, r0, dj, f2, xb);
+        dk_accumulate<kWidth, kWidth>(sHT, sCT, dkp,
+                                      l == 1 ? kOffK1h : kOffK2h, tid);
+        dk_accumulate<kPe, kWidth>(sRT, sCT, dkp,
+                                   l == 1 ? kOffK1pe : kOffK2pe, tid);
+        posenc_cotangent(sCT, sW, l == 1 ? kRowK1pe : kRowK2pe, sRT, kg, r0,
+                         dj, f2, xb);
         bwd_product<kWidth, 4>(sCT, sW, l == 1 ? kRowK1h : kRowK2h, kg, r0,
                                ch);
       } else {
-        dk_accumulate<kWidth, kWidth, false>(
-            sHT, sCT, dkp, l == 3 ? kOffK3 : kOffK4, tid);
+        dk_accumulate<kWidth, kWidth>(sHT, sCT, dkp,
+                                      l == 3 ? kOffK3 : kOffK4, tid);
         bwd_product<kWidth, 4>(sCT, sW, l == 3 ? kRowK3 : kRowK4, kg, r0,
                                ch);
       }
@@ -778,13 +717,26 @@ __global__ void reduce_partials_kernel(const float* __restrict__ dk_partial,
 
 }  // namespace
 
+// The bf16-product kernel (fused_sdf_bwd_bf16.cu): its main launch and its
+// tile in points.
+extern "C" int scl_fused_sdf_bwd_bf16_launch(
+    const void* points, const void* weights, const void* biases,
+    const void* sbar, const void* fbar, const void* gbar, void* dpoints,
+    void* dk_partial, void* db_partial, void* stash, int B, int N, int grid,
+    int force_symmetry, void* stream);
+extern "C" int scl_fused_sdf_bwd_bf16_tile_points();
+extern "C" int scl_fused_sdf_bwd_bf16_stash_floats();
+
 // points [B,N,3], weights [28,032] (float32, or their bfloat16 copy with
 // mm_bf16), biases [B,385], sbar [B,N], fbar [B,N,64], gbar [B,N,3] ->
 // dpoints [B,N,3], dweights [28,032], dbiases [B,385]; dk_partial
-// [grid,28,032], db_partial [grid,B,385] and stash [grid, 5 x 128 x 64] are
-// scratch, one slice per block. Any grid >= 1 is correct (a block zeroes
-// its slices before it takes tiles); the caller passes one block per SM,
-// capped at the number of 32-point tiles. Float32 but for the bf16 weights,
+// [grid,28,032] and db_partial [grid,B,385] are scratch, one slice per
+// block, and so is stash [grid, scl_fused_sdf_bwd_stash_floats(mm_bf16)]
+// (float32 products: 5 x 128 x 64 pre-activations; bf16 ones: each warp's
+// layers 0-3, `fused_sdf_bwd_bf16.cu`). Any grid >= 1 is correct
+// (a block zeroes its slices before it takes tiles); the caller passes one
+// block per SM, capped at the number of tiles
+// (`scl_fused_sdf_bwd_tile_points`). Float32 but for the bf16 weights,
 // contiguous, on the current device. Two launches on `stream`; returns a
 // cudaError_t.
 extern "C" int scl_fused_sdf_bwd(const void* points, const void* weights,
@@ -796,24 +748,31 @@ extern "C" int scl_fused_sdf_bwd(const void* points, const void* weights,
                                  int force_symmetry, int mm_bf16,
                                  void* stream) {
   if (B <= 0 || N <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-  const int tiles_per_batch = (N + kPoints - 1) / kPoints;
-  if ((long long)tiles_per_batch * B > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = mm_bf16 ? fused_sdf_bwd_kernel<true>
-                        : fused_sdf_bwd_kernel<false>;
-  const size_t smem = (mm_bf16 ? kSmFloatsBf16 : kSmFloats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(points), weights,
-      static_cast<const float*>(biases), static_cast<const float*>(sbar),
-      static_cast<const float*>(fbar), static_cast<const float*>(gbar),
-      static_cast<float*>(dpoints), static_cast<float*>(dk_partial),
-      static_cast<float*>(db_partial), static_cast<float*>(stash), B, N,
-      tiles_per_batch, tiles_per_batch * B, force_symmetry);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (mm_bf16) {
+    err = (cudaError_t)scl_fused_sdf_bwd_bf16_launch(
+        points, weights, biases, sbar, fbar, gbar, dpoints, dk_partial,
+        db_partial, stash, B, N, grid, force_symmetry, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const int tiles_per_batch = (N + kPoints - 1) / kPoints;
+    if ((long long)tiles_per_batch * B > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = kSmFloats * sizeof(float);
+    err = cudaFuncSetAttribute(fused_sdf_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_sdf_bwd_kernel<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(points), static_cast<const float*>(weights),
+        static_cast<const float*>(biases), static_cast<const float*>(sbar),
+        static_cast<const float*>(fbar), static_cast<const float*>(gbar),
+        static_cast<float*>(dpoints), static_cast<float*>(dk_partial),
+        static_cast<float*>(db_partial), static_cast<float*>(stash), B, N,
+        tiles_per_batch, tiles_per_batch * B, force_symmetry);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   const int total = kNumWeights + B * kBiasStride;
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(dk_partial),
@@ -824,4 +783,12 @@ extern "C" int scl_fused_sdf_bwd(const void* points, const void* weights,
 
 extern "C" int scl_fused_sdf_bwd_num_weights() { return kNumWeights; }
 
-extern "C" int scl_fused_sdf_bwd_stash_floats() { return kStashFloats; }
+extern "C" int scl_fused_sdf_bwd_stash_floats(int mm_bf16) {
+  return mm_bf16 ? scl_fused_sdf_bwd_bf16_stash_floats() : kStashFloats;
+}
+
+// Points a tile holds: a block's tile of the float32 kernel or of the bf16
+// one.
+extern "C" int scl_fused_sdf_bwd_tile_points(int mm_bf16) {
+  return mm_bf16 ? scl_fused_sdf_bwd_bf16_tile_points() : kPoints;
+}

@@ -1,8 +1,9 @@
-"""The builder that the port's CUDA libraries share: one `.cu` source under
-`csrc/` compiled by `nvcc` for sm_90a into a shared library with a plain C
-interface, in `build/` at the repository root (gitignored), once per content
-hash, and loaded with ctypes. Nothing is built at import; a library builds
-at its first launch, or all of them at once through `build_kernels`.
+"""How the port's CUDA libraries are built: the `.cu` sources of a
+library under `csrc/` compiled by one `nvcc` run for sm_90a into a shared
+library with a plain C interface, in `build/` at the repository root
+(gitignored), once per content hash, and loaded with ctypes. Nothing is
+built at import; a library builds at its first launch, or all of them at
+once through `build_kernels`.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ def _find_nvcc():
 
 
 class CudaLibrary:
-    """One `.cu` source built with nvcc (sm_90a, plain C interface) into
-    `build/`, once per content hash, and loaded with ctypes. A subclass
-    names `stem` and `source` and binds its C functions in `_bind`."""
+    """A library's `.cu` sources built with nvcc (sm_90a, plain C interface)
+    into `build/`, once per content hash, and loaded with ctypes. A subclass
+    names `stem` and `source` (and any `extra_sources` linked into the same
+    library) and binds its C functions in `_bind`."""
 
     stem = None
     source = None
+    extra_sources = ()
 
     def __init__(self, build_dir=BUILD_DIR):
         self.build_dir = build_dir
@@ -45,9 +48,15 @@ class CudaLibrary:
         self.build_seconds = None
         self.ptxas_log = None
 
+    def sources(self):
+        return (self.source, *self.extra_sources)
+
     def library_path(self):
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        h = hashlib.sha1()
+        for src in self.sources():
+            with open(src, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:12]
         return os.path.join(self.build_dir, f"lib{self.stem}_{digest}.so")
 
     def build(self, force=False):
@@ -64,11 +73,11 @@ class CudaLibrary:
             os.close(fd)
             cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", tmp, self.source]
+                   "-Xcompiler", "-fPIC", "-o", tmp, *self.sources()]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {self.source} "
+                raise RuntimeError(f"nvcc failed on {self.sources()} "
                                    f"({proc.returncode}):\n{proc.stdout}\n"
                                    f"{proc.stderr}")
             self.ptxas_log = proc.stderr

@@ -1,6 +1,7 @@
 """Fused SDF-MLP forward (+ forward-mode point gradient) and its backward:
 the plain PyTorch version and the wrappers of the Hopper kernels
-`csrc/fused_sdf_fwd.cu` (K1 / K3) and `csrc/fused_sdf_bwd.cu` (K2).
+`csrc/fused_sdf_fwd.cu` (K1 / K3) and `csrc/fused_sdf_bwd.cu` (K2), whose
+library also links `csrc/fused_sdf_bwd_bf16.cu` (K2-bf16).
 
 Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
   * `prepare_fused_params`: the latent folded into per-sample biases and the
@@ -20,9 +21,10 @@ There is no fallback from CUDA to the plain version.
 `mm_dtype` is the JAX package's `_mm_cast` switch: "float32", or
 "bfloat16", where every product inside the pair rounds both of its operands
 to bfloat16 and accumulates in float32 while everything elementwise stays
-float32. The kernels have an instantiation for each; the plain version
-takes its bf16 products from `_CastProduct`, whose backward rounds the
-cotangent and the saved operands before each product, as K2 does.
+float32. The forward kernel has an instantiation for each, the backward a
+float32 kernel and a tensor-core one for bf16; the plain version takes its
+bf16 products from `_CastProduct`, whose backward rounds the cotangent and
+the saved operands before each product, as K2-bf16 does.
 
 Each library builds at first use from this package's own source into
 `build/` at the repository root (`ops/cuda_lib.py`: `nvcc`, plain C
@@ -44,6 +46,7 @@ INV_SQRT2 = 0.7071067811865476
 
 _SOURCE = os.path.join(CSRC_DIR, "fused_sdf_fwd.cu")
 _SOURCE_BWD = os.path.join(CSRC_DIR, "fused_sdf_bwd.cu")
+_SOURCE_BWD_BF16 = os.path.join(CSRC_DIR, "fused_sdf_bwd_bf16.cu")
 
 # the architecture the kernel is written for (options/pix3d/config.yaml)
 KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
@@ -55,9 +58,13 @@ BIAS_WIDTH = 5 * 64 + 65
 FWD_TILE_POINTS = {"grad": 64, "nograd": 256}
 FWD_TILE_POINTS_BF16 = {"grad": 8, "nograd": 32}
 # K2's tile (`csrc/fused_sdf_bwd.cu`: kPoints) and the floats of its
-# per-block pre-activation stash (5 hidden layers x 128 rows x 64)
+# per-block pre-activation stash (5 hidden layers x 128 rows x 64); K2-bf16's
+# tile (`csrc/fused_sdf_bwd_bf16.cu`: kPoints, 8 warps of 8 points) and its
+# per-block stash (8 warps x 4 layers x 18 words of 16 bytes x 32 lanes)
 BWD_TILE_POINTS = 32
 BWD_STASH_FLOATS = 5 * 4 * BWD_TILE_POINTS * 64
+BWD_TILE_POINTS_BF16 = 64
+BWD_STASH_FLOATS_BF16 = 8 * 4 * 18 * 32 * 4
 # the products' operand types of the pair (`_mm_cast` in the JAX package)
 MM_DTYPES = ("float32", "bfloat16")
 
@@ -310,12 +317,15 @@ class FusedSdfKernel(CudaLibrary):
 
 
 class FusedSdfBackwardKernel(CudaLibrary):
-    """The backward library (K2, `csrc/fused_sdf_bwd.cu`). `launches`
-    counts its launches per `mm_dtype` ('float32', 'bfloat16'),
-    incremented where it is launched and nowhere else."""
+    """The backward library: K2 (`csrc/fused_sdf_bwd.cu`, float32 products)
+    and K2-bf16 (`csrc/fused_sdf_bwd_bf16.cu`, bf16 products on the tensor
+    cores) behind one C entry point. `launches` counts its launches per
+    `mm_dtype` ('float32', 'bfloat16'), incremented where it is launched and
+    nowhere else."""
 
     stem = "scl_fused_sdf_bwd"
     source = _SOURCE_BWD
+    extra_sources = (_SOURCE_BWD_BF16,)
 
     def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
@@ -326,14 +336,22 @@ class FusedSdfBackwardKernel(CudaLibrary):
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for name in ("scl_fused_sdf_bwd_num_weights",
-                     "scl_fused_sdf_bwd_stash_floats"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.scl_fused_sdf_bwd_num_weights.argtypes = []
+        lib.scl_fused_sdf_bwd_num_weights.restype = ctypes.c_int
         if lib.scl_fused_sdf_bwd_num_weights() != NUM_WEIGHTS:
             raise RuntimeError("fused SDF backward packs a different layout")
-        if lib.scl_fused_sdf_bwd_stash_floats() != BWD_STASH_FLOATS:
+        for name in ("scl_fused_sdf_bwd_stash_floats",
+                     "scl_fused_sdf_bwd_tile_points"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+        if (lib.scl_fused_sdf_bwd_stash_floats(0),
+                lib.scl_fused_sdf_bwd_stash_floats(1)) != (
+                    BWD_STASH_FLOATS, BWD_STASH_FLOATS_BF16):
             raise RuntimeError("fused SDF backward stashes a different tile")
+        if (lib.scl_fused_sdf_bwd_tile_points(0),
+                lib.scl_fused_sdf_bwd_tile_points(1)) != (
+                    BWD_TILE_POINTS, BWD_TILE_POINTS_BF16):
+            raise RuntimeError("fused SDF backward walks a different tile")
 
     def launch(self, points, weights, biases, sbar, fbar, gbar,
                force_symmetry, mm_dtype="float32"):
@@ -346,12 +364,15 @@ class FusedSdfBackwardKernel(CudaLibrary):
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
-        # one persistent block per SM (208 KB of shared memory each), never
-        # more blocks than 32-point tiles; each block owns a slice of the
-        # weight and bias gradient partials and of the pre-activation stash
-        # (5 x 128 x 64 floats: 21 MB at 132 blocks, L2-resident)
+        # one persistent block per SM (208 or 227 KB of shared memory), never
+        # more blocks than tiles; each block owns a slice of the weight and
+        # bias gradient partials and of the stash (float32: 5 x 128 x 64
+        # pre-activations, 21 MB at 132 blocks; bf16: 288 KB a block, 39 MB;
+        # L2-resident)
+        bf16 = mm_dtype == "bfloat16"
+        tile = BWD_TILE_POINTS_BF16 if bf16 else BWD_TILE_POINTS
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = min(sms, B * -(-N // BWD_TILE_POINTS))
+        grid = min(sms, B * -(-N // tile))
         with torch.cuda.device(dev):
             f32 = dict(device=dev, dtype=torch.float32)
             dpoints = torch.empty(B, N, 3, **f32)
@@ -359,7 +380,8 @@ class FusedSdfBackwardKernel(CudaLibrary):
             dbiases = torch.empty(B, BIAS_WIDTH, **f32)
             dk_partial = torch.empty(grid, NUM_WEIGHTS, **f32)
             db_partial = torch.empty(grid, B, BIAS_WIDTH, **f32)
-            stash = torch.empty(grid, BWD_STASH_FLOATS, **f32)
+            stash = torch.empty(grid, BWD_STASH_FLOATS_BF16 if bf16
+                                else BWD_STASH_FLOATS, **f32)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.scl_fused_sdf_bwd(
                 points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
@@ -367,7 +389,7 @@ class FusedSdfBackwardKernel(CudaLibrary):
                 dpoints.data_ptr(), dweights.data_ptr(), dbiases.data_ptr(),
                 dk_partial.data_ptr(), db_partial.data_ptr(),
                 stash.data_ptr(), B, N, grid, int(bool(force_symmetry)),
-                int(mm_dtype == "bfloat16"), stream)
+                int(bf16), stream)
         if err != 0:
             raise RuntimeError(f"fused SDF backward launch failed: cudaError "
                                f"{err}")

@@ -120,18 +120,25 @@ def _port_train_grads(net, pts, lat, mm_dtype):
     return out
 
 
-@pytest.mark.parametrize("plane", [False, True])
-def test_bf16_train_gradients_match_jax(plane):
-    """B = 2, N = 300 (ragged for the JAX kernel's 256-point tiles), dense
-    weights: the gradients of a loss on (sdf, feat, grad) with respect to
-    the points, the latent and every SDF parameter, through the port's
-    plain bf16 pair and JAX's bf16 Pallas pair; with `plane` every third
-    point lies on x = 0."""
+@pytest.mark.parametrize("B,N,plane", [
+    pytest.param(2, 300, False, id="False"),
+    pytest.param(2, 300, True, id="True"),
+    # the edges of K2-bf16's 64-point tiles (csrc/fused_sdf_bwd_bf16.cu)
+    pytest.param(3, 129, False, id="B3-N129"),
+    pytest.param(3, 65, True, id="B3-N65-plane"),
+])
+def test_bf16_train_gradients_match_jax(B, N, plane):
+    """B = 2, N = 300 (ragged for the JAX kernel's 256-point tiles), and
+    B = 3 with N one past two or one past one of K2-bf16's 64-point tiles;
+    dense weights: the gradients of a loss on
+    (sdf, feat, grad) with respect to the points, the latent and every SDF
+    parameter, through the port's plain bf16 pair and JAX's bf16 Pallas
+    pair; with `plane` every third point lies on x = 0."""
     rng = np.random.RandomState(4)
-    pts = rng.uniform(-1, 1, (2, 300, 3)).astype(np.float32)
+    pts = rng.uniform(-1, 1, (B, N, 3)).astype(np.float32)
     if plane:
         pts[:, ::3, 0] = 0.0
-    lat = (rng.randn(2, 64) * 0.3).astype(np.float32)
+    lat = (rng.randn(B, 64) * 0.3).astype(np.float32)
     params, net = _nets(False, seed=2)
 
     def jloss(prm, x, l):

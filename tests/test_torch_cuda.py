@@ -1,7 +1,8 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
-fused_sdf_fwd.cu`, K1 / K3, and `csrc/fused_sdf_bwd.cu`, K2) and the
-nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5).
+fused_sdf_fwd.cu`, K1 / K3, `csrc/fused_sdf_bwd.cu`, K2, and
+`csrc/fused_sdf_bwd_bf16.cu`, K2-bf16) and the nearest-neighbour sweep
+(`csrc/chamfer.cu`, K4 / K5).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
 imports torch and the port only (no JAX), so on a machine with the card
@@ -361,14 +362,33 @@ def test_bf16_forward_kernel_matches_plain(dev, compute_grad, N):
         assert _max_gap(k, r) < 0.5 * _max_gap(k, r32), name
 
 
-@pytest.mark.parametrize("B,N", [(2, 300), (3, 1000)])
-def test_bf16_backward_kernel_matches_plain(dev, B, N):
-    """K2-bf16 at ragged N: the weight, latent and point gradients through
-    K1-bf16 + K2-bf16 against plain autograd with `_CastProduct`'s bf16
-    backward products; farther from the float32 pair."""
+@pytest.mark.parametrize("B,N,plane,symmetry", [
+    pytest.param(2, 300, False, True, id="2-300"),
+    pytest.param(3, 1000, False, True, id="3-1000"),
+    # K2-bf16's tile is 64 points (8 warps of 8): one short of, at, and one
+    # past a tile, and one past two, with B = 3 (blocks take tiles of two
+    # batch rows); the eikonal call's shape
+    pytest.param(3, 63, False, True, id="3-63"),
+    pytest.param(3, 64, False, True, id="3-64"),
+    pytest.param(3, 65, False, True, id="3-65"),
+    pytest.param(3, 129, False, True, id="3-129"),
+    pytest.param(12, 1024, False, True, id="eikonal"),
+    # every third point on x = 0, with the |x0| symmetry and without
+    pytest.param(2, 300, True, True, id="plane"),
+    pytest.param(2, 300, True, False, id="plane-no-symmetry"),
+])
+def test_bf16_backward_kernel_matches_plain(dev, B, N, plane, symmetry):
+    """K2-bf16 (the tensor-core kernel): the weight, latent and point
+    gradients through K1-bf16 + K2-bf16 against plain autograd with
+    `_CastProduct`'s bf16 backward products; farther from the float32
+    pair."""
     g = torch.Generator().manual_seed(B * 1000 + N)
     net = SDFNetwork(geometric_init=False, generator=g).to(dev)
-    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    net.force_symmetry = symmetry
+    pts = torch.rand(B, N, 3, generator=g) * 2 - 1
+    if plane:
+        pts[:, ::3, 0] = 0.0
+    pts = pts.to(dev)
     lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
     cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
 
@@ -404,6 +424,75 @@ def test_bf16_backward_kernel_matches_plain(dev, B, N):
     for k in ("points", "latent", "lin0.weight", "lin5.weight"):
         assert _max_gap(got[k], want[k]) < 0.5 * _max_gap(got[k], f32[k]), \
             (k, rel[k])
+
+
+def test_bf16_backward_kernel_is_deterministic(dev):
+    """Two K2-bf16 launches on the same inputs give bitwise equal weight,
+    bias and point gradients (per-block partials summed in block order, no
+    atomics)."""
+    g = torch.Generator().manual_seed(7)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    B, N = 4, 3000
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    sbar, fbar, gbar = (torch.randn(B, N, *c, generator=g).to(dev)
+                        for c in ((), (64,), (3,)))
+    with torch.no_grad():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    w16 = weights.to(torch.bfloat16)
+    first = F.BACKWARD.launch(pts, w16, bias, sbar, fbar, gbar, True,
+                              "bfloat16")
+    second = F.BACKWARD.launch(pts, w16, bias, sbar, fbar, gbar, True,
+                               "bfloat16")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("weights", "biases", "points"), first, second):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+
+
+def test_bf16_backward_kernel_render_shape(dev):
+    """12 x 32,768 (the training render) under `chip_smoke.py` phase 5a's
+    gates, on its network and another draw of inputs (seed 11, the render
+    drawn first): every gradient's max abs error against the plain
+    bf16 backward under 2e-2 x max|ref| (a bf16 flip at one of 393,216
+    points stays inside it, a wrong product does not), its mean under
+    1e-4 x max|ref| and, but for the output bias's (an unrounded sum in
+    both precisions), under half its mean distance from the float32 pair."""
+    g = torch.Generator().manual_seed(0)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    g = torch.Generator().manual_seed(11)
+    B, N = 12, 32768
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+
+    def grads(kernel, mm_dtype):
+        net.zero_grad()
+        p = pts.clone().requires_grad_(True)
+        l = lat.clone().requires_grad_(True)
+        if kernel:
+            out = F.fused_sdf_train(net, p, l, mm_dtype=mm_dtype)
+        else:
+            kk, bb = F.prepare_fused_params(net, l)
+            out = F._forward_plain(kk, bb, p, *F._arch(net), True, True,
+                                   mm_dtype)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        out = {n: q.grad.clone() for n, q in net.named_parameters()}
+        out.update(points=p.grad.clone(), latent=l.grad.clone())
+        return out
+
+    got, want = grads(True, "bfloat16"), grads(False, "bfloat16")
+    f32 = grads(True, "float32")
+    torch.cuda.synchronize()
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3)
+        e = (got[k] - w).abs()
+        gap = float((got[k] - f32[k]).abs().mean())
+        assert torch.isfinite(got[k]).all(), k
+        assert float(e.max()) <= 2e-2 * scale, (k, float(e.max()) / scale)
+        assert float(e.mean()) <= 1e-4 * scale, (k, float(e.mean()) / scale)
+        if k != "lin5.bias":
+            assert float(e.mean()) < 0.5 * gap, (k, float(e.mean()), gap)
 
 
 def test_bad_mm_dtype_raises(dev):

@@ -15,17 +15,32 @@ gathered, the best-epoch choice, and rank 0's writes. The full evaluation
 of each run's best.pt must give byte-equal cd_cat.txt, f_score.txt and
 chamfer.txt, and the logs the same `Best CD` and checkpoint lines (rank 1
 writes none).
+
+Each rank's output is its own file (torchrun's `--log-dir` with
+`--redirects 3`), so the lines compared are rank 0's, never two ranks'
+output merged into one stream. Every process starts in a process group of
+its own and is killed with the whole group on a timeout, so no rank
+outlives the test.
+The limits: each single process run TIMEOUT_S; torchrun DDP_FACTOR times
+the one-process run's measured wall plus DDP_SLACK_S, from the same start
+(torchrun runs the same steps on two ranks of half the batch each; the
+slack is its agent's and two ranks' start-up and rendezvous). Measured
+alone on 8 CPU cores: the one-process run 11.6 s, the whole test 22 s.
 """
 
+import glob
 import os
 import re
+import signal
 import subprocess
 import sys
+import time
 
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 150
+DDP_FACTOR, DDP_SLACK_S = 3.0, 30.0
 TINY = ["--yaml=options/synthetic/config.yaml", "--name=run",
         "--max_epoch=1", "--batch_size=2", "--image_size=[32,32]",
         "--render.rand_sample=32", "--render.n_samples_uniform=8",
@@ -38,47 +53,95 @@ REPORTS = ("cd_cat.txt", "f_score.txt", "chamfer.txt")
 
 
 def start(cmd, out, log):
+    """A process in a process group of its own, its output into `log`."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     return subprocess.Popen(cmd + [f"--output_root={out}"], cwd=REPO,
                             env=env, stdout=open(log, "w"),
-                            stderr=subprocess.STDOUT)
+                            stderr=subprocess.STDOUT, process_group=0)
+
+
+def kill_group(p):
+    """The process and everything it started (torchrun's ranks)."""
+    if p.poll() is None:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    p.wait()
+
+
+def wait_until(p, deadline):
+    """-> whether `p` ended before the monotonic `deadline`."""
+    try:
+        p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+        return True
+    except subprocess.TimeoutExpired:
+        return False
+
+
+def check_exit(p, log):
+    if p.returncode != 0:
+        with open(log) as f:
+            pytest.fail(f"{p.args[:4]} exited with {p.returncode}:\n"
+                        f"{f.read()[-3000:]}")
 
 
 def finish(procs, logs):
-    """Wait for every process (TIMEOUT_S in all), kill the rest on a
+    """Wait for every process (TIMEOUT_S in all), kill every group on a
     failure, fail with the log of the first that did not exit 0."""
+    deadline = time.monotonic() + TIMEOUT_S
     try:
         for p in procs:
-            p.wait(timeout=TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        pass
+            wait_until(p, deadline)
     finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        if p.returncode != 0:
-            with open(log) as f:
-                pytest.fail(f"{p.args[:4]} exited with {p.returncode}:\n"
-                            f"{f.read()[-3000:]}")
+            kill_group(p)
     out = []
-    for log in logs:
+    for p, log in zip(procs, logs):
+        check_exit(p, log)
         with open(log) as f:
             out.append(f.read())
     return out
 
 
+def rank_stdout(log_dir, rank):
+    """torchrun's `<log_dir>/<run id>/attempt_<n>/<rank>/stdout.log`."""
+    paths = glob.glob(os.path.join(log_dir, "*", "attempt_*", str(rank),
+                                   "stdout.log"))
+    assert len(paths) == 1, (rank, paths)
+    with open(paths[0]) as f:
+        return f.read()
+
+
 def test_torchrun_train_matches_one_process(tmp_path):
     one, ddp = tmp_path / "one", tmp_path / "ddp"
     logs = [tmp_path / "one.log", tmp_path / "ddp.log"]
+    log_dir = str(tmp_path / "ranks")
+    t0 = time.monotonic()
     procs = [
         start([sys.executable, "-m", "shapeclipper_torch.train",
                *TINY, *TRAIN], one, logs[0]),
         start([sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node=2", "-m", "shapeclipper_torch.train",
-               "--distributed", *TINY, *TRAIN], ddp, logs[1])]
-    text = finish(procs, logs)
+               "--nproc_per_node=2", f"--log-dir={log_dir}", "--redirects=3",
+               "-m", "shapeclipper_torch.train", "--distributed", *TINY,
+               *TRAIN], ddp, logs[1])]
+    try:
+        if not wait_until(procs[0], t0 + TIMEOUT_S):
+            pytest.fail(f"the one-process run passed {TIMEOUT_S} s")
+        wall_one = time.monotonic() - t0
+        limit = DDP_FACTOR * wall_one + DDP_SLACK_S
+        if not wait_until(procs[1], t0 + limit):
+            pytest.fail(f"torchrun passed {limit:.0f} s ({DDP_FACTOR} x the "
+                        f"one-process run's {wall_one:.1f} s + "
+                        f"{DDP_SLACK_S:.0f} s)")
+    finally:
+        for p in procs:
+            kill_group(p)
+    for p, log in zip(procs, logs):
+        check_exit(p, log)
+    with open(logs[0]) as f:
+        text = [f.read(), rank_stdout(log_dir, 0)]
+    rank1 = rank_stdout(log_dir, 1)
 
     def lines(log, pattern):
         return [ln for ln in log.splitlines() if re.search(pattern, ln)]
@@ -89,6 +152,9 @@ def test_torchrun_train_matches_one_process(tmp_path):
                     r"^\[eval\]"):
         assert lines(text[0], pattern), pattern
         assert lines(text[1], pattern) == lines(text[0], pattern), pattern
+    for pattern in (r"^Best CD: ", r"^checkpoint saved: ",
+                    r"^Saving the current model"):
+        assert not lines(rank1, pattern), pattern
     run = "synthetic_output/run"
     for out in (one, ddp):
         assert (out / run / "best.pt").is_file()

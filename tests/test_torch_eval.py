@@ -9,6 +9,11 @@ samples in batches of 2, so the last batch is ragged: the JAX package pads
 it, the port runs it at its own size) from the same weights through
 `bridge.py`, merge flags off, float32 on both sides.
 
+Both packages' host marching tetrahedra run on one complete native library
+(`tests/torch_native_lib.py`): the JAX loader's numpy fallback orders the
+triangles differently, so a worker whose JAX loader lost its build race
+would compare two meshes of other triangles.
+
 Tolerances: clouds and distances rtol 1e-4 / atol 1e-5 (the level grids
 agree to ~1e-6, so marching tets and sampling give the same triangles and
 points); F-scores 1e-3 absolute (one point crossing a threshold moves a
@@ -33,6 +38,8 @@ from shapeclipper_torch import bridge
 from shapeclipper_torch.eval3d import metrics as tmetrics
 from shapeclipper_torch.train.trainer import Runner
 from shapeclipper_torch.utils.easydict import EasyDict as edict
+from tests.torch_native_lib import (  # noqa: F401
+    one_native_library, point_jax_loader_at_port_library)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -98,7 +105,8 @@ def _level_grid(rng, B, N, lo, hi):
 
 
 @pytest.mark.parametrize("vis_only", [False, True])
-def test_eval_metrics_finish_matches_jax(base_opt, vis_only):
+def test_eval_metrics_finish_matches_jax(base_opt, vis_only,
+                                         one_native_library):
     opt = base_opt.deepcopy()
     opt.eval.update(num_points=3000, vox_res=20)
     opt.tpu.device_isosurface = False
@@ -198,7 +206,14 @@ def _capture_f_scores(runner):
 
 @pytest.fixture(scope="module")
 def evaluated(base_opt, tmp_path_factory):
-    """Runner.evaluate (a full evaluation with dumps) on both sides."""
+    """Runner.evaluate (a full evaluation with dumps) on both sides, both on
+    the port's native library."""
+    with pytest.MonkeyPatch.context() as mp:
+        point_jax_loader_at_port_library(mp)
+        return _evaluate_both(base_opt, tmp_path_factory)
+
+
+def _evaluate_both(base_opt, tmp_path_factory):
     jopt = eval_opt(base_opt, tmp_path_factory.mktemp("jax_eval"))
     params, stats = perturbed_state(jopt)
     jr = JaxRunner(jopt)

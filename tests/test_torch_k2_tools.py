@@ -1,6 +1,7 @@
-"""The host-side helpers around the fused SDF kernels K2 and K1 / K3
-(`shapeclipper_torch/csrc/fused_sdf_bwd.cu`, `fused_sdf_fwd.cu`), on the
-CPU: the wrapper's tile and stash constants against the sources,
+"""The host-side helpers around the fused SDF kernels K2, K2-bf16 and K1 /
+K3 (`shapeclipper_torch/csrc/fused_sdf_bwd.cu`, `fused_sdf_bwd_bf16.cu`,
+`fused_sdf_fwd.cu`), on the CPU: the wrapper's tile and stash constants
+against the sources,
 `chip_smoke.py`'s reading of the ptxas log, and `scripts/sdf_segments.py`'s
 instrumentation of the backward and forward kernels."""
 
@@ -46,6 +47,27 @@ def test_wrapper_constants_match_the_kernel():
     assert const["kStashFloats"] == "kHidden * kRows * kWidth"
     assert int(const["kHidden"]) * 4 * F.BWD_TILE_POINTS * 64 \
         == F.BWD_STASH_FLOATS
+
+
+def test_bf16_backward_tile_and_stash_match_the_kernel():
+    """K2-bf16's tile in points and its per-block stash in floats
+    (`F.BWD_TILE_POINTS_BF16`, `F.BWD_STASH_FLOATS_BF16`: the wrapper caps
+    the grid and allocates the stash by them, and the library checks both
+    when it is bound on the card): 8 warps of 8 points, each warp two m16
+    tiles of [primal; t_x] and [t_y; t_z] rows; per warp, hidden layers 0-3
+    of 18 16-byte words a lane."""
+    with open(F._SOURCE_BWD_BF16) as f:
+        const = {m.group(1): m.group(2) for m in re.finditer(
+            r"constexpr int (\w+) = ([^;]+);", f.read())}
+    warps = int(const["kWarps"])
+    assert const["kPoints"] == "8 * kWarps"
+    assert const["kRows"] == "4 * kPoints"
+    assert 8 * warps == F.BWD_TILE_POINTS_BF16
+    assert 4 * F.BWD_TILE_POINTS_BF16 == 16 * 2 * warps
+    assert const["kStashFloats"] == \
+        "kWarps * kStashLayers * kStashWords * 32 * 4"
+    assert (warps * int(const["kStashLayers"]) * int(const["kStashWords"])
+            * 32 * 4) == F.BWD_STASH_FLOATS_BF16
 
 
 def test_forward_tile_matches_the_kernel():

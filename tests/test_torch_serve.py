@@ -28,15 +28,14 @@ import pytest
 import torch
 
 from shapeclipper_tpu.eval3d import isosurface as jiso
-from shapeclipper_tpu.eval3d import native as jnative
 from shapeclipper_tpu.eval3d import metrics as jmetrics
 from shapeclipper_tpu.models.graph import Graph as JaxGraph
 from shapeclipper_tpu.utils import checkpoint as jckpt
 from shapeclipper_torch import bridge
 from shapeclipper_torch.eval3d import isosurface as tiso
-from shapeclipper_torch.eval3d import native as tnative
 from shapeclipper_torch.train.trainer import Runner
 from shapeclipper_torch.utils.easydict import EasyDict as tedict
+from tests.torch_native_lib import one_native_library  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -172,21 +171,6 @@ def test_serving_slice_matches_jax(base_opt, jax_model, tmp_path, grad_mode,
                1e-4)
         _close(var.rotating_normals[i],
                np.asarray(normal).reshape(1, 8, 8, 3) / 2 + 0.5, 1e-4)
-
-
-@pytest.fixture
-def one_native_library(monkeypatch):
-    """Both packages on the same, complete native library: the port's
-    locked build, which the JAX module's loader is pointed at, so the
-    comparison never depends on which process built first."""
-    path = tnative.build()
-    assert path is not None, "g++ could not build native/scl_native.cpp"
-    monkeypatch.setattr(tnative, "_lib", None)
-    monkeypatch.setattr(tnative, "_tried", False)
-    monkeypatch.setattr(jnative, "_LIB_PATH", path)
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_tried", False)
-    assert tnative.available() and jnative.available()
 
 
 def test_port_isosurface_matches_jax(base_opt, jax_model, jax_served,
