@@ -14,14 +14,15 @@ no CPU fallback):
      1,030,301 grid points without; K1 again at the training shape, there
      also against the plain version in float64; two launches bitwise equal;
      registers and spills of both instantiations from the ptxas log (a
-     spill fails the run); cycles per barrier segment of K1 and K3
-     (`scripts/sdf_segments.py`);
+     spill fails the run); cycles per barrier segment of K1 and K3, and
+     K1-bf16's per stage (`scripts/sdf_segments.py`);
   3. K2 (backward) against plain autograd of the plain version at
      B x N = 12 x 32,768 (render), 12 x 1,024 (eikonal), a ragged 2 x 300
      and 2 x 300 with points on the x = 0 plane; two launches bitwise
      equal; its registers and spills from the ptxas log; CUDA-event times
      of K2 alone at the eikonal and the render shape, of the K1 + K2 pair
-     and of the plain forward + backward;
+     and of the plain forward + backward (every fused-SDF kernel time here
+     and in phase 5a is SDF_TIMED_CALLS launches between two events);
   4. four single-image requests through the port's Runner at the full width
      of options/pix3d/config.yaml (the serving path), launch counts reset
      just before and read just after, request 0 held against the CPU plain
@@ -38,14 +39,20 @@ no CPU fallback):
      to float32 and keeps its float32 gate): (a) K1-bf16, K3-bf16 and
      K2-bf16 against their bf16 plain versions at 262,144, 12 x 32,768,
      vox 64 and 12 x 1,024, each held under half its distance from the
-     float32 kernel and timed beside it; K2-bf16 (the tensor-core kernel of
+     float32 kernel and timed beside it, K1-bf16 at 12 x 32,768 also by
+     torch.profiler's device time, with K1-bf16 / K3-bf16's registers and
+     stack bytes; the bf16 weight pack (K1-bf16 / K3-bf16's fragments and
+     K2-bf16's plain copy, one launch) bitwise against its plain version;
+     K2-bf16 (the tensor-core kernel of
      `csrc/fused_sdf_bwd_bf16.cu`) also bitwise equal over two launches at
      12 x 32,768, with its registers and spills from the ptxas log (a spill
      fails the run); (b) a camera and four full bf16
      training steps with launch counts (K1-bf16 3 / K2-bf16 1, then 3 /
-     3, the float32 K1 / K2 none), the steady step, peak memory and a
+     3, one weight pack per K1-bf16 launch, the float32 K1 / K2 none), the
+     steady step, peak memory and a
      profiled step with cuDNN's share; (c) three bf16 requests (K1-bf16
-     9, the float32 K3 3 per request); (d) a batch-4 full step on the card
+     and the pack 9, the float32 K3 3 per request); (d) a batch-4 full
+     step on the card
      against the CPU at implicit bfloat16 (gated: each MLP's gradient
      under half its distance from float32) and with both keys bfloat16 (a
      reading);
@@ -164,6 +171,9 @@ PLAIN_BLOCK_CARD = 1 << 26
 N_NN = 100_000
 N_GT = 2048                     # the synthetic GT cloud (data/synthetic.py)
 NN_TIMED_CALLS = 10             # K4 / K5 calls between two CUDA events
+# fused-SDF kernel calls (K1 / K3 / K2 and their bf16 forms) between two
+# CUDA events: one call would time the host's launch path with the kernel
+SDF_TIMED_CALLS = 20
 NN_FLOP_PER_PAIR = 8            # 3 subtractions, 3 multiplies, 2 additions
 # the card-vs-CPU evaluation: per-sample CD rtol, F-score absolute
 EVAL_CD_RTOL, EVAL_F_ATOL = 1e-4, 1e-3
@@ -268,11 +278,11 @@ def bound(flop, nbytes, mm_flop=0):
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
-def ptxas_usage(ptxas_log, kernel):
-    """(registers, spill store bytes, spill load bytes) of the entry function
-    whose mangled name contains `kernel`, from nvcc's `-Xptxas -v` output.
-    Raises when there is no log (a library loaded from an earlier build) or
-    no such entry."""
+def ptxas_usage(ptxas_log, kernel, stack=False):
+    """(registers, spill store bytes, spill load bytes), and with `stack` the
+    stack frame's bytes after them, of the entry function whose mangled name
+    contains `kernel`, from nvcc's `-Xptxas -v` output. Raises when there is
+    no log (a library loaded from an earlier build) or no such entry."""
     if not ptxas_log:
         raise AssertionError(f"no ptxas log for {kernel}: its library was "
                              "not compiled in this run")
@@ -281,11 +291,12 @@ def ptxas_usage(ptxas_log, kernel):
         if kernel not in entry.split("\n")[0]:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", entry)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", entry)
         if regs and spill:
-            return (int(regs.group(1)), int(spill.group(1)),
-                    int(spill.group(2)))
+            usage = (int(regs.group(1)), int(spill.group(2)),
+                     int(spill.group(3)))
+            return usage + (int(spill.group(1)),) if stack else usage
     raise AssertionError(f"no ptxas usage for {kernel} in the build log")
 
 
@@ -437,7 +448,7 @@ def phase_kernels(opt):
                                               compute_grad=cg)
             errs = check_forward(k, r, f"at B={B} N={N}")
             ms = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, cg,
-                                                 True))
+                                                 True), calls=SDF_TIMED_CALLS)
             plain_ms = cuda_ms(lambda: F._forward_plain(
                 kernels, biases, pts, *F._arch(net), cg, True))
             log(f"[kernel] B={B} N={N} compute_grad={cg}: max abs err "
@@ -503,14 +514,17 @@ def forward_float64(net, pts, latent, got):
 
 
 def segment_shares():
-    """K1 and K3's cycles per barrier segment (`scripts/sdf_segments.py`:
-    one instrumented build, thread 0 of block 0)."""
+    """K1 and K3's cycles per barrier segment and K1-bf16's per stage
+    (`scripts/sdf_segments.py`: one instrumented build each, thread 0 of
+    block 0)."""
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import sdf_segments
     for argv in (["--kernel", "fwd", "--label", "k1", "--B", "12",
                   "--N", "32768"],
                  ["--kernel", "fwd", "--label", "k3", "--B", "1",
-                  "--N", "274625", "--no-grad"]):
+                  "--N", "274625", "--no-grad"],
+                 ["--kernel", "fwd-bf16", "--label", "k1_bf16", "--B", "12",
+                  "--N", "32768"]):
         if sdf_segments.main(argv) != 0:
             raise AssertionError(f"sdf_segments.py {' '.join(argv)} failed")
 
@@ -614,6 +628,27 @@ def profiled(tag, what, fn, n_top, watch=(), share=None):
     return wall_ms, total
 
 
+def kernel_device_ms(fn, kernel, calls=SDF_TIMED_CALLS):
+    """Device time a launch of the kernels whose name holds `kernel`, from
+    torch.profiler's trace of `calls` calls of `fn` (after one warm-up
+    call), or None when the trace holds no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key:
+            total += e.self_device_time_total
+            count += e.count
+    return total / 1e3 / count if count and total > 0 else None
+
+
 def phase_serve(opt):
     import torch
     from shapeclipper_torch.ops import fused_sdf as F
@@ -627,7 +662,7 @@ def phase_serve(opt):
     vox = opt.eval.vox_res
     n_chunks = -(-(vox + 1) ** 3 // 131072)
     per_request = {"grad": 1 + N_VIEWS, "nograd": n_chunks, "grad_bf16": 0,
-                   "nograd_bf16": 0}
+                   "nograd_bf16": 0, "pack_bf16": 0}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -840,7 +875,7 @@ def phase_backward():
 
     # times at the eikonal shape, then at the render shape
     args = k2_args("eikonal")
-    eik_ms = cuda_ms(lambda: F.BACKWARD.launch(*args))
+    eik_ms = cuda_ms(lambda: F.BACKWARD.launch(*args), calls=SDF_TIMED_CALLS)
     B, N = args[0].shape[:2]
     eik_bound, eik_by = bound(FLOP_K2 * B * N, k2_bytes(B, N))
     pts_e, lat_e, cots_e = shapes["eikonal"]
@@ -856,7 +891,7 @@ def phase_backward():
     args = k2_args("render")
     pts, lat, cots = shapes["render"]
     B, N = pts.shape[:2]
-    k2_ms = cuda_ms(lambda: F.BACKWARD.launch(*args))
+    k2_ms = cuda_ms(lambda: F.BACKWARD.launch(*args), calls=SDF_TIMED_CALLS)
     p = pts.clone().requires_grad_(True)
 
     def pair():
@@ -1129,11 +1164,23 @@ def phase_bf16_kernels(opt):
                               BF16_MAX_TOL, BF16_MEAN_TOL)
             kernels, biases = F.prepare_fused_params(net, latent)
             weights, bias = F.pack_fused_params(kernels, biases)
-            w16 = weights.to(torch.bfloat16)
-            ms = cuda_ms(lambda: F.KERNEL.launch(pts, w16, bias, cg, True,
-                                                 "bfloat16"))
+            frags = F.KERNEL.pack_bf16(weights)[0]
+
+            def launch_bf16():
+                return F.KERNEL.launch(pts, frags, bias, cg, True,
+                                       "bfloat16")
+            ms = cuda_ms(launch_bf16, calls=SDF_TIMED_CALLS)
             ms32 = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, cg,
-                                                   True))
+                                                   True),
+                           calls=SDF_TIMED_CALLS)
+            if (key, B) == ("grad", 12):
+                prof_ms = kernel_device_ms(launch_bf16,
+                                           "fused_sdf_fwd_bf16_kernel")
+                log(f"[bf16] {label}: torch.profiler's device time "
+                    + ("not measured (no device time in the trace)"
+                       if prof_ms is None else f"{prof_ms:.4f} ms")
+                    + f" a launch over {SDF_TIMED_CALLS} launches, CUDA "
+                    f"events {ms:.4f} ms")
             plain_ms = cuda_ms(lambda: F._forward_plain(
                 kernels, biases, pts, *F._arch(net), cg, True, "bfloat16"))
             flop, (bound_ms, bound_by) = forward_bound(B, N, cg, bf16=True)
@@ -1150,7 +1197,14 @@ def phase_bf16_kernels(opt):
             res[(key, B)] = dict(err=max(e[0] for e in errs.values()), ms=ms,
                                  f32_ms=ms32, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by)
+        res["pack"] = check_bf16_pack(weights)
 
+    for label, name in (("K1-bf16", "fused_sdf_fwd_bf16_kernelILb1E"),
+                        ("K3-bf16", "fused_sdf_fwd_bf16_kernelILb0E")):
+        regs, st, ld, stack = ptxas_usage(F.KERNEL.ptxas_log, name,
+                                          stack=True)
+        log(f"[bf16] {label} ptxas: {regs} registers, {stack} bytes stack "
+            f"frame, {st} / {ld} bytes spill stores / loads")
     g = torch.Generator().manual_seed(SEED + 11)
 
     def grads(pts, lat, cots, kernel, mm):
@@ -1204,9 +1258,10 @@ def phase_bf16_kernels(opt):
             if usage[1] or usage[2]:
                 raise AssertionError(f"K2-bf16 spills registers: {usage}")
         ms = cuda_ms(lambda: F.BACKWARD.launch(args[0], w16, *args[1:], True,
-                                               "bfloat16"))
+                                               "bfloat16"),
+                     calls=SDF_TIMED_CALLS)
         ms32 = cuda_ms(lambda: F.BACKWARD.launch(args[0], weights, *args[1:],
-                                                 True))
+                                                 True), calls=SDF_TIMED_CALLS)
         kk, bb = F.prepare_fused_params(net, lat)
         pp = pts.clone().requires_grad_(True)
         out = F._forward_plain(kk, bb, pp, *F._arch(net), True, True,
@@ -1239,6 +1294,41 @@ def phase_bf16_kernels(opt):
     return res, api
 
 
+def check_bf16_pack(weights):
+    """The bf16 weight pack (`FusedSdfKernel.pack_bf16`: K1-bf16 / K3-bf16's
+    fragments and K2-bf16's plain copy, one launch where the cast was one)
+    bitwise against its plain version, timed beside it and beside the cast
+    it replaces -> its results."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    got = F.KERNEL.pack_bf16(weights)
+    want = F.pack_bf16_reference(weights)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, want)):
+        raise AssertionError(f"the bf16 weight pack differs from its plain "
+                             f"version (max abs {err:.3e})")
+    ms = cuda_ms(lambda: F.KERNEL.pack_bf16(weights), calls=SDF_TIMED_CALLS)
+    plain_ms = cuda_ms(lambda: F.pack_bf16_reference(weights))
+    cast_ms = cuda_ms(lambda: weights.to(torch.bfloat16),
+                      calls=SDF_TIMED_CALLS)
+    # a launch this small is timed by the host's launch path: the
+    # profiler's device time says what the kernel itself takes
+    device_ms = kernel_device_ms(lambda: F.KERNEL.pack_bf16(weights),
+                                 "pack_bf16_kernel")
+    bound_ms, bound_by = bound(0, 4 * F.NUM_WEIGHTS
+                               + 2 * (F.BF16_FRAG_ELEMS + F.NUM_WEIGHTS))
+    log(f"[bf16] weight pack: bitwise its plain version; {ms:.4f} ms a call "
+        f"(the cast it replaces {cast_ms:.4f} ms), device time "
+        + ("not measured" if device_ms is None else f"{device_ms:.4f} ms")
+        + f", plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{100 * bound_ms / ms:.1f}% of it reached)")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, cast_ms=cast_ms, device_ms=device_ms)
+
+
 def phase_train_bf16():
     """(b) The flagship training step at the YAML's own dtypes (bf16
     ResNets, K1-bf16 + K2-bf16 in every render, a bf16 RGB MLP): a camera
@@ -1265,7 +1355,8 @@ def phase_train_bf16():
         times.append((time.perf_counter() - t0) * 1e3)
         now = read_launches()
         got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
-        want = dict(k1_bf16=3, k2_bf16=1 if step == 0 else 3)
+        # one weight pack for each K1-bf16 launch (it replaces the cast)
+        want = dict(k1_bf16=3, k2_bf16=1 if step == 0 else 3, pack_bf16=3)
         if got != want:
             raise AssertionError(f"bf16 step {step}: launches {got}, "
                                  f"expected {want}")
@@ -1300,7 +1391,7 @@ def phase_serve_bf16():
     runner.build_networks(opt)
     runner.restore_checkpoint(opt)
     vox = opt.eval.vox_res
-    per_request = dict(k1_bf16=1 + N_VIEWS,
+    per_request = dict(k1_bf16=1 + N_VIEWS, pack_bf16=1 + N_VIEWS,
                        k3=-(-(vox + 1) ** 3 // 131072))
     reset_launches()
     latencies = []
@@ -1790,7 +1881,7 @@ def phase_eval():
     vox = opt.eval.vox_res
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
     want = dict(k1=n, k3=k3_per * n, k2=0, k1_bf16=0, k3_bf16=0, k2_bf16=0,
-                k4=2 * n, k5=0)
+                pack_bf16=0, k4=2 * n, k5=0)
     if launches != want:
         raise AssertionError(f"evaluation launches {launches}, expected "
                              f"{want}")
@@ -2021,6 +2112,7 @@ def read_launches():
     k, b = F.KERNEL.launches, F.BACKWARD.launches
     return dict(k1=k["grad"], k3=k["nograd"], k2=b["float32"],
                 k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
+                pack_bf16=k["pack_bf16"],
                 k2_bf16=b["bfloat16"], k4=C.KERNEL.launches["dist"],
                 k5=C.KERNEL.launches["argmin"])
 
@@ -2759,10 +2851,12 @@ def phase_k1_k2_half():
         with torch.no_grad():
             kk, bb = F.prepare_fused_params(net, lat)
             weights, bias = F.pack_fused_params(kk, bb)
-        k1 = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, True, True))
+        k1 = cuda_ms(lambda: F.KERNEL.launch(pts, weights, bias, True, True),
+                     calls=SDF_TIMED_CALLS)
+        sbar = cots[0][..., 0].contiguous()
         k2 = cuda_ms(lambda: F.BACKWARD.launch(
-            pts, weights, bias, cots[0][..., 0].contiguous(), cots[1],
-            cots[2], True))
+            pts, weights, bias, sbar, cots[1], cots[2], True),
+            calls=SDF_TIMED_CALLS)
         # the plain versions: the forward with tangents, and the backward
         # alone (autograd of one kept plain forward), as phases 2 and 3
         with torch.inference_mode():
@@ -2989,6 +3083,13 @@ def main():
              launches=k3_bf16_api, max_abs_err=bf16[("nograd", 1)]["err"],
              **{k: bf16[("nograd", 1)][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
+             library_ms=None),
+        dict(name="fused_sdf_pack_bf16 (K1-bf16 / K3-bf16's weights as bf16 "
+             "B fragments, with K2-bf16's plain copy)", route="cuda",
+             source=SOURCE, replaces=REPLACES,
+             launches=bf16_launches["pack_bf16"], max_abs_err=bf16["pack"][
+                 "err"], **{k: bf16["pack"][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
              library_ms=None),
         dict(name="fused_sdf_bwd_bf16 (K2-bf16, bf16 products on the tensor "
              "cores)", route="cuda", source=SOURCE_BWD_BF16,

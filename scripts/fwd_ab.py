@@ -14,12 +14,17 @@ of `chip_smoke.py`'s phase-2 shapes (`forward_cases`: K1 at the serving
 render's 1 x 262,144 and the training render's 12 x 32,768, K3 at vox 64 and
 vox 100), every build is held against the plain PyTorch version
 (`chip_smoke.check_forward`) and then timed by CUDA events (`cuda_ms`) in
-two rounds, the builds in order and then in reverse (a, b, c, c, b, a).
-Prints each build's registers and spills, times, their mean and the share of
-the bound (`chip_smoke.forward_bound`), then one JSON line of the results.
+two rounds, the builds in order and then in reverse (a, b, c, c, b, a),
+each time `chip_smoke.SDF_TIMED_CALLS` launches between two events.
+Prints each build's registers and spills, times, their mean, the share of
+the bound (`chip_smoke.forward_bound`) and whether its outputs are bitwise
+the first build's, then one JSON line of the results.
 `--bf16` runs the bfloat16-product instantiations instead (sources whose
 entry takes `mm_bf16`), held against the plain version's bf16 products as
-`chip_smoke.py` holds them (`check_bf16`). Imports no JAX.
+`chip_smoke.py` holds them (`check_bf16`); each version reads its weights
+as its source does (the fragments of its own `scl_fused_sdf_pack_bf16`, or
+the plain bf16 copy of earlier sources), made once before it is timed.
+Imports no JAX.
 """
 
 import argparse
@@ -37,6 +42,7 @@ OUT = os.path.join(REPO, "build", "fwd_ab")
 
 
 def version_class():
+    import torch
     from shapeclipper_torch.ops.fused_sdf import FusedSdfKernel
 
     class Version(FusedSdfKernel):
@@ -50,7 +56,11 @@ def version_class():
             super().__init__(OUT)
             self.source = source
             with open(source) as f:
-                self.has_mm = "int mm_bf16" in f.read()
+                text = f.read()
+            self.has_mm = "int mm_bf16" in text
+            # its bf16 kernel reads the fragments of its own weight pack,
+            # where earlier ones read the plain bf16 copy
+            self.packs = "scl_fused_sdf_pack_bf16" in text
 
         def _bind(self, lib):
             fn = lib.scl_fused_sdf_fwd
@@ -58,6 +68,22 @@ def version_class():
                            + [ctypes.c_int] * (5 if self.has_mm else 4)
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            if self.packs:
+                lib.scl_fused_sdf_pack_bf16.argtypes = [ctypes.c_void_p] * 4
+                lib.scl_fused_sdf_pack_bf16.restype = ctypes.c_int
+
+        def bf16_weights(self, weights):
+            """What this version's bf16 kernel reads, made from the float32
+            weights before it is timed."""
+            if self.packs:
+                return self.pack_bf16(weights)[0]
+            return weights.to(torch.bfloat16)
+
+        def _bf16_weights(self, weights):
+            if self.packs:
+                return super()._bf16_weights(weights)
+            return weights.to(torch.bfloat16) \
+                if weights.dtype == torch.float32 else weights
 
         def build(self, force=False):
             lib = super().build(force)
@@ -127,20 +153,26 @@ def main(argv=None):
             weights, bias = F.pack_fused_params(
                 *F.prepare_fused_params(net, lat))
             want = F.fused_sdf_forward_reference(net, pts, lat, cg, mm)
-            w_mm = weights.to(torch.bfloat16) if args.bf16 else weights
+            w_mm = {label: v.bf16_weights(weights) if args.bf16 else weights
+                    for label, v in zip(labels, versions)}
 
-            def run(v, mm=mm, w=w_mm):
-                sdf, feat, grad = v.launch(pts, w, bias, cg, True, mm)
+            def run(v, label, mm=mm, w=None):
+                sdf, feat, grad = v.launch(pts, w_mm[label] if w is None
+                                           else w, bias, cg, True, mm)
                 return sdf[..., None], feat, grad
 
-            errs = {}
+            errs, same = {}, {}
             parts = ("sdf", "feat", "grad")[:3 if cg else 2]
             for label, v in zip(labels, versions):
-                got = run(v)
+                got = run(v, label)
                 torch.cuda.synchronize()
+                if label == labels[0]:
+                    first = got
+                same[label] = all(torch.equal(x, y) for x, y in
+                                  zip(got[:len(parts)], first[:len(parts)]))
                 where = f"({label} at {name})"
                 if args.bf16:   # chip_smoke.py's two-fold bf16 check
-                    f32 = run(v, "float32", weights)
+                    f32 = run(v, label, "float32", weights)
                     errs[label] = {p: e[0] for p, e in cs.check_bf16(
                         dict(zip(parts, got)), dict(zip(parts, want)),
                         dict(zip(parts, f32)), where, cs.BF16_MAX_TOL,
@@ -151,7 +183,8 @@ def main(argv=None):
             order = list(zip(labels, versions))
             for rnd in (order, order[::-1]):
                 for label, v in rnd:
-                    times[label].append(cs.cuda_ms(lambda: run(v)))
+                    times[label].append(cs.cuda_ms(
+                        lambda: run(v, label), calls=cs.SDF_TIMED_CALLS))
             _, (bound_ms, bound_by) = cs.forward_bound(B, N, cg, args.bf16)
             print(f"{name}: bound {bound_ms:.4f} ms ({bound_by})")
             results[name] = {"bound_ms": bound_ms}
@@ -161,8 +194,11 @@ def main(argv=None):
                       f"{times[label][1]:.4f} ms (mean {ms:.4f}; "
                       f"{100 * bound_ms / ms:.1f}% of the bound); max abs err "
                       + ", ".join(f"{p} {e:.3e}" for p, e in
-                                  errs[label].items()))
-                results[name][label] = dict(ms=times[label], err=errs[label])
+                                  errs[label].items())
+                      + ("; bitwise " if same[label] else "; not bitwise ")
+                      + f"[{labels[0]}]")
+                results[name][label] = dict(ms=times[label], err=errs[label],
+                                            bitwise_first=same[label])
     print(json.dumps({"card": card, "results": results}))
     return 0
 

@@ -245,8 +245,10 @@ def main(argv=None):
         order = list(launch) + list(launch)[::-1]
         times = {k: [] for k in launch}
         for label in order:
-            times[label].append(cs.cuda_ms(lambda: launch[label](*a)))
-        f32_ms = cs.cuda_ms(lambda: f32_k2(*a[:1], w, *a[2:]))
+            times[label].append(cs.cuda_ms(lambda: launch[label](*a),
+                                           calls=cs.SDF_TIMED_CALLS))
+        f32_ms = cs.cuda_ms(lambda: f32_k2(*a[:1], w, *a[2:]),
+                            calls=cs.SDF_TIMED_CALLS)
         for label in launch:
             out = launch[label](*a)
             same = all(torch.equal(x, y) for x, y in zip(out, ref))

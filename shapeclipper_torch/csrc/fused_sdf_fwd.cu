@@ -437,26 +437,56 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// A kernel's SMs and resident blocks an SM on each device, found (and its
+// shared-memory limit set) at its first launch there and then kept: the
+// four runtime queries cost the host more than a short launch does.
+constexpr int kMaxDevices = 64;
+struct Residency {
+  int sms[kMaxDevices];
+  int per_sm[kMaxDevices];
+};
+
+template <typename Kernel>
+cudaError_t residency(Kernel kernel, int threads, size_t smem,
+                      Residency& cache, int& sms, int& per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool keep = device >= 0 && device < kMaxDevices;
+  if (keep && cache.per_sm[device] > 0) {
+    sms = cache.sms[device];
+    per_sm = cache.per_sm[device];
+    return cudaSuccess;
+  }
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (keep) {
+    cache.sms[device] = sms;
+    cache.per_sm[device] = per_sm;
+  }
+  return cudaSuccess;
+}
+
 template <bool kGrad>
 cudaError_t launch(const float* points, const float* weights,
                    const float* biases, float* sdf, float* feat, float* grad,
                    int B, int N, int force_symmetry, cudaStream_t stream) {
   using S = Smem<kGrad>;
   const size_t smem = S::kFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sdf_fwd_kernel<kGrad>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static Residency cache;
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = residency(fused_sdf_fwd_kernel<kGrad>, kThreads,
+                                    smem, cache, sms, per_sm);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_sdf_fwd_kernel<kGrad>, kThreads, smem)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_per_batch = (N + S::kPoints - 1) / S::kPoints;
   const long long total = (long long)tiles_per_batch * B;
   if (total > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -476,44 +506,72 @@ cudaError_t launch(const float* points, const float* weights,
 // `_mm_cast("bfloat16")`. Bias, activation, the tangents' sigmoid scaling
 // and the |x| sign stay float32; the outputs are float32.
 //
-// What bounds it on this card: with the products on the tensor cores
-// (989 TFLOP/s dense bf16 against 67 TFLOP/s fp32), the elementwise work --
-// softplus(100 z) and sigmoid(100 z) of every hidden primal value, the
-// tangents' scaling, the posenc -- and the issue slots it shares with the
-// products. The activations use the fast intrinsics (`act_pair_fast`):
-// their results are only ever bf16 operands.
+// What bounds it on this card. The bound (989 TFLOP/s of dense bf16
+// products plus the elementwise work at 67 TFLOP/s) is far off; what holds
+// it at ~30% of that bound (PERF.md) is three pipes of one SM
+// sub-partition working on one dependent chain a warp: the mma.sync
+// products (55 m16n8k16 a point with tangents: ~0.1 ms at 12 x 32,768 if
+// mma.sync issued one an SM a clock), the activations (softplus(100 z) and
+// sigmoid(100 z) of every hidden primal value, three MUFU operations each
+// at 1/8 of the FMA rate: ~0.1 ms there by the same count) and the
+// posenc's sincosf, with the issue slot they share; per warp and tile
+// `scripts/sdf_segments.py --kernel fwd-bf16` reads about 40% activations,
+// a third products and a fifth posenc. The activations use the fast
+// intrinsics (`act_pair_fast`): their results are only ever bf16 operands.
 //
-// The design: one warp per tile, warps independent (no block barrier past
-// the weights' prologue), products by `mma.sync.aligned.m16n8k16.row.col.
-// f32.bf16.bf16.f32` (A 16 x 16 row-major, B 16 x 8, float32 accumulator).
-//   * A warp's rows are two m16 tiles. With tangents: 8 points, tile 0 =
+// The design: one warp per tile, warps independent (no block barrier in the
+// tile loop), products by `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.
+// f32` (A 16 x 16 row-major, B 16 x 8, float32 accumulator).
+//   * A warp's rows are m16 tiles. With tangents: 8 points, tile 0 =
 //     [primal rows; t_x rows], tile 1 = [t_y; t_z], so a thread (lane =
 //     4 g + t) holds point g's four rows at the same 16 columns of a layer
 //     (2 t, 2 t + 1 of each n8 tile), and activates its primal values and
 //     scales its tangent values by their sigmoid in registers. Without
-//     tangents: 32 points, 16 a tile, every row primal.
+//     tangents: one tile of 16 points, every row primal.
 //   * Registers carry the activations from layer to layer: the float32
 //     accumulator of n8 tiles 2 kk and 2 kk + 1 is exactly the A fragment of
 //     k16 step kk of the next product, so activate, round to bf16 pairs
-//     (`__floats2bfloat162_rn`) and go on; nothing goes through shared
-//     memory.
-//   * The posenc rows (39 features, padded to 48 = 3 k16 steps) are computed
-//     straight into A fragments: each thread evaluates the 12 features its
-//     fragment holds (sign(x0) folded into the x tangent, exact), kept for
-//     the skip layers 1 and 2.
-//   * The 28,032 weights sit in shared memory as bf16 B fragments, in
-//     fragment order (59 KB: each (matrix, k16 step, n8 tile) is 32 lanes x
-//     8 bytes), so a fragment is one conflict-free 8-byte load a lane. The
-//     output layer's 65 columns (sdf, 64 features) take 9 n8 tiles; with
-//     tangents the t_y / t_z tile computes the sdf column's tile alone.
+//     (`__floats2bfloat162_rn`) and go on.
+//   * The weights arrive packed: one launch before the kernel
+//     (`pack_bf16_kernel`, from the float32 weights) writes them as bf16 B
+//     fragments in fragment order (59 KB: each (matrix, k16 step, n8 tile)
+//     is 32 lanes x 8 bytes, padding zero), beside the plain bf16 copy that
+//     K2-bf16 reads. A block copies the buffer into shared memory with
+//     Hopper's bulk copy (`cp.async.bulk`, completing on an mbarrier) while
+//     its warps compute their first tile's posenc; a B fragment is then one
+//     8-byte load a lane. The output layer's 65 columns take 9 n8 tiles,
+//     the 64 features first and the sdf column in tile 8, so a thread
+//     stores its two features of a row as one aligned float2; with tangents
+//     the t_y / t_z tile computes tile 8 alone.
+//   * Posenc once a point: the posenc rows of K0, K1pe and K2pe are packed
+//     by lane (`posenc_slot_feature`), so that lane t holds the features of
+//     the (coordinate, frequency) pairs t, t + 4, ...: one sincosf a pair,
+//     18 a point over its quad, and no exchange between lanes. sign(x0)
+//     is folded into the x tangent (exact).
+//   * Occupancy (`Bf16Tile`): with tangents 4 warps a block and 3 blocks
+//     an SM (12 warps, 168 registers a thread); without, 8 warps and 2
+//     blocks (16 warps, 128 registers). The blocks of an SM hold a weight
+//     copy each. What does not fit K1-bf16's 168 registers waits in a
+//     per-warp shared slot (the posenc A fragments, read back as one
+//     conflict-free 16-byte load a k16 step) or is not held at once (a
+//     layer's accumulators in two groups of four n8 tiles). At 16 warps and
+//     128 registers K1-bf16 spilled and ran slower.
+//   * Values that depend on the lane are read where they are used
+//     (`lane_id`): held through the tile loop, ptxas spills them.
 //   * Biases come through the read-only cache; the outputs are written from
-//     the accumulators (sdf and gradient by the lanes holding column 0).
+//     the accumulators (sdf and gradient by the lanes holding column 64).
 //   * The ragged tail of N reads points as 0 and is not written.
 // No atomics: two launches are bitwise equal.
+// `SCL_SEGMENT(i)` marks the stages for `scripts/sdf_segments.py --kernel
+// fwd-bf16` (`FWD_BF16_SEGMENTS`); they compile to nothing here.
+
+#ifndef SCL_SEGMENT
+#define SCL_SEGMENT(i)
+#endif
 
 // Fragments of the packed matrices, in this order, each (k16 step, n8 tile)
 // a 64-word fragment: K0 [39 -> 48][64], K1h, K1pe, K2h, K2pe, K3, K4 and
-// K5 [64][65 -> 72].
+// K5 [64][65 -> 72] (columns: features 0-63, then sdf).
 constexpr int kPeSteps = 3;                  // posenc k16 steps (48 rows)
 constexpr int kHSteps = kWidth / 16;         // hidden k16 steps (4)
 constexpr int kNT = kWidth / 8;              // hidden n8 tiles (8)
@@ -527,36 +585,163 @@ constexpr int kFragK3 = kFragK2pe + kPeSteps * kNT;
 constexpr int kFragK4 = kFragK3 + kHSteps * kNT;
 constexpr int kFragK5 = kFragK4 + kHSteps * kNT;
 constexpr int kFrags = kFragK5 + kHSteps * kNTOut;      // 236
-constexpr int kBf16Warps = 4;                            // warps a block
+constexpr int kFragWords = kFrags * 64;                 // 15,104 words
+constexpr int kFragBytes = kFragWords * 4;              // 60,416
+constexpr int kPlainWords = kNumWeights / 2;            // 14,016
+constexpr int kPairs = 3 * kFreqs;         // (coordinate, frequency) pairs
+constexpr int kCopies = 4;                 // bulk copies of the weights
+static_assert(kFragBytes % (16 * kCopies) == 0, "16-byte bulk copies");
 
+// What a warp and a block of each instantiation hold, chosen by
+// `scripts/fwd_ab.py --bf16` on the card among spill-free configurations
+// (PERF.md). Warps a block stay a multiple of 4, so that every SM
+// sub-partition (its own registers, tensor core and issue slot) gets the
+// same number of warps.
 template <bool kGrad>
 struct Bf16Tile {
-  static constexpr int kPoints = kGrad ? 8 : 32;         // points a warp
+  // m16 tiles a warp: with tangents [primal; t_x] and [t_y; t_z] of 8
+  // points; without, one tile of 16 points (two need 128+ registers)
+  static constexpr int kM = kGrad ? 2 : 1;
+  static constexpr int kPoints = kGrad ? 8 : 16 * kM;    // points a warp
+  // warps a block, sharing one weight copy, and blocks an SM (the
+  // launch bounds: 168 registers a thread with tangents, 128 without)
+  static constexpr int kWarps = kGrad ? 4 : 8;
+  static constexpr int kBlocks = kGrad ? 3 : 2;
+  // with tangents the posenc A fragments (24 registers, live through
+  // layers 0-2) wait in the warp's slot, and a layer's n8 tiles are
+  // computed in two groups of four, each activated into the next layer's A
+  // fragments before the next group: 168 registers without spills
+  static constexpr bool kPeShared = kGrad;
+  static constexpr int kNGroups = kGrad ? 2 : 1;
+  // a warp's slot, in 16-byte words: the posenc A fragments (kM m16 tiles
+  // x 3 k16 steps x 32 lanes)
+  static constexpr int kSlot = kPeShared ? kM * kPeSteps * 32 : 0;
+  static constexpr size_t kSmem = kFragBytes + 16 + kWarps * kSlot * 16;
 };
 
+// The posenc feature that lane t's slot s (s = 4 kk + 2 r + e: k16 step kk,
+// register pair r, half e) carries in K0, K1pe and K2pe, or -1 (padding).
+// Lane t owns the (coordinate, frequency) pairs p = t, t + 4, ... < 18
+// (coordinate p % 3, frequency 2^(p / 3)): slot 0 is coordinate t itself
+// (t < 3), slots 1 + 2 i and 2 + 2 i the sin and cos of its pair i. So a
+// lane computes only the sincosf of its own pairs, 18 a point over the
+// quad, and needs no feature of another lane.
+__host__ __device__ inline int posenc_slot_feature(int t, int s) {
+  if (s == 0) return t < 3 ? t : -1;
+  const int i = (s - 1) / 2, p = t + 4 * i;
+  if (p >= kPairs) return -1;
+  return 3 + 6 * (p / 3) + 3 * ((s - 1) % 2) + p % 3;
+}
+
 // The packed-weight element of fragment word w (lane w / 2, register w % 2)
-// half e of fragment `frag`, or -1 for the padding.
-__device__ __forceinline__ int frag_source(int frag, int w, int e) {
-  int base, off, in, out, nt;
+// half e of fragment `frag`, or -1 for the padding: row 16 kk + 2 (lane %
+// 4) + 8 reg + e (in K0, K1pe and K2pe the posenc row of the lane's slot
+// 4 kk + 2 reg + e), column 8 j + lane / 4 of its (k16 step kk, n8 tile j).
+__host__ __device__ inline int frag_source(int frag, int w, int e) {
+  int base, off, rows, nt;
   if (frag >= kFragK5) {
-    base = kFragK5; off = kOffK5; in = kWidth; out = kOut; nt = kNTOut;
+    base = kFragK5; off = kOffK5; rows = kWidth; nt = kNTOut;
+  } else if (frag >= kFragK4) {
+    base = kFragK4; off = kOffK4; rows = kWidth; nt = kNT;
+  } else if (frag >= kFragK3) {
+    base = kFragK3; off = kOffK3; rows = kWidth; nt = kNT;
+  } else if (frag >= kFragK2pe) {
+    base = kFragK2pe; off = kOffK2pe; rows = kPe; nt = kNT;
+  } else if (frag >= kFragK2h) {
+    base = kFragK2h; off = kOffK2h; rows = kWidth; nt = kNT;
+  } else if (frag >= kFragK1pe) {
+    base = kFragK1pe; off = kOffK1pe; rows = kPe; nt = kNT;
+  } else if (frag >= kFragK1h) {
+    base = kFragK1h; off = kOffK1h; rows = kWidth; nt = kNT;
   } else {
-    // (first fragment, packed offset, rows) of the 64-column matrices
-    const int b[7] = {kFragK0, kFragK1h, kFragK1pe, kFragK2h, kFragK2pe,
-                      kFragK3, kFragK4};
-    const int o[7] = {kOffK0, kOffK1h, kOffK1pe, kOffK2h, kOffK2pe, kOffK3,
-                      kOffK4};
-    const int r[7] = {kPe, kWidth, kPe, kWidth, kPe, kWidth, kWidth};
-    int m = 6;
-    while (frag < b[m]) --m;
-    base = b[m]; off = o[m]; in = r[m]; out = kWidth; nt = kNT;
+    base = kFragK0; off = kOffK0; rows = kPe; nt = kNT;
   }
   const int f = frag - base, kk = f / nt, j = f % nt;
   const int lane = w / 2, reg = w % 2;
-  const int k = 16 * kk + 2 * (lane & 3) + 8 * reg + e;
   const int n = 8 * j + (lane >> 2);
-  if (k >= in || n >= out) return -1;
-  return off + k * out + n;
+  if (rows == kPe) {   // the posenc rows, by lane (posenc_slot_feature)
+    const int q = posenc_slot_feature(lane & 3, 4 * kk + 2 * reg + e);
+    return q < 0 ? -1 : off + q * kWidth + n;
+  }
+  const int k = 16 * kk + 2 * (lane & 3) + 8 * reg + e;
+  if (k >= rows) return -1;
+  if (frag < kFragK5) return off + k * kWidth + n;
+  if (n < kWidth) return off + k * kOut + 1 + n;     // feature n
+  return n == kWidth ? off + k * kOut : -1;          // the sdf column
+}
+
+// Two floats rounded to bf16 (nearest even), the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The float32 packed weights -> their bf16 B fragments in fragment order
+// (K1-bf16 / K3-bf16) and their plain bf16 copy (K2-bf16), one 32-bit word
+// of each a thread.
+__global__ void __launch_bounds__(256)
+    pack_bf16_kernel(const float* __restrict__ weights,
+                     uint32_t* __restrict__ frags,
+                     uint32_t* __restrict__ plain) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < kFragWords) {
+    const int i0 = frag_source(i / 64, i % 64, 0);
+    const int i1 = frag_source(i / 64, i % 64, 1);
+    frags[i] = pack_bf16(i0 < 0 ? 0.f : weights[i0],
+                         i1 < 0 ? 0.f : weights[i1]);
+  }
+  if (i < kPlainWords)
+    plain[i] = pack_bf16(weights[2 * i], weights[2 * i + 1]);
+}
+
+// This thread's lane, read where it is used: a lane-dependent value held
+// through the tile loop takes a register in every layer, and ptxas spills
+// such values first.
+__device__ __forceinline__ int lane_id() {
+  int lane;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(lane));
+  return lane;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The weights' mbarrier: initialised for one arrival (the thread that
+// issues the copies, with their byte count), then waited on at phase 0.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy_weights(uint32_t dst,
+                                                  const void* src,
+                                                  uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(kFragBytes)
+      : "memory");
+  constexpr int kChunk = kFragBytes / kCopies;
+#pragma unroll
+  for (int c = 0; c < kCopies; ++c)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst + c * kChunk),
+        "l"(static_cast<const char*>(src) + c * kChunk), "r"(kChunk),
+        "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred ready;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], 0;\n"
+      "@!ready bra WAIT;\n"
+      "}\n" ::"r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -580,292 +765,342 @@ __device__ __forceinline__ void act_pair_fast(float z, float& act,
   act = (fmaxf(z, 0.f) + __logf(1.f + e)) * 0.01f;
 }
 
-// Two floats rounded to bf16 (nearest even), the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Posenc feature j of a point at (x, y, z) with x already |x0|: (value,
-// derivative along its own coordinate, that coordinate); 0 past 39.
-__device__ __forceinline__ void posenc_feature(int j, const float (&x)[3],
-                                               float& pe, float& dpe,
-                                               int& d) {
-  if (j < 3) {
-    pe = x[j]; dpe = 1.f; d = j;
-  } else if (j < kPe) {
-    const int q = j - 3, k = q / 6, r = q % 6;
-    d = r % 3;
-    const float f = (float)(1 << k);
-    float s, c;
-    sincosf(x[d] * f, &s, &c);
-    pe = r < 3 ? s : c;
-    dpe = r < 3 ? f * c : -f * s;
-  } else {
-    pe = 0.f; dpe = 0.f; d = -1;
-  }
-}
-
-// acc[m][j] += A[m][kk] x B(frag0 + kk * nt + j) over the k16 steps.
-template <int kSteps, int kTiles, int kM>
-__device__ __forceinline__ void product(float (&acc)[2][kNTOut][4],
-                                        const uint32_t (&a)[2][4][4],
-                                        const uint2* __restrict__ sB,
-                                        int frag0, int nt, int lane) {
+// The posenc A fragments of a warp's tile (uint32 [m16 tile][k16 step][4]).
+// With tangents, rows [point g; its t_x] in tile 0 and [t_y; t_z] in tile
+// 1; without, points 16 m + g and 16 m + 8 + g in tile m. Lane t holds the
+// features of posenc_slot_feature(t, .), so it evaluates sincosf only for
+// its own (coordinate, frequency) pairs, once each a point.
+template <bool kGrad>
+__device__ __forceinline__ void posenc(const float* __restrict__ points,
+                                       int n0, int N, int force_symmetry,
+                                       uint32_t (&pe)[Bf16Tile<kGrad>::kM]
+                                                     [kPeSteps][4]) {
+  constexpr int kPts = kGrad ? 1 : 2 * Bf16Tile<kGrad>::kM;   // its points
+  constexpr int kKinds = kGrad ? 4 : 1;      // rows a point has here
+  constexpr int kOwn = (kPairs + 3) / 4;     // pairs a lane owns, at most
+  const int lane = lane_id();
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
+  for (int q = 0; q < kPts; ++q) {
+    const int n = n0 + (kGrad ? g : (q & 1) * 8 + (q >> 1) * 16 + g);
+    float x[3];
 #pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      const uint2 b = sB[(frag0 + kk * nt + j) * 32 + lane];
+    for (int d = 0; d < 3; ++d)
+      x[d] = n < N ? points[(size_t)n * 3 + d] : 0.f;
+    float sgn = 1.f;
+    if (force_symmetry) {
+      sgn = x[0] < 0.f ? -1.f : 1.f;
+      x[0] = fabsf(x[0]);
+    }
+    // slots 2 i and 2 i + 1 are packed once pair i's sin is known; `even`
+    // holds slot 2 i meanwhile ([row kind]: primal, t_x, t_y, t_z)
+    float even[kKinds], odd[kKinds];
+    // slot 0: coordinate t (derivative 1 along itself)
+    even[0] = t == 0 ? x[0] : t == 1 ? x[1] : t == 2 ? x[2] : 0.f;
+    if constexpr (kGrad) {
+      even[1] = t == 0 ? sgn : 0.f;
+      even[2] = t == 1 ? 1.f : 0.f;
+      even[3] = t == 2 ? 1.f : 0.f;
+    }
 #pragma unroll
-      for (int m = 0; m < kM; ++m) mma_bf16(acc[m][j], a[m][kk], b);
+    for (int i = 0; i <= kOwn; ++i) {
+      float next[kKinds];   // slot 2 i + 2: pair i's cos
+      if (i < kOwn) {
+        const int p = t + 4 * i, d = p % 3;
+        float sn = 0.f, cs = 0.f, f = 0.f;
+        if (p < kPairs) {
+          f = (float)(1 << (p / 3));
+          sincosf((d == 0 ? x[0] : d == 1 ? x[1] : x[2]) * f, &sn, &cs);
+        }
+        odd[0] = sn;
+        next[0] = cs;
+        if constexpr (kGrad) {
+          const float ds = f * cs, dc = -f * sn;   // d sin, d cos
+          odd[1] = d == 0 ? sgn * ds : 0.f;
+          next[1] = d == 0 ? sgn * dc : 0.f;
+          odd[2] = d == 1 ? ds : 0.f;
+          next[2] = d == 1 ? dc : 0.f;
+          odd[3] = d == 2 ? ds : 0.f;
+          next[3] = d == 2 ? dc : 0.f;
+        }
+      } else {   // slot 11: padding
+#pragma unroll
+        for (int r = 0; r < kKinds; ++r) odd[r] = 0.f;
+      }
+      // slot 2 i = 4 kk + 2 h: register 2 h (row g) / 2 h + 1 (row g + 8)
+      // of tile m, the even slot in the low half
+      const int kk = i / 2, h = i % 2;
+      if constexpr (kGrad) {
+        pe[0][kk][2 * h] = pack_bf16(even[0], odd[0]);
+        pe[0][kk][2 * h + 1] = pack_bf16(even[1], odd[1]);
+        pe[1][kk][2 * h] = pack_bf16(even[2], odd[2]);
+        pe[1][kk][2 * h + 1] = pack_bf16(even[3], odd[3]);
+      } else {   // point q: tile q / 2, row g (q even) or g + 8
+        pe[q >> 1][kk][2 * h + (q & 1)] = pack_bf16(even[0], odd[0]);
+      }
+      if (i < kOwn) {
+#pragma unroll
+        for (int r = 0; r < kKinds; ++r) even[r] = next[r];
+      }
     }
   }
 }
 
 template <bool kGrad>
-__global__ void __launch_bounds__(32 * kBf16Warps)
+__global__ void __launch_bounds__(32 * Bf16Tile<kGrad>::kWarps,
+                                  Bf16Tile<kGrad>::kBlocks)
     fused_sdf_fwd_bf16_kernel(const float* __restrict__ points,
-                              const __nv_bfloat16* __restrict__ weights,
+                              const uint2* __restrict__ frags,
                               const float* __restrict__ biases,
                               float* __restrict__ sdf,
                               float* __restrict__ feat,
                               float* __restrict__ grad, int N,
                               int tiles_per_batch, int total_tiles,
                               int force_symmetry) {
-  constexpr int kP = Bf16Tile<kGrad>::kPoints;
-  extern __shared__ __align__(16) uint2 sB[];
-  {
-    const unsigned short* w = reinterpret_cast<const unsigned short*>(weights);
-    uint32_t* s32 = reinterpret_cast<uint32_t*>(sB);
-    for (int i = threadIdx.x; i < kFrags * 64; i += blockDim.x) {
-      const int frag = i / 64, word = i % 64;
-      const int i0 = frag_source(frag, word, 0);
-      const int i1 = frag_source(frag, word, 1);
-      const uint32_t lo = i0 < 0 ? 0u : w[i0];
-      const uint32_t hi = i1 < 0 ? 0u : w[i1];
-      s32[i] = lo | (hi << 16);
-    }
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
+  using T = Bf16Tile<kGrad>;
+  constexpr int kP = T::kPoints;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const uint2* sB = reinterpret_cast<const uint2*>(smem_bf16);
+  const uint32_t bar = smem_u32(smem_bf16 + kFragBytes);
   const int warp = threadIdx.x / 32;
-  for (int tile = blockIdx.x * kBf16Warps + warp; tile < total_tiles;
-       tile += gridDim.x * kBf16Warps) {
+  // this warp's slot
+  uint4* const slot = reinterpret_cast<uint4*>(smem_bf16 + kFragBytes + 16) +
+                      warp * T::kSlot;
+
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  if (threadIdx.x == 0) bulk_copy_weights(smem_u32(smem_bf16), frags, bar);
+  bool staged = false;
+  constexpr int kWarps = T::kWarps;
+  constexpr bool kPeShared = T::kPeShared;
+  constexpr int kNGroups = T::kNGroups;
+  for (int tile = blockIdx.x * kWarps + warp; tile < total_tiles;
+       tile += gridDim.x * kWarps) {
     const int b = tile / tiles_per_batch;
     const int n0 = (tile % tiles_per_batch) * kP;
-    const float* bias = biases + (size_t)b * kBiasStride;
-
-    // ---- the posenc A fragments (kept for the skip layers). With
-    // tangents, rows [point g; its t_x] in tile 0 and [t_y; t_z] in tile 1;
-    // without, points g, g + 8 in tile 0 and 16 + g, 24 + g in tile 1.
-    uint32_t pe[2][4][4];
-    {
-      constexpr int kPts = kGrad ? 1 : 4;
-      float x[kPts][3], sgn[kPts];
-      bool valid[kPts];
+    constexpr int kM = T::kM;
+    uint32_t pe[kM][kPeSteps][4];
+    posenc<kGrad>(points + (size_t)b * N * 3, n0, N, force_symmetry, pe);
+    if constexpr (kPeShared) {
+      // each lane reads back only its own words: no barrier
+      uint4* const own = slot + lane_id();
 #pragma unroll
-      for (int q = 0; q < kPts; ++q) {
-        const int p = kGrad ? g : (q & 1) * 8 + (q >> 1) * 16 + g;
-        const int n = n0 + p;
-        valid[q] = n < N;
+      for (int m = 0; m < kM; ++m) {
 #pragma unroll
-        for (int d = 0; d < 3; ++d)
-          x[q][d] = valid[q] ? points[((size_t)b * N + n) * 3 + d] : 0.f;
-        sgn[q] = 1.f;
-        if (force_symmetry) {
-          sgn[q] = x[q][0] < 0.f ? -1.f : 1.f;
-          x[q][0] = fabsf(x[q][0]);
-        }
+        for (int kk = 0; kk < kPeSteps; ++kk)
+          own[(m * kPeSteps + kk) * 32] = make_uint4(
+              pe[m][kk][0], pe[m][kk][1], pe[m][kk][2], pe[m][kk][3]);
       }
+    }
+    SCL_SEGMENT(1);
+    if (!staged) {   // the first tile's posenc overlapped the copy
+      mbar_wait(bar);
+      staged = true;
+      SCL_SEGMENT(0);
+    }
+
+    // ---- hidden layers 0..4, the activations carried in registers; a
+    // layer's 8 n8 tiles in kNGroups groups, each group's accumulators
+    // activated into the next layer's A fragments before the next group
+    uint32_t h[kM][kHSteps][4];
 #pragma unroll
-      for (int kk = 0; kk < kPeSteps; ++kk) {
+    for (int l = 0; l < 5; ++l) {
+      constexpr int kGT = kNT / kNGroups;    // n8 tiles a group
+      uint32_t hn[kM][kHSteps][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j0 = 16 * kk + 2 * t + 8 * h;
-          // v[row kind or point][pair]
-          float v[4][2];
+      for (int grp = 0; grp < kNGroups; ++grp) {
+        float acc[kM][kGT][4];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if constexpr (kGrad) {
-              float f, df;
-              int d;
-              posenc_feature(j0 + e, x[0], f, df, d);
-              v[0][e] = f;
-              v[1][e] = d == 0 ? sgn[0] * df : 0.f;
-              v[2][e] = d == 1 ? df : 0.f;
-              v[3][e] = d == 2 ? df : 0.f;
-            } else {
+        for (int m = 0; m < kM; ++m) {
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                float f, df;
-                int d;
-                posenc_feature(j0 + e, x[q], f, df, d);
-                v[q][e] = f;
+          for (int j = 0; j < kGT; ++j) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[m][j][r] = 0.f;
+          }
+        }
+        const uint2* const lb = sB + lane_id();   // this lane's B words
+        if (l > 0) {
+          const int frag = l == 1 ? kFragK1h : l == 2 ? kFragK2h
+                           : l == 3 ? kFragK3 : kFragK4;
+#pragma unroll
+          for (int kk = 0; kk < kHSteps; ++kk) {
+#pragma unroll
+            for (int j = 0; j < kGT; ++j) {
+              const uint2 bj = lb[(frag + kk * kNT + grp * kGT + j) * 32];
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_bf16(acc[m][j], h[m][kk], bj);
+            }
+          }
+        }
+        if (l < 3) {
+          const int frag = l == 0 ? kFragK0 : l == 1 ? kFragK1pe : kFragK2pe;
+#pragma unroll
+          for (int kk = 0; kk < kPeSteps; ++kk) {
+            uint32_t a[kM][4];
+#pragma unroll
+            for (int m = 0; m < kM; ++m) {
+              if constexpr (kPeShared) {
+                const uint4 v = slot[(m * kPeSteps + kk) * 32 + lane_id()];
+                a[m][0] = v.x; a[m][1] = v.y; a[m][2] = v.z; a[m][3] = v.w;
+              } else {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) a[m][r] = pe[m][kk][r];
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kGT; ++j) {
+              const uint2 bj = lb[(frag + kk * kNT + grp * kGT + j) * 32];
+#pragma unroll
+              for (int m = 0; m < kM; ++m) mma_bf16(acc[m][j], a[m], bj);
+            }
+          }
+        }
+        SCL_SEGMENT(2 + l);
+        // bias and activation; the next layer's A fragments
+        const int t = lane_id() & 3;
+        const float* bl = biases + (size_t)b * kBiasStride + l * kWidth;
+#pragma unroll
+        for (int jj = 0; jj < kGT; ++jj) {
+          const int j = grp * kGT + jj;
+          const float b0 = __ldg(bl + 8 * j + 2 * t);
+          const float b1 = __ldg(bl + 8 * j + 2 * t + 1);
+          float o[kM][4];
+          if constexpr (kGrad) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float act, sig;
+              act_pair_fast(100.f * (acc[0][jj][e] + (e ? b1 : b0)), act,
+                            sig);
+              o[0][e] = act;
+              o[0][2 + e] = acc[0][jj][2 + e] * sig;   // t_x
+              o[1][e] = acc[1][jj][e] * sig;           // t_y
+              o[1][2 + e] = acc[1][jj][2 + e] * sig;   // t_z
+            }
+          } else {
+#pragma unroll
+            for (int m = 0; m < kM; ++m) {
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                float sig;
+                act_pair_fast(100.f * (acc[m][jj][r] + (r & 1 ? b1 : b0)),
+                              o[m][r], sig);
               }
             }
           }
-          // tile m, register 2 h (row g) and 2 h + 1 (row g + 8)
-          pe[0][kk][2 * h] = pack_bf16(v[0][0], v[0][1]);
-          pe[0][kk][2 * h + 1] = pack_bf16(v[1][0], v[1][1]);
-          pe[1][kk][2 * h] = pack_bf16(v[2][0], v[2][1]);
-          pe[1][kk][2 * h + 1] = pack_bf16(v[3][0], v[3][1]);
+          // n8 tile j is half (j & 1) of k16 step j / 2
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            hn[m][j / 2][2 * (j & 1)] = pack_bf16(o[m][0], o[m][1]);
+            hn[m][j / 2][2 * (j & 1) + 1] = pack_bf16(o[m][2], o[m][3]);
+          }
+        }
+        SCL_SEGMENT(7 + l);
+      }
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < kHSteps; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) h[m][kk][r] = hn[m][kk][r];
         }
       }
     }
 
-    // ---- hidden layers 0..4, the activations carried in registers
-    uint32_t h[2][4][4];
-    float acc[2][kNTOut][4];
+    // ---- output layer, one n8 tile at a time: the 64 features (with
+    // tangents of the primal rows only), then the sdf column (tile 8;
+    // with tangents also the [t_y; t_z] tile's, the gradient)
+    // the output layer's biases: [sdf, feature 0..63]
+    const float* bo = biases + (size_t)b * kBiasStride + 5 * kWidth;
+    const size_t row0 = (size_t)b * N + n0;
+    const int lane = lane_id();
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int l = 0; l < 5; ++l) {
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[m][j][r] = 0.f;
-        }
-      }
-      if (l > 0) {
-        const int frag = l == 1 ? kFragK1h : l == 2 ? kFragK2h
-                         : l == 3 ? kFragK3 : kFragK4;
-        product<kHSteps, kNT, 2>(acc, h, sB, frag, kNT, lane);
-      }
-      if (l < 3) {
-        const int frag = l == 0 ? kFragK0 : l == 1 ? kFragK1pe : kFragK2pe;
-        product<kPeSteps, kNT, 2>(acc, pe, sB, frag, kNT, lane);
-      }
-      // bias and activation; the next layer's A fragments
-      const float* bl = bias + l * kWidth;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float b0 = __ldg(bl + 8 * j + 2 * t);
-        const float b1 = __ldg(bl + 8 * j + 2 * t + 1);
-        float o[2][4];
-        if constexpr (kGrad) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float act, sig;
-            act_pair_fast(100.f * (acc[0][j][e] + (e ? b1 : b0)), act, sig);
-            o[0][e] = act;
-            o[0][2 + e] = acc[0][j][2 + e] * sig;   // t_x
-            o[1][e] = acc[1][j][e] * sig;           // t_y
-            o[1][2 + e] = acc[1][j][2 + e] * sig;   // t_z
-          }
-        } else {
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              float sig;
-              act_pair_fast(100.f * (acc[m][j][r] + (r & 1 ? b1 : b0)),
-                            o[m][r], sig);
-            }
-          }
-        }
-        // n8 tile j is half (j & 1) of k16 step j / 2
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          h[m][j / 2][2 * (j & 1)] = pack_bf16(o[m][0], o[m][1]);
-          h[m][j / 2][2 * (j & 1) + 1] = pack_bf16(o[m][2], o[m][3]);
-        }
-      }
-    }
-
-    // ---- output layer: sdf + 64 features (9 n8 tiles); with tangents the
-    // [t_y; t_z] tile needs only the sdf column's tile
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int j = 0; j < kNTOut; ++j) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[m][j][r] = 0.f;
-      }
-    }
-    product<kHSteps, kNTOut, kGrad ? 1 : 2>(acc, h, sB, kFragK5, kNTOut,
-                                            lane);
-    if constexpr (kGrad) {
+    for (int j = 0; j < kNT; ++j) {
+      float c[kM][4] = {};
 #pragma unroll
       for (int kk = 0; kk < kHSteps; ++kk) {
-        const uint2 b0 = sB[(kFragK5 + kk * kNTOut) * 32 + lane];
-        mma_bf16(acc[1][0], h[1][kk], b0);
+        const uint2 bj = sB[(kFragK5 + kk * kNTOut + j) * 32 + lane];
+#pragma unroll
+        for (int m = 0; m < (kGrad ? 1 : kM); ++m)
+          mma_bf16(c[m], h[m][kk], bj);
+      }
+      const int col = 8 * j + 2 * t;
+      const float b0 = __ldg(bo + 1 + col), b1 = __ldg(bo + 2 + col);
+      // rows of this thread: with tangents point g (tile 0, registers
+      // 0-1); without, points 16 m + g and 16 m + 8 + g of tile m
+#pragma unroll
+      for (int q = 0; q < (kGrad ? 1 : 2 * kM); ++q) {
+        const int m = q >> 1, half = q & 1;
+        const int p = kGrad ? g : m * 16 + half * 8 + g;
+        if (n0 + p < N)
+          *reinterpret_cast<float2*>(feat + (row0 + p) * kWidth + col) =
+              make_float2(c[m][2 * half] + b0, c[m][2 * half + 1] + b1);
       }
     }
-    const float* bo = bias + 5 * kWidth;
-    // rows of this thread: with tangents point g (tile 0, registers 0-1);
-    // without, points g, g + 8 (tile 0) and 16 + g, 24 + g (tile 1)
+    {
+      float c[kM][4] = {};
 #pragma unroll
-    for (int q = 0; q < (kGrad ? 1 : 4); ++q) {
-      const int m = q >> 1, half = q & 1;
-      const int p = kGrad ? g : m * 16 + half * 8 + g;
-      const int n = n0 + p;
-      if (n >= N) continue;
-      const size_t row = (size_t)b * N + n;
+      for (int kk = 0; kk < kHSteps; ++kk) {
+        const uint2 bj = sB[(kFragK5 + kk * kNTOut + kNT) * 32 + lane];
 #pragma unroll
-      for (int j = 0; j < kNTOut; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * t + e;
-          const float v = acc[m][j][2 * half + e] + __ldg(bo + min(col, 64));
-          if (col == 0)
-            sdf[row] = v;
-          else if (col <= kWidth)
-            feat[row * kWidth + col - 1] = v;
-        }
+        for (int m = 0; m < kM; ++m) mma_bf16(c[m], h[m][kk], bj);
       }
-      if constexpr (kGrad) {
-        if (t == 0) {   // column 0 of the tangent rows
-          grad[row * 3] = acc[0][0][2];
-          grad[row * 3 + 1] = acc[1][0][0];
-          grad[row * 3 + 2] = acc[1][0][2];
+      if (t == 0) {   // column 64
+        const float bs = __ldg(bo);
+#pragma unroll
+        for (int q = 0; q < (kGrad ? 1 : 2 * kM); ++q) {
+          const int m = q >> 1, half = q & 1;
+          const int p = kGrad ? g : m * 16 + half * 8 + g;
+          if (n0 + p >= N) continue;
+          sdf[row0 + p] = c[m][2 * half] + bs;
+          if constexpr (kGrad) {
+            grad[(row0 + p) * 3] = c[0][2];
+            grad[(row0 + p) * 3 + 1] = c[1][0];
+            grad[(row0 + p) * 3 + 2] = c[1][2];
+          }
         }
       }
     }
+    SCL_SEGMENT(12);
   }
+  if (!staged) mbar_wait(bar);   // no tile: the copy still lands first
 }
 
 template <bool kGrad>
-cudaError_t launch_bf16(const float* points, const __nv_bfloat16* weights,
+cudaError_t launch_bf16(const float* points, const void* frags,
                         const float* biases, float* sdf, float* feat,
                         float* grad, int B, int N, int force_symmetry,
                         cudaStream_t stream) {
-  const size_t smem = (size_t)kFrags * 64 * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sdf_fwd_bf16_kernel<kGrad>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (reinterpret_cast<uintptr_t>(frags) % 16) return cudaErrorInvalidValue;
+  const size_t smem = Bf16Tile<kGrad>::kSmem;
+  static Residency cache;
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = residency(fused_sdf_fwd_bf16_kernel<kGrad>,
+                                    32 * Bf16Tile<kGrad>::kWarps, smem,
+                                    cache, sms,
+                                    per_sm);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_sdf_fwd_bf16_kernel<kGrad>, 32 * kBf16Warps,
-           smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   constexpr int kP = Bf16Tile<kGrad>::kPoints;
   const int tiles_per_batch = (N + kP - 1) / kP;
   const long long total = (long long)tiles_per_batch * B;
   if (total > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const long long blocks = (total + kBf16Warps - 1) / kBf16Warps;
+  constexpr int kWarps = Bf16Tile<kGrad>::kWarps;
+  const long long blocks = (total + kWarps - 1) / kWarps;
   const int grid = (int)(blocks < (long long)sms * per_sm
                              ? blocks : (long long)sms * per_sm);
-  fused_sdf_fwd_bf16_kernel<kGrad><<<grid, 32 * kBf16Warps, smem, stream>>>(
-      points, weights, biases, sdf, feat, grad, N, tiles_per_batch,
-      (int)total, force_symmetry);
+  fused_sdf_fwd_bf16_kernel<kGrad><<<grid, 32 * kWarps, smem, stream>>>(
+      points, static_cast<const uint2*>(frags), biases, sdf, feat, grad, N,
+      tiles_per_batch, (int)total, force_symmetry);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// points [B,N,3], weights packed as above (28,032 floats, or their
-// bfloat16 copy with mm_bf16), biases [B,385]; sdf [B,N], feat [B,N,64],
-// grad [B,N,3] (ignored unless compute_grad). Float32 but for the bf16
-// weights, contiguous, on the current device. Returns a cudaError_t.
+// points [B,N,3], weights packed as above (28,032 floats; with mm_bf16
+// the bf16 fragments of `scl_fused_sdf_pack_bf16`, 16-byte aligned),
+// biases [B,385]; sdf [B,N], feat [B,N,64], grad [B,N,3] (ignored unless
+// compute_grad). Float32 but for the bf16 fragments, contiguous, on the
+// current device. Returns a cudaError_t.
 extern "C" int scl_fused_sdf_fwd(const void* points, const void* weights,
                                  const void* biases, void* sdf, void* feat,
                                  void* grad, int B, int N, int compute_grad,
@@ -878,14 +1113,12 @@ extern "C" int scl_fused_sdf_fwd(const void* points, const void* weights,
   float* so = static_cast<float*>(sdf);
   float* fo = static_cast<float*>(feat);
   float* go = static_cast<float*>(grad);
-  if (mm_bf16) {
-    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(weights);
+  if (mm_bf16)
     return (int)(compute_grad
-                     ? launch_bf16<true>(p, w, bi, so, fo, go, B, N,
+                     ? launch_bf16<true>(p, weights, bi, so, fo, go, B, N,
                                          force_symmetry, s)
-                     : launch_bf16<false>(p, w, bi, so, fo, nullptr, B, N,
-                                          force_symmetry, s));
-  }
+                     : launch_bf16<false>(p, weights, bi, so, fo, nullptr, B,
+                                          N, force_symmetry, s));
   const float* w = static_cast<const float*>(weights);
   if (compute_grad)
     return (int)launch<true>(p, w, bi, so, fo, go, B, N, force_symmetry, s);
@@ -893,7 +1126,23 @@ extern "C" int scl_fused_sdf_fwd(const void* points, const void* weights,
                             s);
 }
 
+// weights [28,032] float32 -> frags (the 15,104 32-bit words of the bf16
+// B fragments that K1-bf16 / K3-bf16 read) and plain (their [28,032] bf16
+// copy, packed as above, which K2-bf16 reads): one launch on `stream`.
+// Returns a cudaError_t.
+extern "C" int scl_fused_sdf_pack_bf16(const void* weights, void* frags,
+                                       void* plain, void* stream) {
+  constexpr int kWords = kFragWords > kPlainWords ? kFragWords : kPlainWords;
+  pack_bf16_kernel<<<(kWords + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(weights), static_cast<uint32_t*>(frags),
+      static_cast<uint32_t*>(plain));
+  return (int)cudaGetLastError();
+}
+
 extern "C" int scl_fused_sdf_num_weights() { return kNumWeights; }
+
+extern "C" int scl_fused_sdf_bf16_frag_words() { return kFragWords; }
 
 // Points a tile holds, with tangents (K1) or without (K3): a block's tile
 // for the float32 products, a warp's for the bf16 ones.

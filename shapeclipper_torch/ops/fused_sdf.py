@@ -24,7 +24,10 @@ to bfloat16 and accumulates in float32 while everything elementwise stays
 float32. The forward kernel has an instantiation for each, the backward a
 float32 kernel and a tensor-core one for bf16; the plain version takes its
 bf16 products from `_CastProduct`, whose backward rounds the cotangent and
-the saved operands before each product, as K2-bf16 does.
+the saved operands before each product, as K2-bf16 does. The bf16 forward
+reads the weights as mma.sync B fragments, which one pack launch writes
+beside K2-bf16's plain bf16 copy (`FusedSdfKernel.pack_bf16`; its plain
+version `pack_bf16_reference` gathers by `bf16_fragment_index`).
 
 Each library builds at first use from this package's own source into
 `build/` at the repository root (`ops/cuda_lib.py`: `nvcc`, plain C
@@ -35,8 +38,10 @@ compilation of the port at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -56,7 +61,12 @@ BIAS_WIDTH = 5 * 64 + 65
 # K1's and K3's tile in points (`csrc/fused_sdf_fwd.cu`: Smem::kPoints), and
 # a warp's tile of their bf16 instantiations (Bf16Tile::kPoints)
 FWD_TILE_POINTS = {"grad": 64, "nograd": 256}
-FWD_TILE_POINTS_BF16 = {"grad": 8, "nograd": 32}
+FWD_TILE_POINTS_BF16 = {"grad": 8, "nograd": 16}
+# K1-bf16 / K3-bf16 read the weights as bf16 mma.sync B fragments in
+# fragment order (`csrc/fused_sdf_fwd.cu::frag_source`: 236 fragments of 32
+# lanes x 4 elements, padding zero), which `FusedSdfKernel.pack_bf16` writes
+# in one launch beside the plain bf16 copy that K2-bf16 reads
+BF16_FRAG_ELEMS = 236 * 32 * 4
 # K2's tile (`csrc/fused_sdf_bwd.cu`: kPoints) and the floats of its
 # per-block pre-activation stash (5 hidden layers x 128 rows x 64); K2-bf16's
 # tile (`csrc/fused_sdf_bwd_bf16.cu`: kPoints, 8 warps of 8 points) and its
@@ -153,6 +163,63 @@ class _CastProduct(torch.autograd.Function):
         return da, dw
 
 
+@functools.lru_cache(maxsize=1)
+def bf16_fragment_index():
+    """[BF16_FRAG_ELEMS] int64 (read-only): the packed float32 weight that
+    each bf16 element of K1-bf16 / K3-bf16's fragment-order weights holds,
+    or -1 for the padding. The fragments are (k16 step kk, n8 tile j) of
+    K0 [39 -> 48 rows][64], K1h, K1pe, K2h, K2pe, K3, K4 [64][64] and K5
+    [64][65 -> 72] (the 64 feature columns, then the sdf column in tile 8),
+    in that order; element 4 l + 2 r + e of a fragment (lane l, register r,
+    half e) holds column 8 j + l // 4 and row 16 kk + 2 (l % 4) + 8 r + e,
+    but in K0, K1pe and K2pe the posenc feature of slot s = 4 kk + 2 r + e
+    of lane l % 4: the coordinate l % 4 itself in slot 0, then the sin and
+    cos of the lane's (coordinate, frequency) pairs p = l % 4 + 4 i < 18
+    (coordinate p % 3, frequency 2^(p // 3)) in slots 1 + 2 i, 2 + 2 i."""
+    pe_rows, w, pairs = 39, 64, 18
+    lane = np.arange(32)[:, None, None]
+    reg = np.arange(2)[None, :, None]
+    half = np.arange(2)[None, None, :]
+    t = np.broadcast_to(lane % 4, (32, 2, 2))
+    row = 2 * t + 8 * reg + half                           # [32, 2, 2]
+    col = np.broadcast_to(lane // 4, row.shape)
+    out, off = [], 0
+    for rows in (pe_rows, w, pe_rows, w, pe_rows, w, w):   # K0 .. K4
+        for kk in range(-(-rows // 16)):
+            if rows == pe_rows:
+                slot = 4 * kk + 2 * reg + half
+                p = t + 4 * ((slot - 1) // 2)
+                k = np.where(slot == 0, np.where(t < 3, t, -1), np.where(
+                    p < pairs, 3 + 6 * (p // 3) + 3 * ((slot - 1) % 2)
+                    + p % 3, -1))
+            else:
+                k = 16 * kk + row
+            for j in range(w // 8):
+                out.append(np.where(k >= 0, off + k * w + 8 * j + col, -1))
+        off += rows * w
+    for kk in range(w // 16):                              # K5
+        for j in range(w // 8 + 1):
+            k, n = 16 * kk + row, 8 * j + col
+            out.append(np.where(n < w, off + k * (w + 1) + 1 + n,
+                                np.where(n == w, off + k * (w + 1), -1)))
+    idx = np.concatenate([o.reshape(-1) for o in out]).astype(np.int64)
+    assert idx.size == BF16_FRAG_ELEMS and idx.max() == NUM_WEIGHTS - 1
+    idx.setflags(write=False)
+    return idx
+
+
+def pack_bf16_reference(weights):
+    """The plain version of `FusedSdfKernel.pack_bf16`: float32 weights
+    [28032] -> (their bf16 fragments [BF16_FRAG_ELEMS], their plain bf16
+    copy [28032]), both rounded to nearest even."""
+    plain = weights.to(torch.bfloat16)
+    idx = torch.tensor(bf16_fragment_index(), device=weights.device)
+    frags = torch.where(idx >= 0, plain[idx.clamp(min=0)],
+                        torch.zeros((), dtype=torch.bfloat16,
+                                    device=weights.device))
+    return frags, plain
+
+
 def _product(mm_dtype):
     return torch.matmul if mm_dtype == "float32" else _CastProduct.apply
 
@@ -242,8 +309,8 @@ def _launch_key(compute_grad, mm_dtype):
 
 
 def _weights_arg(weights, mm_dtype):
-    """The packed weights as the instantiation reads them: float32, or their
-    bfloat16 copy (56 KB) for the bf16 products."""
+    """The packed weights as the float32 forward and the backward read them:
+    float32, or their bfloat16 copy (56 KB) for the bf16 products."""
     want = torch.float32 if mm_dtype == "float32" else torch.bfloat16
     if weights.dtype == torch.float32 and want == torch.bfloat16:
         weights = weights.to(torch.bfloat16)
@@ -258,8 +325,8 @@ def _weights_arg(weights, mm_dtype):
 class FusedSdfKernel(CudaLibrary):
     """The forward library and its launch counts. `launches` counts launches
     of each instantiation ('grad' = K1, 'nograd' = K3, with '_bf16' for the
-    bfloat16 products); it is incremented where the kernel is launched and
-    nowhere else."""
+    bfloat16 products) and of the bf16 weight pack ('pack_bf16'); each is
+    incremented where its kernel is launched and nowhere else."""
 
     stem = "scl_fused_sdf"
     source = _SOURCE
@@ -268,6 +335,7 @@ class FusedSdfKernel(CudaLibrary):
         super().__init__(build_dir)
         self.launches = {_launch_key(g, m): 0 for m in MM_DTYPES
                          for g in (True, False)}
+        self.launches["pack_bf16"] = 0
 
     def _bind(self, lib):
         fn = lib.scl_fused_sdf_fwd
@@ -285,15 +353,66 @@ class FusedSdfKernel(CudaLibrary):
                 if lib.scl_fused_sdf_fwd_tile_points(grad, mm) != tiles[key]:
                     raise RuntimeError("fused SDF library walks a different "
                                        "tile")
+        lib.scl_fused_sdf_bf16_frag_words.argtypes = []
+        lib.scl_fused_sdf_bf16_frag_words.restype = ctypes.c_int
+        if 2 * lib.scl_fused_sdf_bf16_frag_words() != BF16_FRAG_ELEMS:
+            raise RuntimeError("fused SDF library packs other bf16 fragments")
+        lib.scl_fused_sdf_pack_bf16.argtypes = [ctypes.c_void_p] * 4
+        lib.scl_fused_sdf_pack_bf16.restype = ctypes.c_int
+
+    def pack_bf16(self, weights):
+        """weights [28032] float32 -> (the bf16 B fragments that K1-bf16 /
+        K3-bf16 read [BF16_FRAG_ELEMS], the plain bf16 copy that K2-bf16
+        reads [28032]): on CUDA one launch of the library's pack kernel; CPU
+        tensors take the plain version (`pack_bf16_reference`)."""
+        if weights.dtype != torch.float32 or weights.numel() != NUM_WEIGHTS \
+                or not weights.is_contiguous():
+            raise TypeError(f"the bf16 pack takes {NUM_WEIGHTS} contiguous "
+                            f"float32 weights, got {weights.dtype} "
+                            f"{tuple(weights.shape)}")
+        if weights.device.type == "cpu":
+            return pack_bf16_reference(weights)
+        if weights.device.type != "cuda":
+            raise ValueError(f"no bf16 pack for device {weights.device}")
+        lib = self.build()
+        dev = weights.device
+        frags = torch.empty(BF16_FRAG_ELEMS, device=dev, dtype=torch.bfloat16)
+        plain = torch.empty(NUM_WEIGHTS, device=dev, dtype=torch.bfloat16)
+        with torch.cuda.device(dev):
+            err = lib.scl_fused_sdf_pack_bf16(
+                weights.data_ptr(), frags.data_ptr(), plain.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bf16 weight pack launch failed: cudaError "
+                               f"{err}")
+        self.launches["pack_bf16"] += 1
+        return frags, plain
+
+    def _bf16_weights(self, weights):
+        """What the bf16 instantiations read: the fragments of
+        `pack_bf16` (a float32 copy is packed first, one launch)."""
+        if weights.dtype == torch.float32 and weights.numel() == NUM_WEIGHTS:
+            return self.pack_bf16(weights)[0]
+        if weights.dtype != torch.bfloat16 \
+                or weights.numel() != BF16_FRAG_ELEMS \
+                or not weights.is_contiguous() or weights.data_ptr() % 16:
+            raise TypeError(f"the bfloat16 kernels take {NUM_WEIGHTS} "
+                            "float32 weights or the 16-byte aligned "
+                            f"{BF16_FRAG_ELEMS} bf16 fragments of pack_bf16, "
+                            f"got {weights.dtype} {tuple(weights.shape)}")
+        return weights
 
     def launch(self, points, weights, biases, compute_grad, force_symmetry,
                mm_dtype="float32"):
-        """points [B,N,3], weights [28032] (float32; bfloat16 or float32
-        for `mm_dtype="bfloat16"`), biases [B,385] (float32, contiguous, one
-        CUDA device) -> (sdf [B,N], feat [B,N,64], grad [B,N,3] or None),
-        float32."""
+        """points [B,N,3], weights [28032] float32 (or, for
+        `mm_dtype="bfloat16"`, the fragments of `pack_bf16`), biases [B,385]
+        (float32, contiguous, one CUDA device) -> (sdf [B,N], feat [B,N,64],
+        grad [B,N,3] or None), float32."""
         _check_mm_dtype(mm_dtype)
-        weights = _weights_arg(weights, mm_dtype)
+        if mm_dtype == "bfloat16":
+            weights = self._bf16_weights(weights)
+        else:
+            weights = _weights_arg(weights, mm_dtype)
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
@@ -464,21 +583,25 @@ class _FusedSdfTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, weights, biases, points, force_symmetry, mm_dtype):
-        # the bf16 instantiations read one bfloat16 copy of the weights
-        wk = _weights_arg(weights.detach(), mm_dtype)
-        sdf, feat, grad = KERNEL.launch(points, wk, biases, True,
+        if mm_dtype == "bfloat16":
+            # one launch writes both bf16 layouts: the fragments that
+            # K1-bf16 reads and the plain copy that K2-bf16 reads
+            w_fwd, w_bwd = KERNEL.pack_bf16(weights.detach())
+        else:
+            w_fwd = w_bwd = weights.detach()
+        sdf, feat, grad = KERNEL.launch(points, w_fwd, biases, True,
                                         force_symmetry, mm_dtype)
-        ctx.save_for_backward(points, wk, biases)
+        ctx.save_for_backward(points, w_bwd, biases)
         ctx.force_symmetry, ctx.mm_dtype = force_symmetry, mm_dtype
         return sdf, feat, grad
 
     @staticmethod
     @once_differentiable
     def backward(ctx, sbar, fbar, gbar):
-        points, wk, biases = ctx.saved_tensors
+        points, w_bwd, biases = ctx.saved_tensors
         # unused outputs arrive as zeros (autograd materializes them)
         dweights, dbiases, dpoints = BACKWARD.launch(
-            points, wk, biases, sbar.contiguous(), fbar.contiguous(),
+            points, w_bwd, biases, sbar.contiguous(), fbar.contiguous(),
             gbar.contiguous(), ctx.force_symmetry, ctx.mm_dtype)
         return dweights, dbiases, dpoints, None, None
 

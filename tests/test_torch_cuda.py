@@ -1,8 +1,8 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
-fused_sdf_fwd.cu`, K1 / K3, `csrc/fused_sdf_bwd.cu`, K2, and
-`csrc/fused_sdf_bwd_bf16.cu`, K2-bf16) and the nearest-neighbour sweep
-(`csrc/chamfer.cu`, K4 / K5).
+fused_sdf_fwd.cu`, K1 / K3 and their bf16 forms with the bf16 weight pack,
+`csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16) and
+the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
 imports torch and the port only (no JAX), so on a machine with the card
@@ -334,23 +334,35 @@ def _max_gap(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-@pytest.mark.parametrize("N", [33, 1000])
-@pytest.mark.parametrize("compute_grad", [True, False])
-def test_bf16_forward_kernel_matches_plain(dev, compute_grad, N):
-    """K1-bf16 / K3-bf16 at B = 2 and ragged N, one launch each, against
-    the plain version's bf16 products; farther from the float32 kernel."""
-    net, pts, lat = _fwd_case(dev, 2, N, seed=N)
+# the bf16 forward's gates of `chip_smoke.py` phase 5a (`check_bf16`):
+# max abs error under a bound that a bf16 flip stays inside and a wrong
+# product does not, mean abs error tight and under half the mean distance
+# from the float32 kernel
+BF16_FWD_MAX = dict(sdf=1e-2, feat=1e-2, grad=3e-2)
+BF16_FWD_MEAN = dict(sdf=1e-5, feat=1e-5, grad=2e-5)
+
+
+def _bf16_fwd_check(net, pts, lat, compute_grad, flips=False):
+    """K1-bf16 / K3-bf16 through `fused_sdf_forward`: one weight pack and
+    one launch of the instantiation, outputs against the plain version's
+    bf16 products and under half as far from it as from the float32
+    kernel; at BF16_SDF_TOL / BF16_GRAD_TOL, or with `flips` at phase 5a's
+    gates (a float32 sum one ulp apart can round an operand to the
+    neighbouring bf16 value and move a point's features by ~3e-4)."""
     key = "grad_bf16" if compute_grad else "nograd_bf16"
     with torch.inference_mode():
         before = dict(F.KERNEL.launches)
         got = F.fused_sdf_forward(net, pts, lat, compute_grad,
                                   mm_dtype="bfloat16")
         assert F.KERNEL.launches[key] == before[key] + 1
-        assert sum(F.KERNEL.launches.values()) == sum(before.values()) + 1
+        assert F.KERNEL.launches["pack_bf16"] == before["pack_bf16"] + 1
+        assert sum(F.KERNEL.launches.values()) == sum(before.values()) + 2
         want = F.fused_sdf_forward_reference(net, pts, lat, compute_grad,
                                              mm_dtype="bfloat16")
         f32 = F.fused_sdf_forward(net, pts, lat, compute_grad)
         torch.cuda.synchronize()
+    B, N = pts.shape[:2]
+    assert got[0].shape == (B, N, 1) and got[1].shape == (B, N, 64)
     for name, k, r, r32, tol in zip(("sdf", "feat", "grad"), got, want, f32,
                                     (BF16_SDF_TOL, BF16_SDF_TOL,
                                      BF16_GRAD_TOL)):
@@ -358,8 +370,101 @@ def test_bf16_forward_kernel_matches_plain(dev, compute_grad, N):
             assert k is None and not compute_grad
             continue
         assert k.dtype == torch.float32 and torch.isfinite(k).all(), name
-        torch.testing.assert_close(k, r, **tol, msg=name)
+        if flips:
+            e = (k - r).abs()
+            mean, gap = float(e.mean()), float((k - r32).abs().mean())
+            assert float(e.max()) <= BF16_FWD_MAX[name], (name, float(e.max()))
+            assert mean <= BF16_FWD_MEAN[name] and mean < 0.5 * gap, (
+                name, mean, gap)
+            continue
+        torch.testing.assert_close(k, r, **tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
         assert _max_gap(k, r) < 0.5 * _max_gap(k, r32), name
+
+
+@pytest.mark.parametrize("N", [33, 1000])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_matches_plain(dev, compute_grad, N):
+    """K1-bf16 / K3-bf16 at B = 2 and ragged N, one pack and one launch
+    each, against the plain version's bf16 products; farther from the
+    float32 kernel."""
+    _bf16_fwd_check(*_fwd_case(dev, 2, N, seed=N), compute_grad)
+
+
+@pytest.mark.parametrize("edge", ["short", "at", "past", "two past"])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_tile_edges(dev, compute_grad, edge):
+    """B = 3 at one short of, at, one past and two past a warp's tile
+    (`F.FWD_TILE_POINTS_BF16`: 8 points with tangents, 32 without), so that
+    warps of a block take tiles of several batch rows, some partial; at
+    phase 5a's gates."""
+    tile = F.FWD_TILE_POINTS_BF16["grad" if compute_grad else "nograd"]
+    N = {"short": tile - 1, "at": tile, "past": tile + 1,
+         "two past": 2 * tile + 1}[edge]
+    _bf16_fwd_check(*_fwd_case(dev, 3, N, seed=N), compute_grad, flips=True)
+
+
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_ragged_batch(dev, compute_grad):
+    """B = 3 with a ragged N over many blocks (8 warps a block), at phase
+    5a's gates."""
+    N = 40 * F.FWD_TILE_POINTS_BF16["grad" if compute_grad else "nograd"] + 5
+    _bf16_fwd_check(*_fwd_case(dev, 3, N, seed=7), compute_grad, flips=True)
+
+
+@pytest.mark.parametrize("force_symmetry", [True, False])
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_symmetry_plane(dev, compute_grad,
+                                            force_symmetry):
+    """Every third point on x0 = 0 (sign(0) = +1 in both versions), with
+    the |x| symmetry on and off, at phase 5a's gates."""
+    net, pts, lat = _fwd_case(dev, 2, 500, seed=3, plane=True)
+    net.force_symmetry = force_symmetry
+    _bf16_fwd_check(net, pts, lat, compute_grad, flips=True)
+
+
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_bf16_forward_kernel_is_deterministic(dev, compute_grad):
+    """Two K1-bf16 / K3-bf16 launches on the same inputs are bitwise equal
+    (no atomics, a fixed order of every sum)."""
+    net, pts, lat = _fwd_case(dev, 3, 5000, seed=9)
+    with torch.inference_mode():
+        weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+        frags = F.KERNEL.pack_bf16(weights)[0]
+        first = F.KERNEL.launch(pts, frags, bias, compute_grad, True,
+                                "bfloat16")
+        second = F.KERNEL.launch(pts, frags, bias, compute_grad, True,
+                                 "bfloat16")
+        torch.cuda.synchronize()
+    for name, a, b in zip(("sdf", "feat", "grad"), first, second):
+        if a is None:
+            assert b is None and not compute_grad
+            continue
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+
+
+def test_bf16_weight_pack_matches_plain(dev):
+    """The pack kernel writes the bf16 fragments and the plain bf16 copy
+    bitwise as `pack_bf16_reference` does (one launch), and the training
+    call packs once: K1-bf16 reads the fragments, K2-bf16 the copy."""
+    net, pts, lat = _fwd_case(dev, 2, 300, seed=4)
+    with torch.no_grad():
+        weights, _ = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    before = F.KERNEL.launches["pack_bf16"]
+    frags, plain = F.KERNEL.pack_bf16(weights)
+    assert F.KERNEL.launches["pack_bf16"] == before + 1
+    want = F.pack_bf16_reference(weights)
+    torch.cuda.synchronize()
+    assert frags.shape == (F.BF16_FRAG_ELEMS,) and plain.shape == (
+        F.NUM_WEIGHTS,)
+    assert torch.equal(frags.view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(plain.view(torch.int16), want[1].view(torch.int16))
+    before = dict(F.KERNEL.launches)
+    p = pts.clone().requires_grad_(True)
+    F.fused_sdf_train(net, p, lat, mm_dtype="bfloat16")[0].sum().backward()
+    assert F.KERNEL.launches["pack_bf16"] == before["pack_bf16"] + 1
+    assert F.KERNEL.launches["grad_bf16"] == before["grad_bf16"] + 1
 
 
 @pytest.mark.parametrize("B,N,plane,symmetry", [
@@ -497,7 +602,8 @@ def test_bf16_backward_kernel_render_shape(dev):
 
 def test_bad_mm_dtype_raises(dev):
     """An mm_dtype the kernels lack raises; so do float32 products handed
-    the bfloat16 weights. Nothing falls back to another instantiation."""
+    the bfloat16 weights, and bf16 products handed the plain bf16 copy.
+    Nothing falls back to another instantiation."""
     net, pts, lat = _case(dev, 40, True)
     with torch.inference_mode():
         before = dict(F.KERNEL.launches)
@@ -507,6 +613,10 @@ def test_bad_mm_dtype_raises(dev):
         weights, bias = F.pack_fused_params(*F.prepare_fused_params(net, lat))
         with pytest.raises(TypeError, match="float32"):
             F.KERNEL.launch(pts, weights.to(torch.bfloat16), bias, True, True)
+        # the bf16 products read the packed fragments, not the plain copy
+        with pytest.raises(TypeError, match="fragments"):
+            F.KERNEL.launch(pts, weights.to(torch.bfloat16), bias, True, True,
+                            "bfloat16")
         assert F.KERNEL.launches == before
     with pytest.raises(ValueError, match="mm_dtype"):
         F.fused_sdf_train(net, pts, lat, mm_dtype="float16")

@@ -110,10 +110,13 @@ def _check_instrumented(src, kernel, body_end):
     assert all("__syncthreads();" in src_lines[n - 1] for n in lines)
     for i in range(len(lines)):
         assert f"__syncthreads(); SCL_SEGMENT({i});" in out
-    assert out.count("SCL_SEGMENT(") == len(lines) + 1   # + the #define
+    # + the #define, + the source's own marks (the bf16 forward's stages)
+    assert out.count("SCL_SEGMENT(") == len(lines) + 1 + src.count(
+        "SCL_SEGMENT(")
     assert out.count("scl_last_ = clock64();") == 1     # the timer starts
     assert 'extern "C" int scl_segments_read' in out
-    kept = re.sub(r" SCL_SEGMENT\(\d+\);", "", out)
+    kept = re.sub(r"__syncthreads\(\); SCL_SEGMENT\(\d+\);",
+                  "__syncthreads();", out)
     kept = kept.replace("\n  if (SCL_IS_TIMER) scl_last_ = clock64();", "")
     assert src[src.index("namespace {"):] in kept
     return lines
@@ -135,3 +138,164 @@ def test_segments_mark_every_barrier_of_the_forward_kernel():
         src = f.read()
     _check_instrumented(src, "fused_sdf_fwd_kernel",
                         src.index("cudaError_t launch("))
+
+
+def _forward_source():
+    with open(F._SOURCE) as f:
+        return f.read()
+
+
+def test_bf16_forward_tile_matches_the_kernel():
+    """K1-bf16 / K3-bf16's tile in points (`F.FWD_TILE_POINTS_BF16`, which
+    the `cuda` tests' tile edges use and the library checks when it is
+    bound): a warp's 8 points with tangents (two m16 tiles of [primal; t_x]
+    and [t_y; t_z] rows), 16 without (one m16 tile of 16 points)."""
+    src = _forward_source()
+    m = re.search(r"static constexpr int kM = kGrad \? (\d+) : (\d+);", src)
+    assert m, "Bf16Tile::kM not found"
+    tiles = {"grad": int(m.group(1)), "nograd": int(m.group(2))}
+    assert "static constexpr int kPoints = kGrad ? 8 : 16 * kM;" in src
+    assert F.FWD_TILE_POINTS_BF16 == {"grad": 8, "nograd": 16 * tiles[
+        "nograd"]}
+    # with tangents four rows a point: two m16 tiles hold 8 points
+    assert 4 * F.FWD_TILE_POINTS_BF16["grad"] == 16 * tiles["grad"]
+
+
+# `csrc/fused_sdf_fwd.cu::frag_source`, transcribed line by line: (first
+# fragment, packed offset, rows, n8 tiles) of K0, K1h, K1pe, K2h, K2pe, K3,
+# K4 and K5 (the kFrag* and kOff* constants)
+_FRAG_MATRICES = ((0, 0, 39, 8), (24, 2496, 64, 8), (56, 6592, 39, 8),
+                  (80, 9088, 64, 8), (112, 13184, 39, 8), (136, 15680, 64, 8),
+                  (168, 19776, 64, 8), (200, 23872, 64, 9))
+
+
+def _posenc_slot_feature(t, s):
+    if s == 0:
+        return t if t < 3 else -1
+    i = (s - 1) // 2
+    p = t + 4 * i
+    if p >= 18:
+        return -1
+    return 3 + 6 * (p // 3) + 3 * ((s - 1) % 2) + p % 3
+
+
+def _frag_source(frag, w, e):
+    base, off, rows, nt = [m for m in _FRAG_MATRICES if frag >= m[0]][-1]
+    f = frag - base
+    kk, j = f // nt, f % nt
+    lane, reg = w // 2, w % 2
+    n = 8 * j + (lane >> 2)
+    if rows == 39:
+        q = _posenc_slot_feature(lane & 3, 4 * kk + 2 * reg + e)
+        return -1 if q < 0 else off + q * 64 + n
+    k = 16 * kk + 2 * (lane & 3) + 8 * reg + e
+    if k >= rows:
+        return -1
+    if frag < 200:
+        return off + k * 64 + n
+    if n < 64:
+        return off + k * 65 + 1 + n
+    return off + k * 65 if n == 64 else -1
+
+
+def test_bf16_fragment_index_matches_frag_source():
+    """The plain version of the bf16 weight pack (`F.bf16_fragment_index`,
+    which `pack_bf16_reference` gathers by and the pack kernel is held to
+    bitwise on the card) element for element against the kernel's own
+    layout; every packed weight appears exactly once."""
+    src = _forward_source()
+    const = {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int (\w+) = ([^;]+);", src)}
+    assert const["kNTOut"].startswith("9") and const["kPeSteps"].startswith(
+        "3")
+    assert "return off + k * kOut + 1 + n;" in src   # K5: features first
+    assert "return q < 0 ? -1 : off + q * kWidth + n;" in src
+    assert "return n == kWidth ? off + k * kOut : -1;" in src
+    idx = F.bf16_fragment_index()
+    want = [_frag_source(i // 128, (i % 128) // 2, i % 2)
+            for i in range(F.BF16_FRAG_ELEMS)]
+    assert idx.tolist() == want
+    used = idx[idx >= 0]
+    assert sorted(used.tolist()) == list(range(F.NUM_WEIGHTS))
+
+
+def test_bf16_pack_reference_rounds_and_pads():
+    """`pack_bf16_reference`: the plain copy is `.to(bfloat16)`, the
+    fragments hold those values where the index points and zero in the
+    padding."""
+    import torch
+    w = torch.randn(F.NUM_WEIGHTS, generator=torch.Generator().manual_seed(0))
+    frags, plain = F.pack_bf16_reference(w)
+    assert plain.dtype == frags.dtype == torch.bfloat16
+    assert torch.equal(plain, w.to(torch.bfloat16))
+    idx = torch.from_numpy(F.bf16_fragment_index().copy())
+    assert torch.equal(frags[idx >= 0], plain[idx[idx >= 0]])
+    assert not frags[idx < 0].float().abs().any()
+
+
+def test_segments_of_the_bf16_forward_are_its_marks():
+    """fwd-bf16: no barrier is instrumented; the kernel's own SCL_SEGMENT
+    marks (empty in the library) add to the counters 0-12, one per name of
+    `FWD_BF16_SEGMENTS`."""
+    src = _forward_source()
+    kernel = "fused_sdf_fwd_bf16_kernel("
+    out, lines = sdf_segments.instrument(src, kernel)
+    assert lines == []
+    assert "SCL_SEGMENT(" not in out.replace("#define SCL_SEGMENT(", "")[
+        :out.index("namespace {")]
+    assert "#undef SCL_SEGMENT\n#define SCL_SEGMENT(i) if (SCL_IS_TIMER)" \
+        in out
+    assert "__syncthreads(); SCL_SEGMENT(" not in out
+    assert "#ifndef SCL_SEGMENT\n#define SCL_SEGMENT(i)\n#endif" in src
+    body, end = sdf_segments._kernel_body(src, kernel,
+                                          src.index("namespace {"))
+    seen = set()
+    for m in re.finditer(r"SCL_SEGMENT\(([^)]*)\);", src[body:end]):
+        seen |= {eval(m.group(1), {"l": l}) for l in range(5)}
+    assert seen == set(range(len(sdf_segments.FWD_BF16_SEGMENTS))) \
+        == set(range(13))
+
+
+FIRST_DESIGN_LIKE = """namespace {
+template <bool kGrad>
+__global__ void fused_sdf_fwd_bf16_kernel(const float* p) {
+  stage();
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  for (int tile = 0; tile < 4; ++tile) {
+    const int b = tile / tiles_per_batch;
+    // ---- the posenc A fragments
+    // ---- hidden layers 0..4, the activations carried in registers
+    for (int l = 0; l < 5; ++l) {
+      if (l > 0) {
+        products();
+      }
+      // bias and activation; the next layer's A fragments
+    }
+    // ---- output layer: sdf + 64 features
+  }
+}
+}  // namespace
+"""
+
+
+def test_segments_insert_marks_at_the_pr11_stage_boundaries():
+    """A bf16 forward without marks (the first tensor-core design) gets one
+    mark on a line of its own before each anchor of `FIRST_FWD_BF16_MARKS`,
+    in order, and the output layer's again before the kernel's end;
+    instrumenting it then reads those marks, not its barrier."""
+    kernel = "fused_sdf_fwd_bf16_kernel("
+    marked = sdf_segments.insert_marks(FIRST_DESIGN_LIKE, kernel)
+    got = marked.split("\n")
+    for anchor, mark in sdf_segments.FIRST_FWD_BF16_MARKS:
+        i = next(n for n, line in enumerate(got) if anchor in line)
+        assert got[i - 1] == mark
+    assert got[got.index("}  // namespace") - 2] == "SCL_SEGMENT(12);"
+    unmarked = "\n".join(line for line in got if not line.startswith(
+        ("SCL_SEGMENT(", "if (l > 0) SCL_SEGMENT(")))
+    assert unmarked == FIRST_DESIGN_LIKE
+    out, lines = sdf_segments.instrument(marked, kernel)
+    assert lines == [] and "__syncthreads(); SCL_SEGMENT(" not in out
+    with pytest.raises(ValueError):
+        sdf_segments.insert_marks(FIRST_DESIGN_LIKE.replace("// ---- output", "//"),
+                                  kernel)
