@@ -28,7 +28,9 @@ no CPU fallback):
      just before and read just after, request 0 held against the CPU plain
      path, then the CLI once;
   5. training steps at the flagship config (options/pix3d/config.yaml with
-     bench.py's overrides: synthetic data, batch 12, 224^2) on one
+     bench.py's overrides: synthetic data, batch 12, 224^2; like every
+     phase that holds the sequential step, phases 5-5d, 10, 13's gloo
+     ranks and 15, with the three `tpu.merge_*` flags pinned false) on one
      pre-collated batch: step 0 (camera phase) and six full steps, launch
      counts per step (K1 3 / K2 1, then K1 3 / K2 3), every loss finite,
      per-step times, peak memory, one step under torch.profiler with
@@ -55,7 +57,17 @@ no CPU fallback):
      step on the card
      against the CPU at implicit bfloat16 (gated: each MLP's gradient
      under half its distance from float32) and with both keys bfloat16 (a
-     reading);
+     reading); (e) the YAML's own step, bf16 with the three merge flags
+     true (one ResNet34, one ResNet18, one render over 24 views): a camera
+     and four full steps with launch counts (K1-bf16 2 / K2-bf16 1, then
+     2 / 2, a pack a K1-bf16 launch), the steady step, peak memory, a
+     profiled step and its BatchNorm calls, each beside (b)'s sequential
+     step; the merged step at batch 4 on the card against the CPU (float32,
+     phase 5's gates); K1 / K2 and K1-bf16 / K2-bf16 at the merged render's
+     24 x 32,768 against their plain versions (phases 2, 3 and 5a's checks,
+     the float64 ones included), timed beside them and their bounds (phase
+     9's train CLI opens the profiler window and phase 13's NCCL rank takes
+     the merged step);
   6. convergence: 200 steps of options/synthetic/config.yaml with
      scripts/validate_training.py's overrides through the loader, with
      `Runner.evaluate` before and after (the Chamfer distance must fall);
@@ -79,7 +91,9 @@ no CPU fallback):
      backward, the gradient held against autograd of the plain version),
      which no CLI path calls;
   9. the train and evaluate CLIs (`python -m shapeclipper_torch.train` for
-     one tiny epoch, then `python -m shapeclipper_torch.evaluate --resume`);
+     one tiny epoch with `--tpu.profile_iters=[1,3]`, whose Chrome trace
+     must name the fused SDF kernels, then `python -m
+     shapeclipper_torch.evaluate --resume`);
  10. pretraining (`train/pretrainer.py`) at the flagship width (batch 12,
      224^2, 10,000 points, density and viewpoint losses): 2 + 10 steps on
      one batch with the kernels' launch counts (none lies on this path),
@@ -96,7 +110,8 @@ no CPU fallback):
      run under `python -m torch.distributed.run` on this script
      (`--ddp-worker`): one NCCL rank, its Runner under DDP, against the
      Runner without a process group before and after it (bitwise or
-     within 1e-6; the full steps' times on either side), then two ranks
+     within 1e-6; the full steps' times on either side), in the sequential
+     and the merged step (float32, K1 / K2 2 / 2 a full step), then two ranks
      on the one card through gloo (6 samples each) against one process at
      batch 12, in global and per_replica BatchNorm (losses, every
      gradient, the post-step parameters and statistics; the camera step
@@ -232,6 +247,8 @@ BF16_MAX_TOL = dict(sdf=1e-2, feat=1e-2, grad=3e-2)
 BF16_MEAN_TOL = dict(sdf=1e-5, feat=1e-5, grad=2e-5)
 BF16_K2_MAX, BF16_K2_MEAN = 2e-2, 1e-4     # times max|ref| of each gradient
 N_BF16_STEPS = 4                 # full steps of the bf16 training phase
+N_MERGED_STEPS = 4               # full steps of the merged training phase
+MERGED_VIEWS = 24                # the merged render's views: (1 + V) x 12
 N_BF16_REQUESTS = 3
 # kernels whose device time counts as cuDNN's in a profiled step
 CONV_KERNELS = ("cudnn", "implicit_gemm", "dgrad", "wgrad", "conv",
@@ -488,8 +505,8 @@ def phase_kernels(opt):
 
 
 def forward_float64(net, pts, latent, got):
-    """K1's outputs at the training render's shape against the plain
-    version in float64, beside the float32 plain version's own error."""
+    """K1's outputs at a training render's shape against the plain version
+    in float64, beside the float32 plain version's own error."""
     import torch
     from shapeclipper_torch.ops import fused_sdf as F
     net64 = copy.deepcopy(net).double()
@@ -502,7 +519,8 @@ def forward_float64(net, pts, latent, got):
         errs[part], good = within(k.double(), r, **tol)
         plain[part] = float((r32.double() - r).abs().max())
         ok &= good
-    log("[kernel] K1 at 12 x 32,768 against the float64 plain version: "
+    B, N = pts.shape[:2]
+    log(f"[kernel] K1 at {B} x {N:,} against the float64 plain version: "
         + ", ".join(f"{p}={e:.3e}" for p, e in errs.items())
         + "; float32 plain " + ", ".join(f"{p}={e:.3e}"
                                            for p, e in plain.items()))
@@ -580,15 +598,16 @@ def serve(runner, opt, image, stages=None):
     return var, level, mesh
 
 
-def profiled(tag, what, fn, n_top, watch=(), share=None):
+def profiled(tag, what, fn, n_top, watch=(), share=None, counts=None):
     """Run `fn` once under torch.profiler and log its wall time, the device
     busy time (kernels, copies and sets; user-annotation ranges such as
     `Optimizer.step#Adam.step` span kernels already counted and are left
-    out), the busy share, the top device events and, in or out of the top,
-    the events whose name holds a string of `watch`; with `share = (label,
-    strings)` the device time of the events whose name holds one of
-    `strings` and its part of the busy time -> (wall ms, busy ms or None
-    when the trace holds no device time)."""
+    out) and their number, the busy share, the top device events and, in or
+    out of the top, the events whose name holds a string of `watch`; with
+    `share = (label, strings)` the device time of the events whose name
+    holds one of `strings` and its part of the busy time; into the dict
+    `counts`, when given, wall, busy and device_events -> (wall ms, busy ms
+    or None when the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -605,12 +624,17 @@ def profiled(tag, what, fn, n_top, watch=(), share=None):
         into = ranges if e.is_user_annotation else busy
         into[e.key] = (e.self_device_time_total / 1e3, e.count)
     total = sum(v[0] for v in busy.values())
+    events = sum(v[1] for v in busy.values())
+    if counts is not None:
+        counts.update(wall=wall_ms, busy=total if total > 0 else None,
+                      device_events=events)
     if total <= 0:
         log(f"[{tag}] no device time in the trace: busy share not measured")
         return wall_ms, None
     top = sorted(busy.items(), key=lambda kv: -kv[1][0])[:n_top]
     log(f"[{tag}] {what} under the profiler: wall {wall_ms:.1f} ms, device "
-        f"busy {total:.1f} ms ({100 * total / wall_ms:.1f}%); top: "
+        f"busy {total:.1f} ms ({100 * total / wall_ms:.1f}%) over {events} "
+        "device events; top: "
         + "; ".join(f"{k[:50]} {v:.2f} ms x{c}" for k, (v, c) in top)
         + "; annotation ranges left out: "
         + (", ".join(f"{k[:40]} {v:.2f} ms" for k, (v, _) in ranges.items())
@@ -925,15 +949,18 @@ def phase_backward():
 
 
 # --------------------------------------------------------------- phase 5
-def flagship_opt(batch_size=None, dtype="float32"):
+def flagship_opt(batch_size=None, dtype="float32", merged=False):
     """options/pix3d/config.yaml with bench.py's overrides: synthetic data,
     224^2, batch 12 (or `batch_size`), seed 0, both `tpu.*_dtype` keys
-    `dtype` (float32 unless a phase asks for the YAML's bfloat16), no
-    TensorBoard."""
+    `dtype` (float32 unless a phase asks for the YAML's bfloat16), the three
+    `tpu.merge_*` flags `merged` (false, the sequential step, unless a phase
+    asks for the YAML's merged one), no TensorBoard."""
     from shapeclipper_torch.config import options
     from shapeclipper_torch.utils.easydict import EasyDict as edict
     opt = options.load_options(CONFIG)
-    opt.tpu.update(encoder_dtype=dtype, implicit_dtype=dtype)
+    opt.tpu.update(encoder_dtype=dtype, implicit_dtype=dtype,
+                   merge_encoders=merged, merge_flip_estimator=merged,
+                   merge_nn_render=merged)
     if batch_size:
         opt.batch_size = batch_size
     opt.H, opt.W = opt.image_size
@@ -1030,6 +1057,24 @@ def phase_train():
     return launches
 
 
+@contextlib.contextmanager
+def counting_bn(graph):
+    """A one-element list counting the BatchNorm module calls under `graph`
+    inside the block."""
+    from shapeclipper_torch.models.layers import BatchNorm
+    calls = [0]
+
+    def hook(*_):
+        calls[0] += 1
+    handles = [m.register_forward_pre_hook(hook) for m in graph.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def _to(tree, device):
     from shapeclipper_torch.utils.easydict import EasyDict as edict
     if isinstance(tree, list):
@@ -1037,10 +1082,13 @@ def _to(tree, device):
     return edict({k: v.to(device) for k, v in tree.items()})
 
 
-def phase_gpu_vs_cpu_step():
+def phase_gpu_vs_cpu_step(merged=False):
     """The first full step on the card and on the CPU plain path, from the
     same weights, optimizer state and draws, at batch 4 with noise input
-    images. Tolerances as tests/test_torch_train.py's full step, with the
+    images; with `merged` the YAML's merged step (one ResNet34, one ResNet18
+    and one render over 2 x 4 views, on the same draws re-sliced), in
+    float32 as the rest. Tolerances as tests/test_torch_train.py's full
+    step, with the
     MLPs' and beta's gradients held to MLP_GRAD_TOL: train-mode BatchNorm
     makes the encoders' gradients ill-conditioned in float32. At
     batch 2 the latent projections' BatchNorm normalises two samples per
@@ -1051,7 +1099,8 @@ def phase_gpu_vs_cpu_step():
     from shapeclipper_torch.train.trainer import batch_to_var
     from shapeclipper_torch.utils.easydict import EasyDict as edict
 
-    opt = flagship_opt(batch_size=4)
+    opt = flagship_opt(batch_size=4, merged=merged)
+    tag = "step-cmp-merged" if merged else "step-cmp"
     gpu = train_runner(opt, "cuda")
     cpu = train_runner(opt, "cpu")
     cpu.graph.load_state_dict(gpu.graph.state_dict())
@@ -1075,7 +1124,7 @@ def phase_gpu_vs_cpu_step():
         losses[role] = r.train_iteration(opt, batch_to_var(batch, r.device),
                                          draws=d)
         torch.cuda.synchronize()
-        log(f"[step-cmp] {role} full step at batch {B} "
+        log(f"[{tag}] {role} full step at batch {B} "
             f"{1e3 * (time.perf_counter() - t0):.0f} ms")
     lr = float(opt.optim.lr)
     bad = []
@@ -1116,7 +1165,7 @@ def phase_gpu_vs_cpu_step():
     top = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
     mlp = max(v for k, v in grad_err.items()
               if k.split(".")[0] in MLP_ROOTS)
-    log(f"[step-cmp] first full step, GPU vs CPU plain path: loss terms max "
+    log(f"[{tag}] first full step, GPU vs CPU plain path: loss terms max "
         f"rel {max(loss_err.values()):.2e} (tol 2e-3); gradients max "
         f"norm-rel {top[0][1]:.2e} (tol 0.1; worst "
         + ", ".join(f"{k} {v:.2e}" for k, v in top)
@@ -1125,7 +1174,7 @@ def phase_gpu_vs_cpu_step():
         f"{max(par_err.values()):.3f} lr (tol 2 lr), mean {mean_d:.4f} lr "
         f"(tol 0.02 lr); BN running stats max rel {bn_err:.2e} (tol 1e-3)")
     if bad:
-        raise AssertionError(f"GPU vs CPU step outside tolerance: {bad}")
+        raise AssertionError(f"GPU vs CPU {tag} outside tolerance: {bad}")
 
 
 # ------------------------------------------------------- phases 5a-5d: bf16
@@ -1373,10 +1422,14 @@ def phase_train_bf16():
         f"{times[1]:.1f} ms, steady full step (median of steps "
         f"2-{N_BF16_STEPS}) {steady:.1f} ms; peak device memory "
         f"{peak_gib:.3f} GiB; launches {launches}")
-    profiled("train-bf16", "one bf16 full step",
-             lambda: runner.train_iteration(opt, var), 8,
-             share=("cuDNN (convolution kernels)", CONV_KERNELS))
-    return launches
+    summary = dict(steady=steady, peak_gib=peak_gib, per_step=got)
+    with counting_bn(runner.graph) as bn:
+        profiled("train-bf16", "one bf16 full step",
+                 lambda: runner.train_iteration(opt, var), 8,
+                 share=("cuDNN (convolution kernels)", CONV_KERNELS),
+                 counts=summary)
+    summary["bn_calls"] = bn[0]
+    return launches, summary
 
 
 def phase_serve_bf16():
@@ -1498,6 +1551,296 @@ def phase_gpu_vs_cpu_step_bf16():
     if bad:
         raise AssertionError(f"bf16 card vs CPU step: {bad} not under half "
                              "the gap to float32")
+
+
+# ----------------------------------------------- phase 5e: the merged step
+def phase_train_merged(seq):
+    """(e) The YAML's own step: bf16 and the three `tpu.merge_*` flags true
+    (one ResNet34 over the query and the NN view, one ResNet18 over the
+    query, its flip and the NN view, one render over 24 views): a camera
+    step and N_MERGED_STEPS full steps on one batch with the launch counts
+    of each (K1-bf16 2 / K2-bf16 1, then 2 / 2, a pack a K1-bf16 launch;
+    the sequential step of 5b 3 / 1, then 3 / 3), the steady step, peak
+    memory, and one profiled step with its BatchNorm calls, each beside
+    phase 5b's sequential step (`seq`) -> the launch counts."""
+    import torch
+    from shapeclipper_torch.train.trainer import batch_to_var
+
+    opt = flagship_opt(dtype="bfloat16", merged=True)
+    runner = train_runner(opt, "cuda")
+    var = batch_to_var(one_batch(opt), runner.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for step in range(1 + N_MERGED_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        loss = runner.train_iteration(opt, var)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        now = read_launches()
+        got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        want = dict(k1_bf16=2, k2_bf16=1 if step == 0 else 2, pack_bf16=2)
+        if got != want:
+            raise AssertionError(f"merged step {step}: launches {got}, "
+                                 f"expected {want}")
+        check_loss(f"merged step {step}", loss)
+        log(f"[train-merged] step {step} ({'camera' if step == 0 else 'full'}"
+            f"): {times[-1]:.1f} ms, launches {got}, loss "
+            + ", ".join(f"{k} {float(v):.4f}" for k, v in loss.items()
+                        if k != "finite"))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(times[2:])
+    mrg = dict(steady=steady, peak_gib=peak_gib, per_step=got)
+    with counting_bn(runner.graph) as bn:
+        profiled("train-merged", "one merged bf16 full step",
+                 lambda: runner.train_iteration(opt, var), 8,
+                 share=("cuDNN (convolution kernels)", CONV_KERNELS),
+                 counts=mrg)
+    mrg["bn_calls"] = bn[0]
+
+    def busy(d):
+        return "not measured" if d["busy"] is None else \
+            f"{d['busy']:.1f} ms ({100 * d['busy'] / d['wall']:.1f}%)"
+    log(f"[train-merged] the YAML's own step (bf16, merged) against phase "
+        f"5b's sequential bf16 step, one call: steady full step (median of "
+        f"steps 2-{N_MERGED_STEPS}) {steady:.1f} vs {seq['steady']:.1f} ms; "
+        f"profiled busy {busy(mrg)} vs {busy(seq)}, device events "
+        f"{mrg['device_events']} vs {seq['device_events']}; BatchNorm calls "
+        f"a full step {mrg['bn_calls']} vs {seq['bn_calls']}; fused-SDF "
+        f"launches a full step {mrg['per_step']} vs {seq['per_step']}; peak "
+        f"device memory {peak_gib:.3f} vs {seq['peak_gib']:.3f} GiB; card "
+        f"{card_line()}")
+    return launches
+
+
+def sdf_grads(net, pts, lat, cots, kernel, mm="float32", chunk=None):
+    """Gradients of <cots, (sdf, feat, grad)> w.r.t. the SDF network's
+    parameters, the points and the latent, through the K1 + K2 pair
+    (`kernel`) or plain autograd of the plain version; with `chunk`, the
+    plain version over row blocks of that many samples, the parameters'
+    gradients summed (a float64 reference that would not fit whole)."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    B = pts.shape[0]
+    rows = [slice(i, min(i + (chunk or B), B))
+            for i in range(0, B, chunk or B)]
+    params = dict(net.named_parameters())
+    out = {n: torch.zeros_like(q) for n, q in params.items()}
+    parts = {"points": [], "latent": []}
+    for r in rows:
+        net.zero_grad()
+        p = pts[r].clone().requires_grad_(True)
+        lt = lat[r].clone().requires_grad_(True)
+        if kernel:
+            res = F.fused_sdf_train(net, p, lt, mm_dtype=mm)
+        else:
+            kk, bb = F.prepare_fused_params(net, lt)
+            res = F._forward_plain(kk, bb, p, *F._arch(net), True, True, mm)
+        sum((o * c[r]).sum() for o, c in zip(res, cots)).backward()
+        del res
+        for n, q in params.items():
+            out[n] += q.grad
+        parts["points"].append(p.grad)
+        parts["latent"].append(lt.grad)
+    net.zero_grad()
+    out.update({k: torch.cat(v) for k, v in parts.items()})
+    return out
+
+
+def phase_merged_kernels():
+    """(e) K1-bf16 / K2-bf16 and K1 / K2 at the merged render's shape, 24 x
+    32,768 points with 24 bias rows (the shape no sequential path gives
+    them): K1 against its plain version at SDF_TOL / GRAD_TOL, in float32
+    and float64 (phase 2's checks at the render shape); K2 against plain
+    autograd of the plain version in float64 at BWD_ATOL / BWD_RTOL (summed
+    over blocks of 6 samples; the float32 plain version, phase 3's gate,
+    strays here by up to 0.18 on the points' gradient, outside that
+    tolerance in most parameters, so it is a reading); K1-bf16 against
+    its bf16 plain version and K2-bf16 against its bf16 plain version in
+    float64 (the float32 one strays as K2's), both under `check_bf16`'s
+    rule (phase 5a's bounds), K2-bf16 also bitwise over two launches;
+    each timed over SDF_TIMED_CALLS launches beside its plain version and
+    its bound -> {kernel: results}."""
+    import torch
+    from shapeclipper_torch.models.implicit import SDFNetwork
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 14)
+    net = SDFNetwork(geometric_init=False, generator=g).to(dev)
+    B, N = MERGED_VIEWS, 32768
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(B, 64, generator=g) * 0.3).to(dev)
+    cots = [torch.randn(B, N, c, generator=g).to(dev) for c in (1, 64, 3)]
+    parts = ("sdf", "feat", "grad")
+    res = {}
+    with torch.inference_mode():
+        kernels, biases = F.prepare_fused_params(net, lat)
+        weights, bias = F.pack_fused_params(kernels, biases)
+        frags = F.KERNEL.pack_bf16(weights)[0]
+        k32 = F.fused_sdf_forward(net, pts, lat, True)
+        torch.cuda.synchronize()
+        errs = check_forward(k32, F.fused_sdf_forward_reference(
+            net, pts, lat, True), f"at B={B} N={N}")
+        forward_float64(net, pts, lat, k32)
+        kb = F.fused_sdf_forward(net, pts, lat, True, mm_dtype="bfloat16")
+        torch.cuda.synchronize()
+        rb = F.fused_sdf_forward_reference(net, pts, lat, True,
+                                           mm_dtype="bfloat16")
+        errs_b = check_bf16(dict(zip(parts, kb)), dict(zip(parts, rb)),
+                            dict(zip(parts, k32)), f"(K1-bf16 at B={B} N={N})",
+                            BF16_MAX_TOL, BF16_MEAN_TOL)
+        del k32, kb, rb
+        for key, err, launch, mm in (
+                ("k1", max(errs.values()),
+                 lambda: F.KERNEL.launch(pts, weights, bias, True, True),
+                 "float32"),
+                ("k1_bf16", max(e[0] for e in errs_b.values()),
+                 lambda: F.KERNEL.launch(pts, frags, bias, True, True,
+                                         "bfloat16"), "bfloat16")):
+            ms = cuda_ms(launch, calls=SDF_TIMED_CALLS)
+            plain_ms = cuda_ms(lambda: F._forward_plain(
+                kernels, biases, pts, *F._arch(net), True, True, mm))
+            _, (bound_ms, bound_by) = forward_bound(B, N, True,
+                                                    bf16=mm == "bfloat16")
+            res[key] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[merged-kernels] K1 at B={B} N={N}: max abs err "
+        + ", ".join(f"{p}={e:.3e}" for p, e in errs.items())
+        + f" (tol sdf/feat {SDF_TOL}, grad {GRAD_TOL}); K1-bf16 against the "
+        "bf16 plain version max / mean abs err " + ", ".join(
+            f"{p} {e[0]:.3e} / {e[1]:.3e}" for p, e in errs_b.items())
+        + f" (tol {BF16_MAX_TOL} / {BF16_MEAN_TOL}), mean distance from "
+        "the float32 kernel " + ", ".join(f"{p} {e[2]:.3e}"
+                                          for p, e in errs_b.items()))
+
+    # K2 against plain autograd of the plain version in float64 (here the
+    # float32 plain version itself strays at a few points: a reading)
+    got = sdf_grads(net, pts, lat, cots, True)
+    want = sdf_grads(net, pts, lat, cots, False)
+    net64 = copy.deepcopy(net).double()
+    ref = sdf_grads(net64, pts.double(), lat.double(),
+                    [c.double() for c in cots], False, chunk=6)
+    torch.cuda.synchronize()
+    errs, plain32, bad = {}, {}, []
+    for k, w in ref.items():
+        scale = max(float(w.abs().max()), 1e-3)
+        errs[k], ok = within(got[k].double(), w, BWD_ATOL * scale, BWD_RTOL)
+        plain32[k] = within(want[k].double(), w, BWD_ATOL * scale, BWD_RTOL)
+        if not ok or not torch.isfinite(got[k]).all():
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"K2 disagrees with the float64 plain version "
+                             f"at B={B} N={N}: {bad} {errs}")
+    dk32 = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    # K2-bf16 against plain autograd of the bf16 plain version, in float64
+    # as K2 (the float32 one strays too, by 3.2e-2 of max|ref| on the
+    # points, and its mean reaches the mean gate's noise floor: a reading)
+    got_b = sdf_grads(net, pts, lat, cots, True, "bfloat16")
+    want_b = sdf_grads(net, pts, lat, cots, False, "bfloat16")
+    ref_b = sdf_grads(net64, pts.double(), lat.double(),
+                      [c.double() for c in cots], False, "bfloat16", chunk=6)
+    torch.cuda.synchronize()
+    scale = {k: max(float(w.abs().max()), 1e-3) for k, w in ref_b.items()}
+    errs_b = check_bf16(got_b, ref_b, got, f"(K2-bf16 at B={B} N={N})",
+                        {k: BF16_K2_MAX * v for k, v in scale.items()},
+                        {k: BF16_K2_MEAN * v for k, v in scale.items()},
+                        no_gap=("lin5.bias",))
+    plain32_b = {k: (float((want_b[k].double() - w).abs().max()) / scale[k],
+                     float((want_b[k].double() - w).abs().mean()) / scale[k])
+                 for k, w in ref_b.items()}
+    del net64, ref, got, want, got_b, want_b, ref_b
+    torch.cuda.empty_cache()
+    sbar = cots[0][..., 0].contiguous()
+    w16 = weights.to(torch.bfloat16)
+    a = F.BACKWARD.launch(pts, w16, bias, sbar, cots[1], cots[2], True,
+                          "bfloat16")
+    b = F.BACKWARD.launch(pts, w16, bias, sbar, cots[1], cots[2], True,
+                          "bfloat16")
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("two K2-bf16 launches at the merged shape differ")
+    del a, b
+    rel = {k: e[0] / scale[k] for k, e in errs_b.items()}
+    top = max(rel, key=rel.get)
+    for key, mm, w in (("k2", "float32", weights),
+                       ("k2_bf16", "bfloat16", w16)):
+        ms = cuda_ms(lambda: F.BACKWARD.launch(pts, w, bias, sbar, cots[1],
+                                               cots[2], True, mm),
+                     calls=SDF_TIMED_CALLS)
+        kk, bb = F.prepare_fused_params(net, lat)
+        pp = pts.clone().requires_grad_(True)
+        out = F._forward_plain(kk, bb, pp, *F._arch(net), True, True, mm)
+        plain_ms = cuda_ms(lambda: torch.autograd.backward(
+            out, cots, retain_graph=True))
+        del out, kk, bb, pp
+        torch.cuda.empty_cache()
+        if mm == "bfloat16":
+            bound_ms, bound_by = bound(ELEM_K2 * B * N, k2_bytes(B, N),
+                                       mm_flop=FLOP_K2 * B * N)
+        else:
+            bound_ms, bound_by = bound(FLOP_K2 * B * N, k2_bytes(B, N))
+        res[key] = dict(err=max(errs.values()) if mm == "float32"
+                        else max(e[0] for e in errs_b.values()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    net.zero_grad()
+    top2 = max(errs, key=errs.get)
+    top32 = max(plain32, key=lambda k: plain32[k][0])
+    log(f"[merged-kernels] K2 at B={B} N={N} against the float64 plain "
+        f"version: max abs err {errs[top2]:.3e} ({top2}; tol atol {BWD_ATOL} "
+        f"x max|ref|, rtol {BWD_RTOL}); the float32 plain version there "
+        f"{plain32[top32][0]:.3e} ({top32}), within that tolerance in "
+        f"{sum(ok for _, ok in plain32.values())} of {len(plain32)} parts; "
+        f"K2 against the float32 plain version {dk32:.3e}; K2-bf16 against "
+        f"the float64 bf16 plain version over max|ref| {rel[top]:.3e} "
+        f"({top}), mean {max(e[1] / scale[k] for k, e in errs_b.items()):.3e}"
+        f" (tol {BF16_K2_MAX} / {BF16_K2_MEAN}), two launches bitwise equal;"
+        f" the float32 bf16 plain version there max "
+        f"{max(v[0] for v in plain32_b.values()):.3e}, mean "
+        f"{max(v[1] for v in plain32_b.values()):.3e}")
+    for key, label in (("k1", "K1"), ("k1_bf16", "K1-bf16"), ("k2", "K2"),
+                       ("k2_bf16", "K2-bf16")):
+        r = res[key]
+        log(f"[merged-kernels] {label} at B={B} N={N}: {r['ms']:.4f} ms "
+            f"({SDF_TIMED_CALLS} launches between two events), plain "
+            f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it reached)")
+    log(f"[merged-kernels] card {card_line()}")
+    return res
+
+
+def check_profile_trace(run, window):
+    """The Chrome trace that the train CLI's `--tpu.profile_iters` window
+    wrote under `run/profile/` (`trace_iters_A-B.json` for the iterations
+    `window`): one file, whose device kernels include the fused SDF pair
+    (the forward and the backward)."""
+    folder = os.path.join(run, "profile")
+    traces = sorted(os.listdir(folder))
+    name = f"trace_iters_{window[0]}-{window[1]}.json"
+    if traces != [name]:
+        raise AssertionError(f"profile window: traces {traces}, expected "
+                             f"{name}")
+    path = os.path.join(folder, name)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    sdf = {k: v for k, v in kernels.items() if "fused_sdf" in k}
+    if not any("fused_sdf_fwd" in k for k in sdf) or \
+            not any("fused_sdf_bwd" in k for k in sdf):
+        raise AssertionError(f"the trace names no fused SDF kernel: "
+                             f"{sorted(kernels)[:20]}")
+    log(f"[cli] the profiler window's {name} "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"{sum(kernels.values())} kernel launches); fused SDF kernels: "
+        + "; ".join(f"{k[:60]} x{v}" for k, v in sorted(sdf.items())))
 
 
 # --------------------------------------------------------------- phase 6
@@ -2035,7 +2378,7 @@ def phase_chamfer_api():
 
 
 DDP_STEPS = 3                   # a camera step, then two full steps
-DDP_TIMED = 8                   # then full steps timed only (NCCL x 1)
+DDP_TIMED = 4                   # then full steps timed only (NCCL x 1)
 DDP_TIMEOUT_S = 600
 # the one-process reorderings of each BatchNorm block's rows whose largest
 # difference from the loader's order is the gloo gate's float32 floor:
@@ -2064,8 +2407,11 @@ def run_cli(module, args, extra):
 
 def phase_clis():
     """`python -m shapeclipper_torch.train` for one epoch at a tiny size
-    (evaluated at epochs 0 and 1), then `python -m
-    shapeclipper_torch.evaluate --resume`, on the card (the default)."""
+    (evaluated at epochs 0 and 1) with `--tpu.profile_iters=[1,3]` (the
+    epoch's two iterations: the window opens before iteration 1 and closes
+    when training ends; its trace must name the fused SDF kernels), then
+    `python -m shapeclipper_torch.evaluate --resume`, on the card (the
+    default)."""
     import shutil
     root = os.path.join(OUT_DIR, "clis")
     shutil.rmtree(root, ignore_errors=True)
@@ -2075,9 +2421,13 @@ def phase_clis():
             "--eval.vox_res=12", "--eval.num_points=512",
             "--eval.image_size=[16,16]", "--data.max_img_cat=4", "--tb!"]
     outs = [run_cli("shapeclipper_torch.train", tiny,
-                    ["--max_epoch=1", "--freq.eval=1"]),
+                    ["--max_epoch=1", "--freq.eval=1",
+                     "--tpu.profile_iters=[1,3]", "--force_add"]),
             run_cli("shapeclipper_torch.evaluate", tiny, ["--resume"])]
     run = os.path.join(root, "synthetic_output", "run")
+    if "profiler trace written" not in outs[0]:
+        raise AssertionError("the train CLI wrote no profiler trace")
+    check_profile_trace(run, (1, 1))
     for f in ("best.pt", "latest.pt", "checkpoint/ep1.pt", "cd_cat.txt",
               "f_score.txt", "chamfer.txt"):
         if not os.path.isfile(os.path.join(run, f)):
@@ -2632,20 +2982,25 @@ def ddp_worker(kind):
     draws = global_draws(base, batch, DDP_STEPS)
     env = os.environ
     W = int(env["WORLD_SIZE"])
-    modes = ("global",) if kind == "nccl" else ("global", "per_replica")
+    # NCCL: the sequential step and the merged one ("merged": the three
+    # tpu.merge_* flags true, global BatchNorm, the same draws re-sliced)
+    modes = ("global", "merged") if kind == "nccl" else ("global",
+                                                         "per_replica")
 
     def mode_opt(mode, tag):
-        opt = flagship_opt()
-        opt.tpu.update(bn_mode=mode, bn_replicas=2 if mode == "per_replica"
-                       else None)
+        opt = flagship_opt(merged=mode == "merged")
+        bn_mode = "global" if mode == "merged" else mode
+        opt.tpu.update(bn_mode=bn_mode,
+                       bn_replicas=2 if bn_mode == "per_replica" else None)
         opt.output_path = os.path.join(OUT_DIR, f"ddp_{kind}_{tag}")
         return opt
 
     timed = DDP_TIMED if kind == "nccl" else 0
     prof = kind == "nccl"
     if kind == "nccl":
-        before = run_steps(mode_opt("global", "one_before"), batch, draws,
-                           timed, prof)
+        before = {mode: run_steps(mode_opt(mode, f"one_before_{mode}"),
+                                  batch, draws, timed, prof)
+                  for mode in modes}
         parallel.init_from_env("cuda")
     else:
         parallel.init(int(env["RANK"]), int(env["WORLD_SIZE"]),
@@ -2664,7 +3019,8 @@ def ddp_worker(kind):
         return 0
     lr = float(base.optim.lr)
     arranged = [i for r in range(W) for i in range(r, base.batch_size, W)]
-    report = dict(world=W, lr=lr, card=card_line(), modes={}, floor={})
+    report = dict(world=W, lr=lr, card=card_line(), modes={}, floor={},
+                  timed={}, profile={})
     for mode in modes:
         # one process at the global batch: the global mode in the loader's
         # order, per_replica with the rows arranged [rank 0's; rank 1's]
@@ -2685,7 +3041,7 @@ def ddp_worker(kind):
         # reordered in each of DDP_REORDERINGS (the largest difference of
         # each step, and each reordering's)
         if kind == "nccl":
-            other, other_extra = before
+            other, other_extra = before[mode]
             report["floor"][mode] = [step_errors(p, w, lr)
                                      for p, w in zip(other, ref)]
         else:
@@ -2707,8 +3063,9 @@ def ddp_worker(kind):
         if kind == "nccl":
             extra = dict(before=other_extra, ddp=ddp_extra[mode],
                          after=ref_extra)
-            report["timed"] = {k: v["timed"] for k, v in extra.items()}
-            report["profile"] = {k: v["profile"] for k, v in extra.items()}
+            report["timed"][mode] = {k: v["timed"] for k, v in extra.items()}
+            report["profile"][mode] = {k: v["profile"]
+                                       for k, v in extra.items()}
     with open(os.path.join(OUT_DIR, f"ddp_{kind}.json"), "w") as f:
         json.dump(report, f)
     return 0
@@ -2744,53 +3101,62 @@ def describe(e):
             + (", bitwise equal" if e["bitwise"] else ""))
 
 
-def phase_ddp():
-    """(1) One NCCL rank under torchrun, its Runner wrapped in DDP (the
-    reducer's buckets, the unused-parameter search, NCCL all-reduces of the
-    gradients, the global BatchNorm moments and the coupled losses' rows),
-    against the Runner without a process group before and after it;
-    (2) two ranks on the one card through gloo, in global and per_replica
-    BatchNorm, against one process at the global batch of 12; both on the
+def phase_ddp_nccl():
+    """Phase 13 (1): one NCCL rank under torchrun, its Runner wrapped in
+    DDP (the reducer's buckets, the unused-parameter search, NCCL
+    all-reduces of the gradients, the global BatchNorm moments and the
+    coupled losses' rows), against the Runner without a process group
+    before and after it, in the sequential and the merged step; the
     flagship config, DDP_STEPS steps (a camera step, then full steps), the
     same batch and draws. K1 / K2 launches per step, step times."""
     rep = run_ddp("nccl", 1)
-    steps = rep["modes"]["global"]
-    for it, e in enumerate(steps):
-        phase = "camera" if it == 0 else "full"
-        want = (3, 1) if it == 0 else (3, 3)
-        if tuple(e["launches"]) != want or tuple(e["one_launches"]) != want:
-            raise AssertionError(f"NCCL step {it}: launches K1/K2 "
-                                 f"{e['launches']} / {e['one_launches']}, "
-                                 f"expected {want}")
-        if (e["wrapper"], e["one_wrapper"]) != ("DistributedDataParallel",
-                                                "TrainStep"):
-            raise AssertionError(f"NCCL step {it}: step modules "
-                                 f"{e['wrapper']} / {e['one_wrapper']}")
-        log(f"[ddp] NCCL x 1 under DDP, step {it} ({phase}), vs the Runner "
-            f"without a process group: {describe(e)}; {e['ms']:.1f} ms vs "
-            f"{e['one_ms']:.1f} ms; K1/K2 launches {e['launches'][0]}/"
-            f"{e['launches'][1]}")
-        f = rep["floor"]["global"][it]
-        log(f"[ddp]   the Runner without a process group, before against "
-            f"after (the card's own run-to-run noise): {describe(f)}")
-        # bitwise, or within 1e-6 (parameters: 1e-6 absolute), or within
-        # twice the card's own repeat noise
-        tol = dict(loss=1e-6, grad=1e-6, param_max=1e-6 / rep["lr"],
-                   stats=1e-6)
-        off = {k: e[k] for k, t in tol.items() if e[k] > max(t, 2 * f[k])}
-        if not e["bitwise"] and off:
-            raise AssertionError(f"NCCL x 1 step {it} differs from the "
-                                 f"Runner without DDP: {off}")
-    t = {k: statistics.median(v) for k, v in rep["timed"].items()}
-    log(f"[ddp] NCCL x 1: median of {DDP_TIMED} full steps, the Runner "
-        f"without a process group {t['before']:.1f} ms (before), under DDP "
-        f"{t['ddp']:.1f} ms, without {t['after']:.1f} ms (after): DDP "
-        f"{t['ddp'] / ((t['before'] + t['after']) / 2):.3f}x their mean; "
-        f"all: {json.dumps(rep['timed'])}; "
-        f"card {rep['card']}")
-    for k, line in rep["profile"].items():
-        log(f"[ddp] NCCL x 1, one more full step profiled ({k}): {line}")
+    for mode, steps in rep["modes"].items():
+        # the merged step (phase 5e's, float32 here): one render, K1 twice
+        k1 = 2 if mode == "merged" else 3
+        for it, e in enumerate(steps):
+            phase = "camera" if it == 0 else "full"
+            want = (k1, 1) if it == 0 else (k1, k1)
+            if (tuple(e["launches"]) != want
+                    or tuple(e["one_launches"]) != want):
+                raise AssertionError(f"NCCL {mode} step {it}: launches K1/K2 "
+                                     f"{e['launches']} / {e['one_launches']}"
+                                     f", expected {want}")
+            if (e["wrapper"], e["one_wrapper"]) != ("DistributedDataParallel",
+                                                    "TrainStep"):
+                raise AssertionError(f"NCCL {mode} step {it}: step modules "
+                                     f"{e['wrapper']} / {e['one_wrapper']}")
+            log(f"[ddp] NCCL x 1 under DDP, {mode} step {it} ({phase}), vs "
+                f"the Runner without a process group: {describe(e)}; "
+                f"{e['ms']:.1f} ms vs {e['one_ms']:.1f} ms; K1/K2 launches "
+                f"{e['launches'][0]}/{e['launches'][1]}")
+            f = rep["floor"][mode][it]
+            log(f"[ddp]   the Runner without a process group, before "
+                f"against after (the card's own run-to-run noise): "
+                f"{describe(f)}")
+            # bitwise, or within 1e-6 (parameters: 1e-6 absolute), or within
+            # twice the card's own repeat noise
+            tol = dict(loss=1e-6, grad=1e-6, param_max=1e-6 / rep["lr"],
+                       stats=1e-6)
+            off = {k: e[k] for k, t in tol.items() if e[k] > max(t, 2 * f[k])}
+            if not e["bitwise"] and off:
+                raise AssertionError(f"NCCL x 1 {mode} step {it} differs "
+                                     f"from the Runner without DDP: {off}")
+        t = {k: statistics.median(v) for k, v in rep["timed"][mode].items()}
+        log(f"[ddp] NCCL x 1, {mode}: median of {DDP_TIMED} full steps, the "
+            f"Runner without a process group {t['before']:.1f} ms (before), "
+            f"under DDP {t['ddp']:.1f} ms, without {t['after']:.1f} ms "
+            f"(after): DDP {t['ddp'] / ((t['before'] + t['after']) / 2):.3f}x "
+            f"their mean; all: {json.dumps(rep['timed'][mode])}; "
+            f"card {rep['card']}")
+        for k, line in rep["profile"][mode].items():
+            log(f"[ddp] NCCL x 1, {mode}, one more full step profiled ({k}): "
+                f"{line}")
 
+
+def phase_ddp_gloo():
+    """Phase 13 (2): two ranks on the one card through gloo, in global and
+    per_replica BatchNorm, against one process at the global batch of 12,
+    as (1)."""
     rep = run_ddp("gloo", 2)
     lr_tol = dict(loss=1e-5, grad=1e-4, param_max=2.0, param_mean=0.02,
                   stats=1e-5)
@@ -3022,43 +3388,64 @@ def main():
 
     port_log.warn = record_warning
 
+    seconds = {}
+
+    def run(fn, *args, **kwargs):   # a phase function, its seconds kept
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        name = fn.__name__ + ("_merged" if kwargs.get("merged") else "")
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     opt = load_opt()
-    kern = phase_kernels(opt)                           # phase 2
-    bwd = phase_backward()                              # phase 3
-    serve_launches, _, image0 = phase_serve(opt)        # phase 4
-    phase_cli(opt, image0)
-    train_launches = phase_train()                      # phase 5
-    phase_gpu_vs_cpu_step()
-    bf16, k3_bf16_api = phase_bf16_kernels(opt)         # phase 5a
-    bf16_launches = phase_train_bf16()                  # phase 5b
-    phase_serve_bf16()                                  # phase 5c
-    phase_gpu_vs_cpu_step_bf16()                        # phase 5d
-    phase_converge()                                    # phase 6
-    nn = phase_chamfer()                                # phase 7
-    eval_launches, err4, err5 = phase_eval()            # phase 8
+    kern = run(phase_kernels, opt)                      # phase 2
+    bwd = run(phase_backward)                           # phase 3
+    serve_launches, _, image0 = run(phase_serve, opt)   # phase 4
+    run(phase_cli, opt, image0)
+    train_launches = run(phase_train)                   # phase 5
+    run(phase_gpu_vs_cpu_step)
+    bf16, k3_bf16_api = run(phase_bf16_kernels, opt)    # phase 5a
+    bf16_launches, seq_bf16 = run(phase_train_bf16)     # phase 5b
+    run(phase_serve_bf16)                               # phase 5c
+    run(phase_gpu_vs_cpu_step_bf16)                     # phase 5d
+    merged_launches = run(phase_train_merged, seq_bf16)  # phase 5e
+    run(phase_gpu_vs_cpu_step, merged=True)
+    merged = run(phase_merged_kernels)
+    run(phase_converge)                                 # phase 6
+    nn = run(phase_chamfer)                             # phase 7
+    eval_launches, err4, err5 = run(phase_eval)         # phase 8
     nn["k4"]["err"] = max(nn["k4"]["err"], err4)
     nn["k5"]["err"] = max(nn["k5"]["err"], err5)
-    api_launches = phase_chamfer_api()
-    phase_clis()                                        # phase 9
-    phase_pretrain()                                    # phase 10
-    phase_clip()                                        # phase 11
-    phase_pretrain_clis()                               # phase 12
-    phase_ddp()                                         # phase 13
-    phase_k1_k2_half()
-    phase_ddp_cli()                                     # phase 14
-    phase_category_reg()                                # phase 15
+    api_launches = run(phase_chamfer_api)
+    run(phase_clis)                                     # phase 9
+    run(phase_pretrain)                                 # phase 10
+    run(phase_clip)                                     # phase 11
+    run(phase_pretrain_clis)                            # phase 12
+    run(phase_ddp_nccl)                                 # phase 13
+    run(phase_ddp_gloo)
+    run(phase_k1_k2_half)
+    run(phase_ddp_cli)                                  # phase 14
+    run(phase_category_reg)                             # phase 15
+    log(f"[done] seconds by phase function: {json.dumps(seconds)}")
     guarded = [w for w in warnings if w.startswith(GUARD_WARNINGS)]
     if guarded:
         raise AssertionError(f"a guard swallowed a failure: {guarded}")
 
     k1, k3 = kern["grad"][1], kern["nograd"][0]
+
+    def at_merged_shape(key):   # phase 5e's times at 24 x 32,768
+        return {f"{k}_24x32768": merged[key][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
     summary = [
         dict(name="fused_sdf_fwd (K1, compute_grad=True)", route="cuda",
              source=SOURCE, replaces=REPLACES,
              launches=train_launches["k1"],
-             max_abs_err=max(r["err"] for r in kern["grad"]), ms=k1["ms"],
+             max_abs_err=max([r["err"] for r in kern["grad"]]
+                             + [merged["k1"]["err"]]), ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             **at_merged_shape("k1")),
         dict(name="fused_sdf_fwd (K3, compute_grad=False)", route="cuda",
              source=SOURCE, replaces=REPLACES,
              launches=serve_launches["nograd"],
@@ -3067,17 +3454,20 @@ def main():
              bound_by=k3["bound_by"], library_ms=None),
         dict(name="fused_sdf_bwd (K2)", route="cuda", source=SOURCE_BWD,
              replaces=REPLACES_BWD, launches=train_launches["k2"],
-             max_abs_err=bwd["err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
-             bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
-             library_ms=None),
+             max_abs_err=max(bwd["err"], merged["k2"]["err"]), ms=bwd["ms"],
+             plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
+             bound_by=bwd["bound_by"], library_ms=None,
+             **at_merged_shape("k2")),
         dict(name="fused_sdf_fwd (K1-bf16, compute_grad=True, bf16 "
              "products)", route="cuda", source=SOURCE, replaces=REPLACES,
-             launches=bf16_launches["k1_bf16"],
+             launches=merged_launches["k1_bf16"],
+             sequential_launches=bf16_launches["k1_bf16"],
              max_abs_err=max(bf16[("grad", 1)]["err"],
-                             bf16[("grad", 12)]["err"]),
+                             bf16[("grad", 12)]["err"],
+                             merged["k1_bf16"]["err"]),
              **{k: bf16[("grad", 12)][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
-             library_ms=None),
+             library_ms=None, **at_merged_shape("k1_bf16")),
         dict(name="fused_sdf_fwd (K3-bf16, compute_grad=False, bf16 "
              "products)", route="cuda", source=SOURCE, replaces=REPLACES,
              launches=k3_bf16_api, max_abs_err=bf16[("nograd", 1)]["err"],
@@ -3087,19 +3477,22 @@ def main():
         dict(name="fused_sdf_pack_bf16 (K1-bf16 / K3-bf16's weights as bf16 "
              "B fragments, with K2-bf16's plain copy)", route="cuda",
              source=SOURCE, replaces=REPLACES,
-             launches=bf16_launches["pack_bf16"], max_abs_err=bf16["pack"][
-                 "err"], **{k: bf16["pack"][k] for k in (
+             launches=merged_launches["pack_bf16"],
+             sequential_launches=bf16_launches["pack_bf16"],
+             max_abs_err=bf16["pack"]["err"], **{k: bf16["pack"][k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
              library_ms=None),
         dict(name="fused_sdf_bwd_bf16 (K2-bf16, bf16 products on the tensor "
              "cores)", route="cuda", source=SOURCE_BWD_BF16,
              replaces=REPLACES_BWD,
-             launches=bf16_launches["k2_bf16"],
+             launches=merged_launches["k2_bf16"],
+             sequential_launches=bf16_launches["k2_bf16"],
              max_abs_err=max(bf16[("k2", "render")]["err"],
-                             bf16[("k2", "eikonal")]["err"]),
+                             bf16[("k2", "eikonal")]["err"],
+                             merged["k2_bf16"]["err"]),
              **{k: bf16[("k2", "render")][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")},
-             library_ms=None),
+             library_ms=None, **at_merged_shape("k2_bf16")),
         dict(name="chamfer_nn (K4, distances)", route="cuda",
              source=SOURCE_NN, replaces=REPLACES_K4,
              launches=eval_launches["k4"], max_abs_err=nn["k4"].pop("err"),

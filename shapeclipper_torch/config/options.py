@@ -86,19 +86,25 @@ def load_options(fname):
     return opt
 
 
-def override_options(opt, opt_over, key_stack=None, safe_check=False):
+def override_options(opt, opt_over, key_stack=None, safe_check=False,
+                     force_add=False):
+    # `--force_add` adds nested keys too (`--tpu.profile_iters=[1,3]`); the
+    # JAX package's check reads it at the top level only
+    force_add = force_add or bool(opt_over.get("force_add")
+                                  or opt.get("force_add"))
     for key, value in opt_over.items():
         if isinstance(value, dict):
             # `or edict()`: a key present with a null value (e.g. `mesh:`)
             # accepts a dict override
             base = opt.get(key) or edict()
-            opt[key] = override_options(base, value,
-                                        key_stack=key_stack + [key],
-                                        safe_check=safe_check and bool(opt.get(key)))
+            opt[key] = override_options(
+                base, value, key_stack=key_stack + [key],
+                safe_check=safe_check and bool(opt.get(key)),
+                force_add=force_add)
         else:
             if safe_check and key not in opt and key not in _ALWAYS_ALLOWED_KEYS:
                 key_str = ".".join(key_stack + [key])
-                if opt_over.get("force_add") or opt.get("force_add"):
+                if force_add:
                     print(f'adding new key "{key_str}"')
                 else:
                     raise KeyError(

@@ -6,17 +6,24 @@ names that `bridge.py` produces. Inputs use the JAX package's layouts: images
 [B, H, W, 3], poses [B, 3, 4], neighbour stacks [B, K, ...].
 
 Two paths: serving (`training=False`, eval-mode BatchNorm) and the training
-forward (`training=True`) with the JAX package's SEQUENTIAL semantics, i.e.
-every `tpu.merge_*` flag false: query encode, estimator, render, then per
-neighbour view encode, estimator and render, so the BatchNorm running
-statistics update query first, then each view. BatchNorm follows the
-module's mode: `graph.train()` for full steps, `graph.eval()` for the
-camera phase (the JAX `bn_eval`). Train-mode BatchNorm follows
+forward (`training=True`) with the JAX package's `Graph.forward` programs,
+picked by the three `tpu.merge_*` flags (each true when absent, as there;
+`merge_flags`): `merge_encoders` runs the query and every neighbour view
+through ONE ResNet34 and ONE ResNet18 call, `merge_flip_estimator` puts the
+horizontally flipped cam_sym pass into the query's ResNet18 call, and
+`merge_nn_render` renders the query and every neighbour view in ONE render
+over (1 + V) * B views. Each grouped call normalises each view group with
+its own BatchNorm moments (`layers.bn_groups`), so the merged step computes
+what the sequential one does (flags false: query encode, estimator, render,
+then per neighbour view encode, estimator and render); the BatchNorm
+running statistics update query first, then each view, in both. BatchNorm
+follows the module's mode: `graph.train()` for full steps, `graph.eval()`
+for the camera phase (the JAX `bn_eval`). Train-mode BatchNorm follows
 `tpu.bn_mode` as the JAX package's `_apply_bn`: `global` moments over the
 whole batch (summed over the ranks under data parallelism), or
-`per_replica` moments over `tpu.bn_replicas` contiguous blocks (default:
-the world size) with the running statistics from block 0. The port
-ignores `tpu.merge_*`, `tpu.sdf_grad_mode`, `tpu.fold_eikonal` and
+`per_replica` moments over `tpu.bn_replicas` contiguous blocks of each view
+group (default: the world size) with the running statistics from block 0.
+The port ignores `tpu.sdf_grad_mode`, `tpu.fold_eikonal` and
 `tpu.remat_renderer`.
 
 Precision follows the JAX package's two keys. `tpu.encoder_dtype` is the
@@ -30,7 +37,10 @@ raw `sdf_network.apply`).
 Random draws (stratified jitter, eikonal points, the Gumbel noise of the
 neighbour selection) are optional inputs in `draws`; `step_draws` takes an
 absent one from `generator` at the global batch, in the order a one-process
-step consumes them, and this rank keeps its own rows.
+step consumes them, and this rank keeps its own rows. The merged render
+takes one draw over its (1 + V) view groups (`draws.render`); given the
+sequential renders' draws instead (`render` and `render_NN`), it takes the
+same rows re-sliced (`merged_render_draws`).
 `loss_weight.category_reg` adds the `category_centers` parameter
 [num_classes, proj_latent_dim] and its loss.
 """
@@ -50,7 +60,8 @@ from ..render import renderer as renderlib
 from ..utils.easydict import EasyDict as edict
 from .estimator import Estimator
 from .implicit import Density, RGBNetwork, SDFNetwork, compute_dtype
-from .layers import LatentProjection, batch_stats_frozen, set_bn_mode
+from .layers import (LatentProjection, batch_stats_frozen, bn_groups,
+                     set_bn_mode)
 from ..utils.log import log
 from .resnet import load_pretrained_npz, make_encoder
 
@@ -67,6 +78,11 @@ def _rotation(trig_azim, trig_elev, trig_theta):
     return Rz @ Rx @ Ry @ perm[None]
 
 
+def _rows(est, lo, hi):
+    """Rows lo:hi of every field of EstimatorOutputs."""
+    return type(est)(*(t[lo:hi] for t in est))
+
+
 def pose_from_trig(opt, trig_azim, trig_elev, trig_theta, scale_focal,
                    scale_dist):
     """Estimator outputs -> (pose [B,3,4], intr [B,3,3]): rotation
@@ -78,14 +94,47 @@ def pose_from_trig(opt, trig_azim, trig_elev, trig_theta, scale_focal,
     return camera.compose([pose_R, pose_T]), camera.get_intr(opt, scale_focal)
 
 
-def step_draws(opt, var, draws, generator, nn_active):
+def merge_flags(opt, var, nn_active):
+    """(merge_encoders, merge_flip_estimator, merge_nn_render) of a training
+    step on `var`, under the JAX package's conditions (`Graph.forward`):
+    the encoder and render merges need the neighbour branch, the render
+    merge sampled rays for the query and the views, the flip merge cam_sym;
+    each flag is true when absent."""
+    tpu = opt.get("tpu", {})
+    enc = nn_active and tpu.get("merge_encoders", True)
+    flip = (opt.loss_weight.get("cam_sym") is not None
+            and tpu.get("merge_flip_estimator", True))
+    render = (nn_active and bool(opt.render.rand_sample) and "ray_idx" in var
+              and "ray_idx_NN" in var and tpu.get("merge_nn_render", True))
+    return bool(enc), bool(flip), bool(render)
+
+
+def merged_render_draws(draws):
+    """`draws` with the sequential renders' draws (`render`, the query's,
+    and `render_NN`, one per neighbour view) as the merged render's over
+    [query; NN_0; ...]: the same rows re-sliced; the views' eik_idx rows
+    feed no eikonal point (zeros)."""
+    r, nn_draws = draws.render, draws.render_NN
+    out = edict({k: v for k, v in draws.items() if k != "render_NN"})
+    out.render = edict(r)
+    out.render.t_rand = torch.cat([r.t_rand] + [d.t_rand for d in nn_draws])
+    if r.get("eik_idx") is not None:
+        out.render.eik_idx = torch.cat(
+            [r.eik_idx] + [torch.zeros_like(r.eik_idx)] * len(nn_draws))
+    return out
+
+
+def step_draws(opt, var, draws, generator, nn_active, merge_nn=False):
     """`draws` with every absent draw of a training step taken from
     `generator`: the global batch's tensor (this rank's rows times the world
     size), in the order a one-process step consumes them (the query
     render's jitter and eikonal points, the Gumbel noise, each neighbour
-    view's jitter), of which this rank keeps its rows."""
+    view's jitter; with `merge_nn` the merged render's jitter over every
+    view group and the query's eikonal points, then the Gumbel noise), of
+    which this rank keeps its rows."""
     n = var.rgb_input_map.shape[0] * parallel.world_size()
     dev = var.rgb_input_map.device
+    V = opt.reg.n_views
 
     def rays(ray_idx):
         return ray_idx.shape[1] if ray_idx is not None else opt.H * opt.W
@@ -93,22 +142,25 @@ def step_draws(opt, var, draws, generator, nn_active):
     out = edict(draws)
     query_rays = var.get("ray_idx") if opt.render.rand_sample else None
     out.render = renderlib.draw(opt, n, rays(query_rays), True, generator,
-                                dev, given=draws.get("render"))
+                                dev, given=draws.get("render"),
+                                groups=1 + V if merge_nn else 1)
     if not nn_active:
         return out
     K = var.rgb_input_map_NN.shape[1]
-    if K != opt.reg.n_views and draws.get("nn_uniform") is None:
+    if K != V and draws.get("nn_uniform") is None:
         out.nn_uniform = parallel.local_rows(
             1e-20 + (1.0 - 1e-20) * torch.rand(n, K, generator=generator,
                                                 device=dev))
+    if merge_nn:
+        return out
     nn_rays = (var.get("ray_idx_NN")
                if opt.render.rand_sample and "ray_idx_NN" in var else None)
-    given = draws.get("render_NN") or [None] * opt.reg.n_views
+    given = draws.get("render_NN") or [None] * V
     out.render_NN = [
         renderlib.draw(opt, n, rays(None if nn_rays is None
                                     else nn_rays[:, 0]),
                        False, generator, dev, given=given[v])
-        for v in range(opt.reg.n_views)]
+        for v in range(V)]
     return out
 
 
@@ -209,13 +261,14 @@ class Graph(nn.Module):
 
     def render(self, pose, intr, scale_dist, proj_sdf, proj_rgb,
                ray_idx=None, training=False, compute_eikonal=None,
-               draws=None):
+               draws=None, eikonal_batch=None):
         return renderlib.render(self.opt, self.sdf_network, self.rgb_network,
                                 self.density.beta, pose, intr, scale_dist,
                                 proj_sdf, proj_rgb, ray_idx=ray_idx,
                                 training=training,
                                 compute_eikonal=compute_eikonal, draws=draws,
-                                implicit_dtype=self.implicit_dtype)
+                                implicit_dtype=self.implicit_dtype,
+                                eikonal_batch=eikonal_batch)
 
     def forward(self, var, training=False, get_loss=False, draws=None,
                 generator=None, render=True):
@@ -252,9 +305,26 @@ class Graph(nn.Module):
                 -1, opt.image_size[0], opt.image_size[1], 3)
         return var
 
-    def _encode_and_pose(self, var):
-        proj_sdf, proj_rgb, _ = self.encode(var.rgb_input_map)
-        pose, intr, est = self.pred_pose(var.rgb_input_map)
+    def _encode_and_pose(self, var, flip=False):
+        """Encode and pose the query; with `flip` (tpu.merge_flip_estimator)
+        the estimator runs on [query; flipped query] as two BatchNorm groups,
+        the flipped one without a running-statistics update, and writes
+        var.trig_*_flipped for the cam_sym loss."""
+        images = var.rgb_input_map
+        proj_sdf, proj_rgb, _ = self.encode(images)
+        if flip:
+            B = images.shape[0]
+            with bn_groups(self.estimator, 2, stats_groups=(0,)):
+                pose, intr, est = self.pred_pose(
+                    torch.cat([images, images.flip(2)]))
+            self._set_flipped(var, est, B)
+            pose, intr, est = pose[:B], intr[:B], _rows(est, 0, B)
+        else:
+            pose, intr, est = self.pred_pose(images)
+        self._set_latents_and_pose(var, proj_sdf, proj_rgb, pose, intr, est)
+
+    @staticmethod
+    def _set_latents_and_pose(var, proj_sdf, proj_rgb, pose, intr, est):
         var.proj_latent_sdf, var.proj_latent_rgb = proj_sdf, proj_rgb
         var.pose, var.intr, var.scale_dist = pose, intr, est.scale_dist
         var.trig_azim, var.trig_elev, var.trig_theta = (
@@ -262,10 +332,17 @@ class Graph(nn.Module):
         var.scale_focal = est.scale_focal
 
     @staticmethod
-    def _set_render_outputs(var, out):
-        var.rgb_recon, var.mask_recon = out.rgb, out.mask
-        var.mask_hard, var.depth_recon = out.mask_hard, out.depth
-        var.normal_recon, var.grad_eikonal = out.normal, out.grad_eikonal
+    def _set_flipped(var, est, B):
+        """The flipped pass's rows B:2B of a grouped estimator call."""
+        var.trig_azim_flipped = est.trig_azim[B:2 * B]
+        var.trig_elev_flipped = est.trig_elev[B:2 * B]
+        var.trig_theta_flipped = est.trig_theta[B:2 * B]
+
+    @staticmethod
+    def _set_render_outputs(var, out, rows=slice(None)):
+        var.rgb_recon, var.mask_recon = out.rgb[rows], out.mask[rows]
+        var.mask_hard, var.depth_recon = out.mask_hard[rows], out.depth[rows]
+        var.normal_recon, var.grad_eikonal = out.normal[rows], out.grad_eikonal
 
     def _set_maps(self, var):
         opt = self.opt
@@ -277,7 +354,8 @@ class Graph(nn.Module):
 
     # --------------------------------------------------------------- training
     def _forward_train(self, var, get_loss, draws, generator):
-        """Reference `model/graph.py:68-112` with sequential encoders."""
+        """Reference `model/graph.py:68-112`, in the program the merge flags
+        pick (`merge_flags`; the JAX package's `Graph.forward`)."""
         opt = self.opt
         var = edict(var)
         ray_idx = var.get("ray_idx") if opt.render.rand_sample else None
@@ -285,23 +363,118 @@ class Graph(nn.Module):
         nn_active = ((lw.get("nearest_img") is not None
                       or lw.get("nearest_mask") is not None)
                      and "rgb_input_map_NN" in var)
+        merge_enc, merge_flip, merge_nn = merge_flags(opt, var, nn_active)
+        if merge_nn and draws.get("render_NN") is not None:
+            draws = merged_render_draws(draws)
         if generator is not None:
-            draws = step_draws(opt, var, draws, generator, nn_active)
-        self._encode_and_pose(var)
+            draws = step_draws(opt, var, draws, generator, nn_active,
+                               merge_nn)
+        prep = None
+        if merge_enc:
+            prep = self._encode_and_pose_merged(
+                var, self._nn_select(var, draws.get("nn_uniform")),
+                merge_flip)
+        else:
+            self._encode_and_pose(var, flip=merge_flip)
         normal_sup = var.get("normal_gt", var.get("normal_input"))
         if normal_sup is not None:
             var.normal_transformed = camera.transform_normal(normal_sup,
                                                              var.pose)
-        out = self.render(var.pose, var.intr, var.scale_dist,
-                          var.proj_latent_sdf, var.proj_latent_rgb,
-                          ray_idx=ray_idx, training=True,
-                          draws=draws.get("render"))
-        self._set_render_outputs(var, out)
-        if nn_active:
-            self.forward_NN(var, draws)
+        if merge_nn:
+            self._forward_merged(var, draws, ray_idx, prep)
+        else:
+            out = self.render(var.pose, var.intr, var.scale_dist,
+                              var.proj_latent_sdf, var.proj_latent_rgb,
+                              ray_idx=ray_idx, training=True,
+                              draws=draws.get("render"))
+            self._set_render_outputs(var, out)
+            if nn_active:
+                self.forward_NN(var, draws, prep)
         if not get_loss:
             return var
         return var, self.compute_loss(var)
+
+    def _encode_and_pose_merged(self, var, sels, flip):
+        """ONE ResNet34 call over [query; NN_0; ...] (1 + V BatchNorm groups)
+        and ONE ResNet18 call over [query; (flipped;) NN_0; ...] (the flip
+        group without a running-statistics update), as the JAX package's
+        `_encode_and_pose_merged` (tpu.merge_encoders): sets the query's
+        latents and pose (and with `flip` var.trig_*_flipped), writes the
+        var keys `_nn_prepare` writes and returns its per-view render
+        inputs."""
+        opt = self.opt
+        B = var.rgb_input_map.shape[0]
+        V = len(sels)
+        d = opt.arch.latent_dim_shape
+        with bn_groups(self.encoder, 1 + V):
+            latent_all = self.encoder(torch.cat(
+                [var.rgb_input_map] + [s.rgb_input_map for s in sels]))
+        # the views project their own RGB latents; the SDF latent is the
+        # query's alone
+        proj_sdf = self.latent_proj_shape(latent_all[:B, :d])
+        with bn_groups(self.latent_proj_rgb, 1 + V):
+            proj_rgb_all = self.latent_proj_rgb(latent_all[:, d:])
+        f = int(flip)
+        G = 1 + f + V
+        est_imgs = ([var.rgb_input_map]
+                    + ([var.rgb_input_map.flip(2)] if flip else [])
+                    + [s.rgb_input_map for s in sels])
+        with bn_groups(self.estimator, G,
+                       stats_groups=(0,) + tuple(range(1 + f, G))):
+            pose_all, intr_all, est_all = self.pred_pose(torch.cat(est_imgs))
+        if flip:
+            self._set_flipped(var, est_all, B)
+        self._set_latents_and_pose(var, proj_sdf, proj_rgb_all[:B],
+                                   pose_all[:B], intr_all[:B],
+                                   _rows(est_all, 0, B))
+        prep = []
+        for v in range(V):
+            lo, hi = (1 + f + v) * B, (2 + f + v) * B
+            prep.append(self._set_view(
+                var, v, pose_all[lo:hi], intr_all[lo:hi],
+                est_all.scale_dist[lo:hi],
+                proj_rgb_all[(1 + v) * B:(2 + v) * B], sels[v]))
+        return prep
+
+    @staticmethod
+    def _set_view(var, v, pose, intr, scale_dist, proj_rgb, sel):
+        """Neighbour view v's var keys -> its render inputs."""
+        var[f"proj_latent_rgb_NN_{v}"] = proj_rgb
+        # reference parity: holds the LAST view's latent
+        var.proj_latent_rgb_NN = proj_rgb
+        var[f"pose_NN_{v}"] = pose
+        var[f"intr_NN_{v}"] = intr
+        var[f"scale_dist_NN_{v}"] = scale_dist
+        return dict(pose=pose, intr=intr, scale_dist=scale_dist,
+                    proj_rgb=proj_rgb, ray_idx=sel.get("ray_idx"))
+
+    def _forward_merged(self, var, draws, ray_idx, prep=None):
+        """ONE render over [query; NN_0; ...] (tpu.merge_nn_render, the JAX
+        package's `_forward_merged`): each view's own pose, intrinsics,
+        scale, RGB latent and rays, the query's SDF latent for every view,
+        the eikonal points of the query rows only; the outputs sliced back
+        to the query's keys and `*_recon_NN_v`."""
+        if prep is None:
+            prep = self._nn_prepare(var, draws)
+        B = var.pose.shape[0]
+
+        def cat(query, key):
+            return torch.cat([query] + [p[key] for p in prep])
+
+        out = self.render(
+            cat(var.pose, "pose"), cat(var.intr, "intr"),
+            cat(var.scale_dist, "scale_dist"),
+            torch.cat([var.proj_latent_sdf] * (1 + len(prep))),
+            cat(var.proj_latent_rgb, "proj_rgb"),
+            ray_idx=cat(ray_idx, "ray_idx"), training=True,
+            draws=draws.get("render"), eikonal_batch=B)
+        self._set_render_outputs(var, out, slice(0, B))
+        for v in range(len(prep)):
+            rows = slice((1 + v) * B, (2 + v) * B)
+            var[f"rgb_recon_NN_{v}"] = out.rgb[rows]
+            var[f"mask_recon_NN_{v}"] = out.mask[rows]
+            var[f"depth_recon_NN_{v}"] = out.depth[rows]
+            var[f"normal_recon_NN_{v}"] = out.normal[rows]
 
     def _nn_select(self, var, uniform=None):
         """IoU-weighted neighbour selection (reference
@@ -361,22 +534,18 @@ class Graph(nn.Module):
             latent_NN = self.encoder(sel.rgb_input_map)
             proj_rgb_NN = self.latent_proj_rgb(
                 latent_NN[:, opt.arch.latent_dim_shape:])
-            var[f"proj_latent_rgb_NN_{v}"] = proj_rgb_NN
-            # reference parity: holds the LAST view's latent
-            var.proj_latent_rgb_NN = proj_rgb_NN
             pose_NN, intr_NN, est_NN = self.pred_pose(sel.rgb_input_map)
-            var[f"pose_NN_{v}"] = pose_NN
-            var[f"intr_NN_{v}"] = intr_NN
-            var[f"scale_dist_NN_{v}"] = est_NN.scale_dist
-            prep.append(dict(pose=pose_NN, intr=intr_NN,
-                             scale_dist=est_NN.scale_dist,
-                             proj_rgb=proj_rgb_NN, ray_idx=sel.get("ray_idx")))
+            prep.append(self._set_view(var, v, pose_NN, intr_NN,
+                                       est_NN.scale_dist, proj_rgb_NN, sel))
         return prep
 
-    def forward_NN(self, var, draws):
+    def forward_NN(self, var, draws, prep=None):
         """CLIP nearest-neighbour consistency branch, one render per view
-        with the query's SDF latent (reference `model/graph.py:114-218`)."""
-        prep = self._nn_prepare(var, draws)
+        with the query's SDF latent (reference `model/graph.py:114-218`);
+        `prep`: the views' render inputs when the merged encoders made
+        them."""
+        if prep is None:
+            prep = self._nn_prepare(var, draws)
         render_draws = draws.get("render_NN") or [None] * len(prep)
         for v, p in enumerate(prep):
             # the NN views' eikonal gradients feed no loss
@@ -423,14 +592,18 @@ class Graph(nn.Module):
             loss.cam_uniform = L.cam_uniform_loss(var.trig_azim,
                                                   emd_p=opt.reg.emd_p)
         if lw.get("cam_sym") is not None:
-            # the estimator on the horizontally flipped batch, with batch
-            # statistics in train mode; its running-stat update is dropped
-            # (reference `model/loss.py:114`)
-            with batch_stats_frozen(self.estimator):
-                est_f = self.estimator(var.rgb_input_map.flip(2))
+            if "trig_azim_flipped" in var:   # the merged flip pass
+                trig_f = (var.trig_azim_flipped, var.trig_elev_flipped,
+                          var.trig_theta_flipped)
+            else:
+                # the estimator on the horizontally flipped batch, with batch
+                # statistics in train mode; its running-stat update is
+                # dropped (reference `model/loss.py:114`)
+                with batch_stats_frozen(self.estimator):
+                    est_f = self.estimator(var.rgb_input_map.flip(2))
+                trig_f = (est_f.trig_azim, est_f.trig_elev, est_f.trig_theta)
             loss.cam_sym = L.cam_sym_loss(
-                (var.trig_azim, var.trig_elev, var.trig_theta),
-                (est_f.trig_azim, est_f.trig_elev, est_f.trig_theta))
+                (var.trig_azim, var.trig_elev, var.trig_theta), trig_f)
         if lw.get("category_reg") is not None:
             loss.category_reg = L.category_reg_loss(
                 var.proj_latent_sdf, self.category_centers,

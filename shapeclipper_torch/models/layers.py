@@ -2,10 +2,12 @@
 `shapeclipper_tpu/models/layers.py`).
 
 `BatchNorm` is the JAX package's `GroupBatchNorm` as `Graph._apply_bn` uses
-it: `groups=1`, or the per-replica split of `tpu.bn_mode: per_replica`
-(`replicas` contiguous blocks, the running statistics from block 0); the
-grouped, merged-encoder paths are not ported. Under data parallelism the
-global-batch moments are summed over the ranks (`sync`). A bfloat16 input
+it: view groups (`bn_groups`: one ResNet call over the query and its
+neighbour views, each group normalised with its own moments and the running
+statistics composed as sequential calls would), the per-replica split of
+`tpu.bn_mode: per_replica` (`replicas` contiguous blocks a group, the
+running statistics from each group's block 0), and under data parallelism
+the global-batch moments summed over the ranks (`sync`). A bfloat16 input
 (the ResNets at `tpu.encoder_dtype: bfloat16`) is normalised in float32,
 moments and sums included, and the result is cast back to bfloat16, as
 `GroupBatchNorm(dtype=bfloat16)` does.
@@ -45,13 +47,19 @@ class BatchNorm(_BatchNorm):
     * train mode: the biased batch variance normalises, and the running
       statistics take `0.9 * running + 0.1 * batch` with the BIASED batch
       variance (`nn.BatchNorm*d` would use the unbiased one, n/(n-1) larger);
-    * `replicas = n` (train mode): the batch splits into n contiguous
+    * `groups = G` (train mode, set by `bn_groups`): a [G * B, ...] batch
+      of G view groups, each normalised with its own moments; the running
+      statistics take the update of each group in `stats_groups` in turn
+      (None: every group in order; (): none), as G sequential calls whose
+      listed ones update, and `num_batches_tracked` counts one a listed
+      group;
+    * `replicas = n` (train mode): each group splits into n contiguous
       blocks, each normalised with its own moments, and the running
-      statistics follow block 0 only (JAX's per-replica BN, DDP's per-GPU
-      BN with rank 0's buffers broadcast);
-    * `sync` (train mode): Σx, Σx² and the count are summed over the ranks
-      with autograd, so every rank normalises with the global batch's
-      moments (JAX's global BN across the data mesh; not
+      statistics follow each listed group's block 0 only (JAX's
+      per-replica BN, DDP's per-GPU BN with rank 0's buffers broadcast);
+    * `sync` (train mode): Σx, Σx² and the count, per group, are summed
+      over the ranks with autograd, so every rank normalises with the global
+      batch's moments (JAX's global BN across the data mesh; not
       `nn.SyncBatchNorm`, whose running variance is the unbiased one);
     * train mode inside `batch_stats_frozen`: batch statistics, no update
       (the flipped cam_sym estimator pass, whose update JAX discards);
@@ -65,6 +73,8 @@ class BatchNorm(_BatchNorm):
         self.update_stats = True
         self.replicas = 1
         self.sync = False
+        self.groups = 1
+        self.stats_groups = None
 
     def _check_input_dim(self, x):
         if x.dim() not in (2, 4):
@@ -80,32 +90,38 @@ class BatchNorm(_BatchNorm):
                                 self.eps).to(dtype)
         # GroupBatchNorm's arithmetic, so that train mode (forward and
         # gradient) follows the JAX package also where var << mean^2
-        n = self.replicas
-        if n == 1:
+        G, n = self.groups, self.replicas
+        blocks = G * n
+        if blocks == 1:
             xs, dims = x, [0] + list(range(2, x.dim()))
             shape = [1, -1] + [1] * (x.dim() - 2)
-        else:   # [n, B / n, C, ...]: one set of moments per block
-            xs = x.reshape(n, x.shape[0] // n, *x.shape[1:])
+        else:   # [G * n, B / n, C, ...]: one set of moments per block
+            xs = x.reshape(blocks, x.shape[0] // blocks, *x.shape[1:])
             dims = [1] + list(range(3, xs.dim()))
-            shape = [n, 1, -1] + [1] * (x.dim() - 2)
+            shape = [blocks, 1, -1] + [1] * (x.dim() - 2)
         # Σx, Σx² over a count on the device in every mode, so that one
         # rank under a process group computes exactly what no group does
         s1, s2 = xs.sum(dim=dims), (xs * xs).sum(dim=dims)
-        count = s1.new_full((1,), x.numel() / (n * x.shape[1]))
+        count = s1.new_full((1,), x.numel() / (blocks * x.shape[1]))
         if self.sync:
             assert n == 1, "per-replica moments are never summed over ranks"
-            C = x.shape[1]
-            sums = parallel.all_reduce_sum(torch.cat([s1, s2, count]))
-            s1, s2, count = sums[:C], sums[C:2 * C], sums[-1:]
+            k = s1.numel()
+            sums = parallel.all_reduce_sum(
+                torch.cat([s1.reshape(-1), s2.reshape(-1), count]))
+            s1 = sums[:k].reshape(s1.shape)
+            s2, count = sums[k:2 * k].reshape(s2.shape), sums[-1:]
         mean, mean2 = s1 / count, s2 / count
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:
+            listed = (range(G) if self.stats_groups is None
+                      else self.stats_groups)
             with torch.no_grad():
-                self.running_mean.lerp_(mean if n == 1 else mean[0],
-                                        self.momentum)
-                self.running_var.lerp_(var if n == 1 else var[0],
-                                       self.momentum)
-                self.num_batches_tracked += 1
+                for g in listed:   # each listed group's block 0, in turn
+                    self.running_mean.lerp_(
+                        mean if blocks == 1 else mean[g * n], self.momentum)
+                    self.running_var.lerp_(
+                        var if blocks == 1 else var[g * n], self.momentum)
+                self.num_batches_tracked += len(listed)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = ((xs - mean.reshape(shape)) * mul.reshape(shape)
              + self.bias.view([1, -1] + [1] * (x.dim() - 2)))
@@ -132,6 +148,23 @@ def batch_stats_frozen(module):
     finally:
         for m in bns:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def bn_groups(module, groups, stats_groups=None):
+    """Train-mode BatchNorms under `module` take a [groups * B, ...] batch of
+    view groups, each normalised with its own moments, and update the
+    running statistics from the groups `stats_groups` in order (None: all;
+    see `BatchNorm`); back to one group after the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    listed = None if stats_groups is None else tuple(stats_groups)
+    for m in bns:
+        m.groups, m.stats_groups = int(groups), listed
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.groups, m.stats_groups = 1, None
 
 
 class BottleneckLinear(nn.Module):

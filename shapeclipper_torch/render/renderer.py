@@ -15,7 +15,7 @@ uniform in the sample range, R near points one per ray) with the latent
 detached but not the points, which depend on the predicted pose.
 
 Random draws: a training render takes them as inputs (`draws.t_rand`
-[B,R,S], `draws.eik_idx` [B,R,1], `draws.eik_uniform` [B,R,3]); `draw` takes
+[B,R,S], `draws.eik_idx` [B,R,1], `draws.eik_uniform` [Be,R,3]); `draw` takes
 them from a `torch.Generator` at the global batch (B times the world size)
 and keeps this rank's rows.
 """
@@ -50,28 +50,32 @@ def _safe_normalize(x, dim=-1, eps=1e-12):
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
-def draw(opt, n, n_rays, eikonal, generator, device, given=None):
-    """A training render's draws for the global batch of `n` samples, in
-    the order the render consumes them: t_rand [n, R, S], then with
-    `eikonal` eik_idx [n, R, 1] and eik_uniform [n, R, 3]; this rank keeps
-    its rows (`parallel.local_rows`). A draw in `given` (this rank's rows)
-    is kept and takes nothing from `generator`."""
+def draw(opt, n, n_rays, eikonal, generator, device, given=None, groups=1):
+    """A training render's draws for the global batch of `n` samples in each
+    of `groups` view groups ([query; NN_0; ...] for the merged render), in
+    the order the render consumes them: t_rand [groups * n, R, S], then
+    with `eikonal` eik_idx [groups * n, R, 1] and eik_uniform [n, R, 3]
+    (the first group's: only the query takes eikonal points); this rank
+    keeps its rows of each group (`parallel.local_rows`). A draw in `given`
+    (this rank's rows) is kept and takes nothing from `generator`."""
     S = opt.render.n_samples_uniform
-    makes = [("t_rand", lambda g: torch.rand(n, n_rays, S, generator=g,
-                                             device=device))]
+    rows = groups * n
+    makes = [("t_rand", groups, lambda g: torch.rand(
+        rows, n_rays, S, generator=g, device=device))]
     if eikonal:
         lo, hi = opt.arch.impl_sdf.eikonal_sample_range
-        makes += [("eik_idx", lambda g: torch.randint(
-                       0, S, (n, n_rays, 1), generator=g, device=device)),
-                  ("eik_uniform", lambda g: lo + (hi - lo) * torch.rand(
+        makes += [("eik_idx", groups, lambda g: torch.randint(
+                       0, S, (rows, n_rays, 1), generator=g, device=device)),
+                  ("eik_uniform", 1, lambda g: lo + (hi - lo) * torch.rand(
                       n, n_rays, 3, generator=g, device=device))]
     out = edict(given or {})
-    for key, make in makes:
+    for key, k, make in makes:
         if out.get(key) is None:
             if generator is None:
                 raise ValueError(f"no draw {key!r} given and no generator "
                                  "to draw it from")
-            out[key] = parallel.local_rows(make(generator))
+            out[key] = torch.cat([parallel.local_rows(part)
+                                  for part in make(generator).chunk(k)])
     return out
 
 
@@ -114,10 +118,13 @@ def volume_rendering(z_vals, density):
 
 def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
            proj_latent_sdf, proj_latent_rgb, ray_idx=None, training=False,
-           compute_eikonal=None, draws=None, implicit_dtype="float32"):
+           compute_eikonal=None, draws=None, implicit_dtype="float32",
+           eikonal_batch=None):
     """Render rgb / mask / depth / normal at the pixels `ray_idx` [B, R]
     (the dense H x W grid when None), plus the eikonal gradient norms
-    [B, 2R] when `compute_eikonal` (default: `training`).
+    [Be, 2R] when `compute_eikonal` (default: `training`) of the first
+    `Be = eikonal_batch` rows (default: all B; the merged query + neighbour
+    render asks for the query's only).
 
     pose [B, 3, 4], intr [B, 3, 3], scale_dist [B], latents [B, C]."""
     if compute_eikonal is None:
@@ -180,15 +187,17 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
 
     grad_eikonal = None
     if compute_eikonal:
-        eik_uniform = draws.eik_uniform
-        eik_near = cam_loc + z_eik * ray_dirs                        # [B,R,3]
-        eik_points = torch.cat([eik_uniform, eik_near], dim=1).contiguous()
+        Be = B if eikonal_batch is None else eikonal_batch
+        eik_near = cam_loc[:Be] + z_eik[:Be] * ray_dirs[:Be]        # [Be,R,3]
+        eik_points = torch.cat([draws.eik_uniform, eik_near],
+                               dim=1).contiguous()
         _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,
-                                         proj_latent_sdf, detach_latent=True,
+                                         proj_latent_sdf[:Be],
+                                         detach_latent=True,
                                          mm_dtype=implicit_dtype)
         # sqrt(max(.)) keeps the gradient finite at a zero SDF gradient
         grad_eikonal = torch.sqrt(torch.clamp(
-            (grad_eik * grad_eik).sum(dim=-1), min=1e-24))           # [B,2R]
+            (grad_eik * grad_eik).sum(dim=-1), min=1e-24))          # [Be,2R]
     return RenderOutputs(rgb=rgb_output, mask=mask, mask_hard=mask_hard,
                          depth=depth_values, normal=normal_values,
                          grad_eikonal=grad_eikonal)

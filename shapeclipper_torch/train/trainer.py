@@ -52,15 +52,17 @@ _STEP_AUX_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "scale_dist",
                   "trig_azim", "trig_elev", "trig_theta", "scale_focal")
 
 # the `tpu:` configuration the port honours (tpu.bn_mode, tpu.bn_replicas,
-# tpu.encoder_dtype, tpu.implicit_dtype: models/graph.py; tpu.mesh:
-# parallel.check_mesh), and what else the JAX package reads, which the port
-# ignores and names in its log
+# tpu.encoder_dtype, tpu.implicit_dtype, tpu.merge_*: models/graph.py;
+# tpu.mesh: parallel.check_mesh; tpu.profile_iters: Runner.train_iteration),
+# and what else the JAX package reads, which the port ignores and names in
+# its log
 HONOURED_TPU_KEYS = ("mesh", "bn_mode", "bn_replicas", "encoder_dtype",
-                     "implicit_dtype")
-IGNORED_TPU_KEYS = ("merge_nn_render", "merge_flip_estimator",
-                    "merge_encoders", "sdf_grad_mode", "fold_eikonal",
-                    "remat_renderer", "fused_eval", "device_isosurface",
-                    "donate_state", "eval_pipeline", "profile_iters")
+                     "implicit_dtype", "merge_nn_render",
+                     "merge_flip_estimator", "merge_encoders",
+                     "profile_iters")
+IGNORED_TPU_KEYS = ("sdf_grad_mode", "fold_eikonal", "remat_renderer",
+                    "fused_eval", "device_isosurface", "donate_state",
+                    "eval_pipeline")
 
 
 def tpu_keys_note(opt):
@@ -68,13 +70,19 @@ def tpu_keys_note(opt):
     the port ignores, and what it does instead."""
     tpu = opt.get("tpu", {})
     ignored = [k for k in IGNORED_TPU_KEYS if k in tpu]
-    return (f"the port ignores tpu.{{{', '.join(ignored)}}}: sequential "
-            "encoders and renders, every CUDA SDF evaluation through the "
-            "fused kernels (K1 / K3 + K2), no device isosurface, no "
-            "profiler window; it honours tpu.{"
+    merged = [k for k in ("merge_encoders", "merge_flip_estimator",
+                          "merge_nn_render") if tpu.get(k, True)]
+    window = tpu.get("profile_iters")
+    return (f"the port ignores tpu.{{{', '.join(ignored)}}}: every CUDA SDF "
+            "evaluation through the fused kernels (K1 / K3 + K2), no device "
+            "isosurface, no pipeline or donation switches; it honours tpu.{"
             + ", ".join(HONOURED_TPU_KEYS) + "}: encoders in "
             f"{tpu.get('encoder_dtype') or 'float32'}, implicit MLPs in "
-            f"{tpu.get('implicit_dtype') or 'float32'}")
+            f"{tpu.get('implicit_dtype') or 'float32'}, merged "
+            + ("{" + ", ".join(merged) + "}" if merged else "nothing")
+            + ", profiler window "
+            + (f"iterations {window[0]}-{window[1] - 1}" if window
+               else "off"))
 
 
 def batch_to_var(batch, device):
@@ -129,6 +137,7 @@ class Runner:
                                "False")
         self.tb = None  # set by setup_visualizer
         self.step_model = None  # set by _train_model
+        self.profiler = None  # the open tpu.profile_iters window
         if (parallel.is_main() and os.path.isdir(opt.output_path)
                 and not opt.get("resume")):
             for filename in os.listdir(opt.output_path):
@@ -287,6 +296,7 @@ class Runner:
             self.evaluate(opt, ep=0, training=True)
         for self.ep in range(self.epoch_start, opt.max_epoch):
             self.train_epoch(opt)
+        self._close_profile_window(opt)
         self.save_checkpoint(opt, ep=self.ep + 1, it=self.it,
                              best_val=self.best_val)
         if self.tb:
@@ -336,6 +346,7 @@ class Runner:
         the step's loss terms (detached; the global batch's under data
         parallelism, the same on every rank)."""
         self.timer.begin_iter()
+        self._profile_window(opt)
         camera_phase = self.it <= opt.optim.iter_camera
         optimizer = self.optim_V if camera_phase else self.optim_full
         self.graph.train(not camera_phase)
@@ -389,6 +400,42 @@ class Runner:
         self.timer.end_iter(opt.max_epoch, self.ep,
                             getattr(self, "num_batches", 1))
         return loss
+
+    def _profile_window(self, opt):
+        """`tpu.profile_iters: [a, b]`: torch.profiler (the CPU, and CUDA on
+        a card) opens before iteration a and closes before iteration b, on
+        rank 0 (the JAX package's `jax.profiler` window,
+        `shapeclipper_tpu/train/trainer.py:331-340`)."""
+        window = opt.get("tpu", {}).get("profile_iters")
+        if not window or not parallel.is_main():
+            return
+        if self.it == int(window[1]):
+            self._close_profile_window(opt)
+        if self.it == int(window[0]) and self.profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler.start()
+            self.profile_window = (self.it, int(window[1]))
+
+    def _close_profile_window(self, opt):
+        """Stop an open profiler window and write its Chrome trace to
+        `output_path/profile/trace_iters_A-B.json` (iterations A to B - 1,
+        or to the last one taken)."""
+        if self.profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.profiler.stop()
+        first, end = self.profile_window
+        folder = os.path.join(opt.output_path, "profile")
+        os.makedirs(folder, exist_ok=True)
+        last = min(end, self.it) - 1
+        path = os.path.join(folder, f"trace_iters_{first}-{last}.json")
+        self.profiler.export_chrome_trace(path)
+        self.profiler = None
+        log.info(f"profiler trace written to {path}")
 
     def _train_model(self):
         """The TrainStep over the graph; under a process group, of any

@@ -13,9 +13,11 @@ tests/test_torch_train.py), R = 16 rays x S = 8 samples, K = 3 neighbour
 views of which V = 1 is drawn by Gumbel top-k, a global batch of 4: rank r
 holds rows r and r + 2, the loader's order. Each run takes a camera step
 (iteration 0) and then a full step from the same seeded weights, in
-`tpu.bn_mode` global and per_replica (`bn_replicas: 2`). The one-process
-per_replica run sees the rows arranged [rank 0's; rank 1's], so that its
-contiguous BatchNorm blocks are the ranks' batches.
+`tpu.bn_mode` global and per_replica (`bn_replicas: 2`), with the three
+`tpu.merge_*` flags false (the sequential path) and true (the merged step,
+on the same draws re-sliced). The one-process per_replica run sees the rows
+arranged [rank 0's; rank 1's], so that its contiguous BatchNorm blocks are
+the ranks' batches.
 
 The steps run in float64 (torch's default dtype set to it, in the ranks and
 around the one-process runs): the ranks and one process differ only in the
@@ -44,10 +46,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, B = 2, 4
 MODES = ("global", "per_replica")
 ARRANGED = [0, 2, 1, 3]     # [rank 0's rows; rank 1's rows]
-RANK_TIMEOUT_S = 120
+RANK_TIMEOUT_S = 240     # twice the work of the sequential runs alone
 
 
-def make_opt(out, mode):
+def make_opt(out, mode, merged=False):
+    """The set-up's options in BatchNorm mode `mode`, with the three
+    `tpu.merge_*` flags `merged` (the sequential path unless asked)."""
     from shapeclipper_torch.config import options
     opt = options.load_options(
         os.path.join(REPO, "options/synthetic/config.yaml"))
@@ -57,7 +61,9 @@ def make_opt(out, mode):
     opt.data.update(num_workers=0, max_img_cat=B, preselect_NN=False)
     opt.render.update(rand_sample=16, n_samples_uniform=8)
     opt.arch.update(enc_pretrained=False, enc_network="resnet18")
-    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
+    opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32",
+                   merge_encoders=merged, merge_flip_estimator=merged,
+                   merge_nn_render=merged)
     opt.tpu.update(bn_mode=mode, bn_replicas=2 if mode == "per_replica"
                    else None)
     opt.freq.update(save_vis=10 ** 6, ckpt_latest=10 ** 6)
@@ -92,6 +98,17 @@ def global_inputs(tmp):
     draws = step_draws(opt, batch_to_var(batch, "cpu"), edict(),
                        torch.Generator().manual_seed(9), True)
     return batch, draws
+
+
+def global_draws_merged(tmp, batch):
+    """The merged step's draws for the global batch from the same
+    generator (one render draw over the B query and B view rows)."""
+    from shapeclipper_torch.models.graph import step_draws
+    from shapeclipper_torch.train.trainer import batch_to_var
+    from shapeclipper_torch.utils.easydict import EasyDict as edict
+    return step_draws(make_opt(tmp, "global"), batch_to_var(batch, "cpu"),
+                      edict(), torch.Generator().manual_seed(9), True,
+                      merge_nn=True)
 
 
 def digest(tensors):
@@ -195,14 +212,18 @@ def worker(rank, tmp):
     res = {}
     steps = {}
     for mode in MODES:
-        steps[mode] = run_steps(
-            make_opt(os.path.join(tmp, f"r{rank}_{mode}"), mode),
-            rows(batch, mine), rows(draws, mine))
-        res[mode] = [dict(loss=s["loss"], finite=s["finite"],
-                          digests=s["digests"]) for s in steps[mode]]
+        for merged in (False, True):
+            key = (mode, "merged") if merged else mode
+            steps[key] = run_steps(
+                make_opt(os.path.join(tmp, f"r{rank}_{mode}_{merged}"), mode,
+                         merged), rows(batch, mine), rows(draws, mine))
+            res[key] = [dict(loss=s["loss"], finite=s["finite"],
+                             digests=s["digests"]) for s in steps[key]]
     opt = make_opt(os.path.join(tmp, f"r{rank}_draws"), "global")
-    res["draws"] = step_draws(opt, batch_to_var(rows(batch, mine), "cpu"),
-                              edict(), torch.Generator().manual_seed(9), True)
+    for merged in (False, True):
+        res["draws", merged] = step_draws(
+            opt, batch_to_var(rows(batch, mine), "cpu"), edict(),
+            torch.Generator().manual_seed(9), True, merge_nn=merged)
     res["coupled"] = coupled_values_and_grads(rows(coupled_inputs(), mine))
     parallel.barrier()
     parallel.destroy()
@@ -211,11 +232,15 @@ def worker(rank, tmp):
     # hold the same gradients and parameters, test_ranks_stay_in_step)
     mode = MODES[rank]
     order = ARRANGED if mode == "per_replica" else list(range(B))
-    single = run_steps(make_opt(os.path.join(tmp, f"one_{mode}"), mode),
-                       rows(batch, order), rows(draws, order))
-    res["single"] = [dict(loss=want["loss"], finite=want["finite"],
-                          errors=step_errors(got, want))
-                     for got, want in zip(steps[mode], single)]
+    for merged in (False, True):
+        key = (mode, "merged") if merged else mode
+        single = run_steps(make_opt(os.path.join(tmp, f"one_{mode}_{merged}"),
+                                    mode, merged),
+                           rows(batch, order), rows(draws, order))
+        res["single", merged] = [
+            dict(loss=want["loss"], finite=want["finite"],
+                 errors=step_errors(got, want))
+            for got, want in zip(steps[key], single)]
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -278,22 +303,18 @@ def ddp_run(tmp_path_factory):
     torch.set_default_dtype(torch.float64)
     try:
         batch, draws = global_inputs(tmp / "inputs")
+        draws_merged = global_draws_merged(tmp / "inputs", batch)
     finally:
         torch.set_default_dtype(dtype)
     torch.save((batch, draws), tmp / "inputs.pt")
-    return dict(ranks=run_ranks(tmp), draws=draws)
+    return dict(ranks=run_ranks(tmp), draws=draws, draws_merged=draws_merged)
 
 
-@pytest.mark.parametrize("step", [0, 1], ids=["camera", "full"])
-@pytest.mark.parametrize("mode", MODES)
-def test_two_ranks_match_one_process(ddp_run, mode, step):
-    """Both ranks' loss terms, and one rank's gradients, post-step
-    parameters and BatchNorm statistics, against one process at the global
-    batch."""
-    want = ddp_run["ranks"][MODES.index(mode)]["single"][step]
+def check_against_one_process(ddp_run, mode, step, merged):
+    want = ddp_run["ranks"][MODES.index(mode)]["single", merged][step]
     lr = 1e-4
     for res in ddp_run["ranks"]:
-        got = res[mode][step]
+        got = res[(mode, "merged") if merged else mode][step]
         assert got["finite"] and want["finite"]
         assert set(got["loss"]) == set(want["loss"])
         for k, v in want["loss"].items():
@@ -309,13 +330,33 @@ def test_two_ranks_match_one_process(ddp_run, mode, step):
         assert e <= 1e-5, (name, e)
 
 
+@pytest.mark.parametrize("step", [0, 1], ids=["camera", "full"])
+@pytest.mark.parametrize("mode", MODES)
+def test_two_ranks_match_one_process(ddp_run, mode, step):
+    """Both ranks' loss terms, and one rank's gradients, post-step
+    parameters and BatchNorm statistics, against one process at the global
+    batch."""
+    check_against_one_process(ddp_run, mode, step, merged=False)
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["camera", "full"])
+@pytest.mark.parametrize("mode", MODES)
+def test_two_ranks_match_one_process_merged(ddp_run, mode, step):
+    """The same with the three `tpu.merge_*` flags true: the grouped
+    BatchNorms (each view group's moments summed over the ranks, or split
+    into per-replica blocks), the merged render's rows of the sequential
+    draws, DDP's unused-parameter search over the merged backward."""
+    check_against_one_process(ddp_run, mode, step, merged=True)
+
+
 def test_ranks_stay_in_step(ddp_run):
     """Both ranks hold the same gradients, parameters and (after the
     broadcast) running statistics after every step."""
     r0, r1 = ddp_run["ranks"]
     for mode in MODES:
-        for s0, s1 in zip(r0[mode], r1[mode]):
-            assert s0["digests"] == s1["digests"], mode
+        for key in (mode, (mode, "merged")):
+            for s0, s1 in zip(r0[key], r1[key]):
+                assert s0["digests"] == s1["digests"], key
 
 
 def test_ranks_draw_their_rows_of_the_global_draws(ddp_run):
@@ -323,13 +364,21 @@ def test_ranks_draw_their_rows_of_the_global_draws(ddp_run):
     draws one process takes at the global batch."""
     want = ddp_run["draws"]
     for r, res in enumerate(ddp_run["ranks"]):
-        got, exp = res["draws"], rows(want, slice(r, None, W))
+        got, exp = res["draws", False], rows(want, slice(r, None, W))
         assert set(got) == set(exp)
         assert torch.equal(got.nn_uniform, exp.nn_uniform)
         for k in exp.render:
             assert torch.equal(got.render[k], exp.render[k]), k
         for g, e in zip(got.render_NN, exp.render_NN):
             assert torch.equal(g.t_rand, e.t_rand)
+        # the merged render's draw over [query; NN_0]: rank r's rows of each
+        # view group (the eikonal points: of the query's)
+        got, exp = res["draws", True], ddp_run["draws_merged"]
+        assert set(got) == {"render", "nn_uniform"}
+        assert torch.equal(got.nn_uniform, exp.nn_uniform[r::W])
+        for k, groups in (("t_rand", 2), ("eik_idx", 2), ("eik_uniform", 1)):
+            assert torch.equal(got.render[k], torch.cat(
+                [part[r::W] for part in exp.render[k].chunk(groups)])), k
 
 
 def test_one_rank_under_ddp_is_no_process_group(tmp_path):

@@ -50,12 +50,38 @@ def test_every_tpu_key_is_honoured_or_named():
 
 @pytest.mark.parametrize("extra", ["profile_iters", "eval_pipeline"])
 def test_keys_outside_the_yaml_are_named_when_set(extra):
+    """A key the YAML does not set is named when set: as ignored
+    (eval_pipeline), or with the value in force (profile_iters, the
+    profiler window)."""
     opt = options.load_options(FLAGSHIP)
-    opt.tpu[extra] = 1
+    opt.tpu[extra] = [1, 3]
     opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     note = trainer.tpu_keys_note(opt)
-    assert extra in re.search(r"ignores tpu\.\{([^}]*)\}", note).group(1)
+    ignored = re.search(r"ignores tpu\.\{([^}]*)\}", note).group(1)
+    if extra in trainer.HONOURED_TPU_KEYS:
+        assert extra not in ignored
+        assert "profiler window iterations 1-2" in note
+    else:
+        assert extra in ignored
     assert "encoders in float32, implicit MLPs in float32" in note
+
+
+def test_merge_flags_are_honoured():
+    """The three merge flags are honoured, true in the flagship YAML (and
+    when absent, as in the JAX package), and the note names the merged
+    parts in force; no profiler window unless asked."""
+    opt = options.load_options(FLAGSHIP)
+    flags = ("merge_encoders", "merge_flip_estimator", "merge_nn_render")
+    assert set(flags) <= set(trainer.HONOURED_TPU_KEYS)
+    assert all(opt.tpu[k] is True for k in flags)
+    note = trainer.tpu_keys_note(opt)
+    assert "merged {" + ", ".join(flags) + "}" in note
+    assert "profiler window off" in note
+    for k in flags:
+        del opt.tpu[k]
+    assert "merged {" + ", ".join(flags) + "}" in trainer.tpu_keys_note(opt)
+    opt.tpu.update(dict.fromkeys(flags, False))
+    assert "merged nothing" in trainer.tpu_keys_note(opt)
 
 
 def test_build_networks_logs_the_note(tmp_path, capsys):

@@ -244,8 +244,8 @@ def test_tensorboard_hooks(base_opt, tmp_path):
                    for f in os.listdir(tmp_path))
 
 
-def _cli(module, args, tmp_path):
-    r = subprocess.run([sys.executable, "-m", module, *TINY,
+def _cli(module, args, tmp_path, tiny=TINY):
+    r = subprocess.run([sys.executable, "-m", module, *tiny,
                         f"--output_root={tmp_path}", "--name=run",
                         "--device=cpu", *args],
                        cwd=REPO, capture_output=True, text=True, timeout=600)
@@ -262,6 +262,7 @@ def test_train_and_evaluate_clis_on_cpu(tmp_path):
     run = tmp_path / "synthetic_output" / "run"
     for f in ("best.pt", "latest.pt", "checkpoint/ep1.pt", "options.yaml"):
         assert (run / f).is_file(), f
+    assert not (run / "profile").exists()   # no tpu.profile_iters
     out = _cli("shapeclipper_torch.evaluate", ["--resume"], tmp_path)
     for f in ("cd_cat.txt", "f_score.txt", "chamfer.txt"):
         assert (run / f).is_file(), f
@@ -270,3 +271,23 @@ def test_train_and_evaluate_clis_on_cpu(tmp_path):
     assert all(np.isfinite(float(x)) for r in rows for x in r[1:])
     assert "F-score @ 1.00" in (run / "f_score.txt").read_text()
     assert (run / "dump" / "3_mesh.ply").is_file()
+
+
+def test_profile_window_writes_one_trace(tmp_path):
+    """`--tpu.profile_iters=[1,3]` through the train CLI over one epoch of
+    four iterations: torch.profiler opens before iteration 1 and closes
+    before iteration 3, and one Chrome trace of iterations 1-2 lands in
+    `output_path/profile/`, holding the steps' operators."""
+    import json
+    tiny = [a for a in TINY if not a.startswith("--data.max_img_cat")]
+    out = _cli("shapeclipper_torch.train",
+               ["--max_epoch=1", "--freq.eval=1", "--data.max_img_cat=8",
+                "--tpu.profile_iters=[1,3]", "--force_add"], tmp_path, tiny)
+    run = tmp_path / "synthetic_output" / "run"
+    traces = os.listdir(run / "profile")
+    assert traces == ["trace_iters_1-2.json"], traces
+    assert f"profiler trace written to {run / 'profile' / traces[0]}" in out
+    assert "profiler window iterations 1-2" in out
+    with open(run / "profile" / traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::convolution", "aten::lerp_"} <= names
