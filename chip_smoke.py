@@ -7,8 +7,8 @@ CLIP annotation paths on one NVIDIA GPU and check them.
 Phases (each one succeeds or raises; any failure exits non-zero, and there is
 no CPU fallback):
   1. set-up: versions, the card, the TF32 switches (both off: fp32), and the
-     build of the three libraries from `shapeclipper_torch/csrc/` into
-     `build/` (three nvcc runs at once);
+     build of the four libraries from `shapeclipper_torch/csrc/` into
+     `build/` (four nvcc runs at once);
   2. K1 / K3 (forward) against their plain PyTorch version at the serving
      shapes: N = 262,144 render points with gradients, N = 274,625 and
      1,030,301 grid points without; K1 again at the training shape, there
@@ -90,6 +90,20 @@ no CPU fallback):
      plain path; then K5 through the differentiable chamfer API (forward +
      backward, the gradient held against autograd of the plain version),
      which no CLI path calls;
+ 8b. the device isosurface (`tpu.device_isosurface`): K6 / K7
+     (`csrc/isosurface.cu`) against their plain versions on the same grid,
+     CDF and draws, on the eval runner's vox-64 and vox-100 grids, the
+     bumpy ellipsoid of tests/test_device_isosurface.py and an exact-ties
+     grid (area error, share of identical faces, points' error), timed at
+     vox 64 and vox 100 with 100,000 draws beside the plain versions and
+     the bounds; `Runner.evaluate` with eval.dump false at the full eval
+     width on the host and the device path, in turns (ms per sample,
+     launch counts per sample K3 / K4 / K6 / K7, no host isosurface work
+     or grid copy on the device path, a synchronised stage split, a
+     profiled run, both CDs within ISO_CD_RTOL); `tpu.eval_pipeline` true
+     against false on each path, in turns (ms per sample, the four CDs
+     within EVAL_CD_RTOL); the device path at vox 32 / 8,192 points, card
+     against CPU on the card's draws (phase 8's gates);
   9. the train and evaluate CLIs (`python -m shapeclipper_torch.train` for
      one tiny epoch with `--tpu.profile_iters=[1,3]`, whose Chrome trace
      must name the fused SDF kernels, then `python -m
@@ -138,6 +152,7 @@ images are drawn with numpy from a seed.
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -158,6 +173,10 @@ REPLACES = "shapeclipper_tpu/ops/fused_sdf.py:311"
 REPLACES_BWD = "shapeclipper_tpu/ops/fused_sdf.py:617"
 REPLACES_K4 = "shapeclipper_tpu/ops/chamfer.py:155"
 REPLACES_K5 = "shapeclipper_tpu/ops/chamfer.py:93"
+# K6 / K7 replace no `pl.pallas_call`: JAX computes them in XLA
+SOURCE_ISO = "shapeclipper_torch/csrc/isosurface.cu"
+REPLACES_K6 = "shapeclipper_tpu/eval3d/device_isosurface.py:106"
+REPLACES_K7 = "shapeclipper_tpu/eval3d/device_isosurface.py:161"
 
 # tests/test_fused_sdf.py:24-27 (sdf, feature), :41-43 (gradient) and
 # :143-147 (training gradients: atol 3e-5 * max|ref|, rtol 2e-4)
@@ -192,6 +211,20 @@ SDF_TIMED_CALLS = 20
 NN_FLOP_PER_PAIR = 8            # 3 subtractions, 3 multiplies, 2 additions
 # the card-vs-CPU evaluation: per-sample CD rtol, F-score absolute
 EVAL_CD_RTOL, EVAL_F_ATOL = 1e-4, 1e-3
+# K6 / K7 (phase 8b) against their plain versions: cell area sums to 1e-6 of
+# the largest (both round the same float32 steps: expected equal), faces off
+# at most once per ISO_FACES_PER draws, points atol 1e-5 at equal faces;
+# host against device path of the evaluation to rtol 0.05 (two samplings)
+ISO_AREA_RTOL, ISO_FACES_PER, ISO_PTS_ATOL = 1e-6, 10_000, 1e-5
+ISO_CD_RTOL = 0.05
+ISO_VOX = (64, 100)             # the eval runner's grids K6 / K7 are timed on
+# operations a valid triangle slot needs: 3 vertices x 15 (edge lerp: 2
+# subtractions, a division, the clip, 1 - t, 3 x (2 multiplies, an add)),
+# 6 edge subtractions, the cross product 9, squares and sums 5, sqrt, x 0.5,
+# the float64 sum; a cell 8 sign tests; a draw the binary search, 8 sign
+# tests, its face's vertices 45, the flip and barycentric step 15, the world
+# scale 9 (the walk's slots counted as K6's)
+ISO_FLOP_SLOT, ISO_FLOP_CELL, ISO_FLOP_DRAW = 68, 8, 8 + 45 + 15 + 9
 # pretraining: warm-up and timed steps at the flagship width, the batch of
 # the card-vs-CPU step, the sphere fit's steps (tests/test_pretrain.py)
 N_PRE_WARM, N_PRE_TIMED = 2, 10
@@ -2224,7 +2257,7 @@ def phase_eval():
     vox = opt.eval.vox_res
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
     want = dict(k1=n, k3=k3_per * n, k2=0, k1_bf16=0, k3_bf16=0, k2_bf16=0,
-                pack_bf16=0, k4=2 * n, k5=0)
+                pack_bf16=0, k4=2 * n, k5=0, k6=0, k7=0)
     if launches != want:
         raise AssertionError(f"evaluation launches {launches}, expected "
                              f"{want}")
@@ -2377,6 +2410,320 @@ def phase_chamfer_api():
     return launches
 
 
+# -------------------------------------------------------------- phase 8b
+def bumpy_level(M, extent=0.6):
+    """tests/test_device_isosurface.py's bumpy ellipsoid on an M^3 grid."""
+    g = np.linspace(-extent, extent, M).astype(np.float32)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    lv = (np.sqrt(X ** 2 + 1.4 * Y ** 2 + 0.7 * Z ** 2) - 0.42
+          + 0.05 * np.sin(7 * X) * np.cos(5 * Y + 2 * Z))
+    return lv.astype(np.float32)
+
+
+def iso_bounds(level, cdf, faces):
+    """(K6's, K7's) least ms from this run's data: K6 reads the grid,
+    writes the float64 sums and computes every valid slot; K7 reads its
+    draws, the searched CDF values and 8 corners a draw (each input at most
+    once), writes the points (the evaluation keeps no face) and computes the
+    walked cells' valid slots; `faces` (the checks') locate those cells."""
+    import torch
+    from shapeclipper_torch.eval3d import device_isosurface as D
+    B, M = level.shape[0], level.shape[1]
+    C = (M - 1) ** 3
+    valid = torch.as_tensor(D._VALID, device=level.device)
+    n_valid = sum(int(valid[D._tet_corner_data(lv, 0.0)[0]].sum())
+                  for lv in level)
+    k6 = bound(B * C * ISO_FLOP_CELL + n_valid * ISO_FLOP_SLOT,
+               level.numel() * 4 + B * C * 8)
+    n = faces.numel()
+    steps = math.ceil(math.log2(C + 1))
+    walked = sum(int(valid[D._cell_corner_data(lv, f // 12, 0.0)[0]].sum())
+                 for lv, f in zip(level, faces))
+    k7 = bound(n * (steps + ISO_FLOP_DRAW) + walked * ISO_FLOP_SLOT,
+               n * (12 + 12) + min(n * 32, level.numel() * 4)
+               + min(n * steps * 8, cdf.numel() * 8))
+    return k6, k7
+
+
+def iso_case(label, level, n_points, seed, timed=False):
+    """K6 -> cumsum -> K7 against the plain versions on the same grid,
+    CDF and draws (on the card) -> the errors, and with `timed` the times
+    over SDF_TIMED_CALLS launches beside the plain versions' and the
+    bounds."""
+    import torch
+    from shapeclipper_torch.eval3d import device_isosurface as D
+    from shapeclipper_torch.ops import isosurface as I
+    lo, hi = -0.6, 0.6
+    sums = I.KERNEL.cell_areas(level)
+    plain_sums = D.cell_area_sums_plain(level)
+    area_err = float((sums - plain_sums).abs().max())
+    scale = float(plain_sums.max())
+    cdf = torch.cumsum(sums, dim=1)
+    r, u, w = D.surface_draws(level.shape[0], n_points, seed, "cuda")
+    pts, faces = I.KERNEL.draw(level, cdf, r, u, w, lo, hi, with_faces=True)
+    plain_pts, plain_faces = D.draw_points_plain(level, cdf, r, u, w, lo, hi,
+                                                 with_faces=True)
+    bare = I.KERNEL.draw(level, cdf, r, u, w, lo, hi)    # no face stored
+    torch.cuda.synchronize()
+    same = faces == plain_faces
+    off = int((~same).sum())
+    pts_err = float((pts - plain_pts).abs().amax(-1)[same].max())
+    total = float(cdf[:, -1].min())
+    out = dict(area_err=area_err, faces_off=off, pts_err=pts_err)
+    line = (f"[iso] {label}: grid {tuple(level.shape)}, {n_points:,} draws; "
+            f"K6 vs plain max abs {area_err:.3e} (largest cell sum "
+            f"{scale:.4e}), K7 faces identical {1 - off / faces.numel():.6f}"
+            f" ({off} off), points max abs err {pts_err:.3e} at equal faces;"
+            f" smallest total area {total:.4f}")
+    if area_err > ISO_AREA_RTOL * scale or \
+            off > max(1, faces.numel() // ISO_FACES_PER) or \
+            not pts_err <= ISO_PTS_ATOL or not total > 0 or \
+            not torch.isfinite(pts).all() or not torch.equal(bare, pts):
+        raise AssertionError(line + "; without faces the points equal: "
+                             f"{bool(torch.equal(bare, pts))}")
+    if timed:
+        t6 = cuda_ms(lambda: I.KERNEL.cell_areas(level), calls=SDF_TIMED_CALLS)
+        t7 = cuda_ms(lambda: I.KERNEL.draw(level, cdf, r, u, w, lo, hi),
+                     calls=SDF_TIMED_CALLS)
+        p6 = cuda_ms(lambda: D.cell_area_sums_plain(level), runs=5, warmup=1)
+        p7 = cuda_ms(lambda: D.draw_points_plain(level, cdf, r, u, w, lo, hi),
+                     runs=5, warmup=1)
+        (b6, by6), (b7, by7) = iso_bounds(level, cdf, faces)
+        out.update(k6=dict(ms=t6, plain_ms=p6, bound_ms=b6, bound_by=by6),
+                   k7=dict(ms=t7, plain_ms=p7, bound_ms=b7, bound_by=by7))
+        line += (f"; K6 {t6:.4f} ms (plain {p6:.4f}, bound {b6:.4f} by "
+                 f"{by6}), K7 {t7:.4f} ms (plain {p7:.4f}, bound {b7:.4f} "
+                 f"by {by7})")
+    log(line)
+    return out
+
+
+def stage_split(stages, n, parts, wall_ms, top):
+    """stages: wrapped calls' ms lists; the rest of submit + finish beyond
+    `parts` becomes 'rotate / normalize, F-scores, fetch', and the wall
+    beyond the `top` stages, submit and finish (the loader, the batches'
+    copies, the reports) a mean per sample. Median of samples 2-n of each
+    stage."""
+    other = (wall_ms - sum(sum(stages[k]) for k in (*top, "submit",
+                                                    "finish"))) / n
+    submit, finish = stages.pop("submit"), stages.pop("finish")
+    rest = [a + b - sum(stages[p][i] for p in parts if p in stages)
+            for i, (a, b) in enumerate(zip(submit, finish))]
+    stages["rotate / normalize, F-scores, fetch"] = rest
+    if any(len(v) != n for v in stages.values()):
+        raise AssertionError(f"stage split: calls per stage "
+                             f"{ {k: len(v) for k, v in stages.items()} }")
+    return ", ".join(f"{k} {statistics.median(v[1:]):.2f} ms"
+                     for k, v in stages.items()) + (
+        f"; outside these stages (loader, batch copies, reports) "
+        f"{other:.2f} ms a sample")
+
+
+def phase_isosurface():
+    """K6 / K7 (`csrc/isosurface.cu`) against their plain versions on the
+    eval runner's vox-64 and vox-100 grids, the bumpy ellipsoid and an
+    exact-ties grid, timed at vox 64 and vox 100; `Runner.evaluate` with
+    eval.dump false at the full eval width on the host and the device path
+    (tpu.device_isosurface) in turns, launch counts reset just before and
+    read just after the device path's run; tpu.eval_pipeline true against
+    false on each path, in turns; 2 samples at vox 32 / 8,192 points on the
+    device path, card against CPU on the same draws."""
+    import torch
+    from shapeclipper_torch.eval3d import device_isosurface as D
+    from shapeclipper_torch.eval3d import isosurface
+    from shapeclipper_torch.eval3d import metrics as M
+    from shapeclipper_torch.train.trainer import batch_to_var
+
+    opts = {dev: eval_opt(f"iso_{'device' if dev else 'host'}", dump=False)
+            for dev in (False, True)}
+    for dev, o in opts.items():
+        o.tpu.device_isosurface = dev
+    runners = {dev: eval_runner(o, "cuda") for dev, o in opts.items()}
+    runners[True].graph.load_state_dict(runners[False].graph.state_dict())
+    n = len(runners[True].test_data)
+
+    # 1. the kernels against their plain versions
+    runner = runners[True]
+    with runner._eval_mode():
+        batch = next(iter(runner.test_loader))
+        var = runner.graph_eval(batch_to_var(batch, runner.device),
+                                render=False)
+        grids = {vox: M.compute_level_grid(opts[True], runner.graph.sdf_network,
+                                           var.proj_latent_sdf, N=vox)
+                 for vox in ISO_VOX}
+    n_pts = opts[True].eval.num_points
+    iso = {}
+    for vox, level in grids.items():
+        iso[vox] = iso_case(f"the eval runner's vox-{vox} grid", level,
+                            n_pts, SEED, timed=True)
+    rng = np.random.RandomState(SEED)
+    iso["bumpy"] = iso_case("bumpy ellipsoid, M = 65",
+                            torch.from_numpy(bumpy_level(65))[None].cuda(),
+                            n_pts, SEED + 1)
+    ties = rng.randint(-2, 3, size=(2, 33, 33, 33)).astype(np.float32)
+    iso["ties"] = iso_case("exact ties (randint(-2, 3)), 2 x 33^3",
+                           torch.from_numpy(ties).cuda(), n_pts, SEED + 2)
+
+    # 2. host against device path, the same weights, in turns
+    counted = {}
+
+    def count(name):
+        def wrap(fn):
+            def counting(*args, **kwargs):
+                counted[name] = counted.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return counting
+        return wrap
+
+    res, launches, splits, busy = {}, {}, {}, {}
+    for dev in (False, True, True, False):
+        runner, o = runners[dev], opts[dev]
+        if dev not in res:                       # warm-up
+            runner.evaluate(o, ep=0)
+            torch.cuda.synchronize()
+            counted.clear()
+            reset_launches()
+            with wrapped([(isosurface, "marching_cubes_world",
+                           count("marching tets")),
+                          (isosurface, "sample_surface", count("sampling")),
+                          (M, "_start_host_copy", count("grid copies"))]):
+                t0 = time.perf_counter()
+                out = evaluate_collect(runner, o)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            launches[dev] = read_launches()
+            res[dev] = (wall,) + out
+            res[dev, "host work"] = dict(counted)
+            continue
+        stages = {}
+        grid = f"grid (K3, vox {o.eval.vox_res})"
+        samp = ("sampling (K6, cumsum, K7)" if dev else
+                f"sampling {o.eval.num_points:,} points (host)")
+        targets = [
+            (runner.graph_eval, "forward",
+             synced_timer(stages, "forward (no render)")),
+            (M, "compute_level_grid", synced_timer(stages, grid)),
+            (M, "chamfer_dists_sq", synced_timer(stages, "Chamfer (K4)")),
+            (M, "eval_metrics_submit", synced_timer(stages, "submit")),
+            (M, "eval_metrics_finish", synced_timer(stages, "finish"))]
+        if dev:
+            targets.append((D, "sample_level_surface_batch",
+                            synced_timer(stages, samp)))
+        else:
+            targets += [(isosurface, "marching_cubes_world",
+                         synced_timer(stages, "marching tets (host)")),
+                        (isosurface, "sample_surface",
+                         synced_timer(stages, samp))]
+        with wrapped(targets):
+            t0 = time.perf_counter()
+            runner.evaluate(o, ep=0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        splits[dev] = stage_split(stages, n, (
+            grid, samp, "Chamfer (K4)", "marching tets (host)"), wall,
+            ("forward (no render)",))
+        busy[dev] = profiled(f"iso-{'device' if dev else 'host'}",
+                             f"Runner.evaluate, eval.dump false, "
+                             f"{'device' if dev else 'host'} path",
+                             lambda: runner.evaluate(o, ep=0), 6,
+                             watch=("cell_area_kernel", "draw_kernel",
+                                    "nn_kernel"))
+    vox = opts[True].eval.vox_res
+    k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
+    zero = dict.fromkeys(("k1", "k2", "k1_bf16", "k3_bf16", "k2_bf16",
+                          "pack_bf16", "k5"), 0)
+    want = {True: dict(zero, k3=k3_per * n, k4=2 * n, k6=n, k7=n),
+            False: dict(zero, k3=k3_per * n, k4=2 * n, k6=0, k7=0)}
+    for dev in (False, True):
+        wall, cd, rows, fs = res[dev]
+        path = "device" if dev else "host"
+        b = busy[dev]
+        log(f"[iso-eval] {path} path, Runner.evaluate, eval.dump false, "
+            f"{n} samples at vox {vox} / {opts[dev].eval.num_points:,} "
+            f"points: {wall:.1f} ms, {wall / n:.2f} ms per sample; launches "
+            f"{launches[dev]} = per sample K3 {launches[dev]['k3'] // n}, K4 "
+            f"{launches[dev]['k4'] // n}, K6 {launches[dev]['k6'] // n}, K7 "
+            f"{launches[dev]['k7'] // n}, K1 {launches[dev]['k1'] // n}; host "
+            f"isosurface calls {res[dev, 'host work']}; CD {cd:.5f}; stage "
+            f"split (each stage synchronised) {splits[dev]}"
+            + (f"; profiled wall {b[0] / n:.2f} ms, busy {b[1] / n:.2f} ms "
+               f"per sample" if b[1] is not None else ""))
+        if launches[dev] != want[dev]:
+            raise AssertionError(f"{path} path launches {launches[dev]}, "
+                                 f"expected {want[dev]}")
+        if rows.shape != (n, 2) or not np.isfinite(rows).all() or \
+                fs.shape != (n, len(opts[dev].eval.f_thresholds)):
+            raise AssertionError(f"{path} path outputs: {rows.shape}, "
+                                 f"{fs.shape}")
+    if res[True, "host work"]:
+        raise AssertionError(f"the device path ran host isosurface work or "
+                             f"copied a grid: {res[True, 'host work']}")
+    cd_h, cd_d = res[False][1], res[True][1]
+    log(f"[iso-eval] device / host: {res[True][0] / res[False][0]:.3f}x the "
+        f"wall; CD {cd_d:.5f} vs {cd_h:.5f} (rel {abs(cd_d - cd_h) / cd_h:.2e}"
+        f", tol {ISO_CD_RTOL}); card {card_line()}")
+    if not abs(cd_d - cd_h) <= ISO_CD_RTOL * cd_h:
+        raise AssertionError("host and device paths disagree on the CD")
+
+    # 2b. tpu.eval_pipeline: pipelined against serial on each path, in turns
+    pipe = {}
+    for dev in (False, True):
+        runner, o = runners[dev], opts[dev]
+        for pipelined in (True, False, False, True):
+            o.tpu.eval_pipeline = pipelined
+            t0 = time.perf_counter()
+            cd = runner.evaluate(o, ep=0)
+            torch.cuda.synchronize()
+            pipe.setdefault((dev, pipelined), []).append(
+                ((time.perf_counter() - t0) * 1e3 / n, cd))
+        o.tpu.eval_pipeline = True
+        cds = [cd for p in (True, False) for _, cd in pipe[dev, p]]
+        spread = (max(cds) - min(cds)) / min(cds)
+        ms = {p: [t for t, _ in pipe[dev, p]] for p in (True, False)}
+        log(f"[iso-pipe] {'device' if dev else 'host'} path, Runner.evaluate"
+            f" with tpu.eval_pipeline true / false in turns: "
+            f"{statistics.mean(ms[True]):.2f} / "
+            f"{statistics.mean(ms[False]):.2f} ms a sample (runs "
+            f"{', '.join(f'{t:.2f}' for t in ms[True])} / "
+            f"{', '.join(f'{t:.2f}' for t in ms[False])}), serial / "
+            f"pipelined {statistics.mean(ms[False]) / statistics.mean(ms[True]):.3f}x;"
+            f" CD spread over the four runs {spread:.2e} (tol {EVAL_CD_RTOL})")
+        if not spread <= EVAL_CD_RTOL:
+            raise AssertionError("serial and pipelined evaluations disagree "
+                                 "on the CD")
+
+    # 3. the device path at vox 32 / 8,192 points, card against CPU; the
+    # CPU run samples each batch from the card's draws for its seed (a CPU
+    # generator draws other numbers from the same seed)
+    def card_draws(draw):
+        return lambda B, n, seed=0, device="cpu": tuple(
+            d.cpu() for d in draw(B, n, seed, "cuda"))
+
+    cmp = {}
+    for device in ("cuda", "cpu"):
+        o = eval_opt(f"iso_cmp_{device}", vox=32, num_points=8192,
+                     n_samples=2, dump=False)
+        o.tpu.device_isosurface = True
+        r = eval_runner(o, device)
+        r.graph.load_state_dict(runners[True].graph.state_dict())
+        with wrapped([(D, "surface_draws", card_draws)]
+                     if device == "cpu" else []):
+            cmp[device] = evaluate_collect(r, o)
+    (_, rows_g, fs_g), (_, rows_c, fs_c) = cmp["cuda"], cmp["cpu"]
+    cd_err = float(np.max(np.abs(rows_g - rows_c) / np.abs(rows_c)))
+    f_err = float(np.max(np.abs(fs_g - fs_c)))
+    log(f"[iso-cmp] device path, 2 samples at vox 32 / 8,192 points, card "
+        f"(K6 / K7) vs CPU (plain versions), same draws: per-sample CD max "
+        f"rel err {cd_err:.2e} (tol {EVAL_CD_RTOL}), F-score max abs err "
+        f"{f_err:.2e} (tol {EVAL_F_ATOL})")
+    if not cd_err <= EVAL_CD_RTOL or not f_err <= EVAL_F_ATOL:
+        raise AssertionError("card vs CPU device-path evaluation outside "
+                             "tolerance")
+    err6 = max(v["area_err"] for v in iso.values())
+    err7 = max(v["pts_err"] for v in iso.values())
+    return launches[True], iso, err6, err7
+
+
 DDP_STEPS = 3                   # a camera step, then two full steps
 DDP_TIMED = 4                   # then full steps timed only (NCCL x 1)
 DDP_TIMEOUT_S = 600
@@ -2447,11 +2794,13 @@ def phase_clis():
 def reset_launches():
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.ops import isosurface as I
     for key in F.KERNEL.launches:
         F.KERNEL.launches[key] = 0
     for key in F.BACKWARD.launches:
         F.BACKWARD.launches[key] = 0
     C.KERNEL.launches = {"dist": 0, "argmin": 0}
+    I.KERNEL.launches = {"area": 0, "draw": 0}
 
 
 def read_launches():
@@ -2459,12 +2808,14 @@ def read_launches():
     instantiations)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.ops import isosurface as I
     k, b = F.KERNEL.launches, F.BACKWARD.launches
     return dict(k1=k["grad"], k3=k["nograd"], k2=b["float32"],
                 k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
                 pack_bf16=k["pack_bf16"],
                 k2_bf16=b["bfloat16"], k4=C.KERNEL.launches["dist"],
-                k5=C.KERNEL.launches["argmin"])
+                k5=C.KERNEL.launches["argmin"], k6=I.KERNEL.launches["area"],
+                k7=I.KERNEL.launches["draw"])
 
 
 def pretrain_opt(batch_size=None):
@@ -3375,8 +3726,8 @@ def main():
     # read this run's ptxas log
     cuda_lib.build_kernels(force=True)
     log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} with "
-        f"{SOURCE_BWD_BF16}, and {SOURCE_NN} (three nvcc runs at once) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{SOURCE_BWD_BF16}, {SOURCE_NN} and {SOURCE_ISO} (four nvcc runs "
+        f"at once) in {time.perf_counter() - t0:.2f} s")
     for lib in cuda_lib.libraries():
         log(lib.ptxas_log.strip())
     warnings = []
@@ -3417,6 +3768,7 @@ def main():
     nn["k4"]["err"] = max(nn["k4"]["err"], err4)
     nn["k5"]["err"] = max(nn["k5"]["err"], err5)
     api_launches = run(phase_chamfer_api)
+    iso_launches, iso, err6, err7 = run(phase_isosurface)  # phase 8b
     run(phase_clis)                                     # phase 9
     run(phase_pretrain)                                 # phase 10
     run(phase_clip)                                     # phase 11
@@ -3501,6 +3853,16 @@ def main():
              source=SOURCE_NN, replaces=REPLACES_K5,
              launches=api_launches["argmin"], max_abs_err=nn["k5"].pop("err"),
              **nn["k5"]),
+        dict(name="isosurface cell_area_kernel (K6, marching tetrahedra to "
+             "per-cell areas)", route="cuda", source=SOURCE_ISO,
+             replaces=REPLACES_K6, launches=iso_launches["k6"],
+             max_abs_err=err6, **iso[ISO_VOX[0]]["k6"], library_ms=None,
+             **{f"{k}_vox100": v for k, v in iso[ISO_VOX[1]]["k6"].items()}),
+        dict(name="isosurface draw_kernel (K7, area-weighted surface "
+             "sampling)", route="cuda", source=SOURCE_ISO,
+             replaces=REPLACES_K7, launches=iso_launches["k7"],
+             max_abs_err=err7, **iso[ISO_VOX[0]]["k7"], library_ms=None,
+             **{f"{k}_vox100": v for k, v in iso[ISO_VOX[1]]["k7"].items()}),
     ]
     for k in summary:
         if k["launches"] < 1:

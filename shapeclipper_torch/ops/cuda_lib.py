@@ -94,8 +94,9 @@ class CudaLibrary:
 
 def libraries():
     """Every CUDA library of the port, in build order."""
-    from . import chamfer, fused_sdf
-    return (fused_sdf.KERNEL, fused_sdf.BACKWARD, chamfer.KERNEL)
+    from . import chamfer, fused_sdf, isosurface
+    return (fused_sdf.KERNEL, fused_sdf.BACKWARD, chamfer.KERNEL,
+            isosurface.KERNEL)
 
 
 def build_kernels(force=False):

@@ -53,16 +53,16 @@ _STEP_AUX_KEYS = ("proj_latent_sdf", "proj_latent_rgb", "pose", "scale_dist",
 
 # the `tpu:` configuration the port honours (tpu.bn_mode, tpu.bn_replicas,
 # tpu.encoder_dtype, tpu.implicit_dtype, tpu.merge_*: models/graph.py;
-# tpu.mesh: parallel.check_mesh; tpu.profile_iters: Runner.train_iteration),
-# and what else the JAX package reads, which the port ignores and names in
-# its log
+# tpu.mesh: parallel.check_mesh; tpu.profile_iters: Runner.train_iteration;
+# tpu.device_isosurface: eval3d/metrics.py; tpu.eval_pipeline:
+# Runner.evaluate), and what else the JAX package reads, which the port
+# ignores and names in its log
 HONOURED_TPU_KEYS = ("mesh", "bn_mode", "bn_replicas", "encoder_dtype",
                      "implicit_dtype", "merge_nn_render",
                      "merge_flip_estimator", "merge_encoders",
-                     "profile_iters")
+                     "profile_iters", "device_isosurface", "eval_pipeline")
 IGNORED_TPU_KEYS = ("sdf_grad_mode", "fold_eikonal", "remat_renderer",
-                    "fused_eval", "device_isosurface", "donate_state",
-                    "eval_pipeline")
+                    "fused_eval", "donate_state")
 
 
 def tpu_keys_note(opt):
@@ -74,15 +74,19 @@ def tpu_keys_note(opt):
                           "merge_nn_render") if tpu.get(k, True)]
     window = tpu.get("profile_iters")
     return (f"the port ignores tpu.{{{', '.join(ignored)}}}: every CUDA SDF "
-            "evaluation through the fused kernels (K1 / K3 + K2), no device "
-            "isosurface, no pipeline or donation switches; it honours tpu.{"
+            "evaluation through the fused kernels (K1 / K3 + K2), no "
+            "donation switch; it honours tpu.{"
             + ", ".join(HONOURED_TPU_KEYS) + "}: encoders in "
             f"{tpu.get('encoder_dtype') or 'float32'}, implicit MLPs in "
             f"{tpu.get('implicit_dtype') or 'float32'}, merged "
             + ("{" + ", ".join(merged) + "}" if merged else "nothing")
             + ", profiler window "
             + (f"iterations {window[0]}-{window[1] - 1}" if window
-               else "off"))
+               else "off")
+            + ", surface sampling on the "
+            + ("device" if tpu.get("device_isosurface", False) else "host")
+            + ", evaluation "
+            + ("pipelined" if tpu.get("eval_pipeline", True) else "serial"))
 
 
 def batch_to_var(batch, device):
@@ -520,7 +524,8 @@ class Runner:
                 with torch.inference_mode():
                     dist_acc, dist_cov = eval_3D.eval_metrics(
                         opt, mvar, self.graph.sdf_network,
-                        rng=np.random.RandomState(step))
+                        rng=np.random.RandomState(step), seed=step,
+                        need_meshes=False)
                 self.tb.add_scalar(f"{split}/dist_acc", dist_acc, step)
                 self.tb.add_scalar(f"{split}/dist_cov", dist_cov, step)
             except Exception as e:  # metric eval must never kill training
@@ -579,13 +584,18 @@ class Runner:
     def evaluate(self, opt, ep, training=False):
         """Chamfer-L1 (accuracy, completeness) and F-scores over the test
         loader -> the mean CD. Software-pipelined: batch k+1's forward and
-        dense grid are enqueued before the host marching tetrahedra of batch
-        k run (`eval3d/metrics.py::eval_metrics_submit`). A full evaluation
-        (`training=False`) renders and dumps every sample unless
-        `eval.dump` is false, and writes cd_cat.txt, f_score.txt and
-        chamfer.txt; a training evaluation skips the render and, at its first
-        batch, dumps the visualization samples' rotating views (rank 0). A
-        ragged last batch runs at its own size.
+        dense grid (and, on the device path, its device finish) are enqueued
+        before batch k is finished (`eval3d/metrics.py::
+        eval_metrics_submit`); `tpu.eval_pipeline: false` finishes each batch
+        before the next is submitted. With `tpu.device_isosurface` the
+        surfaces are sampled on the device, from seed = the batch index, and
+        host meshes are extracted only for dumps: a training evaluation and
+        `eval.dump=false` run no host marching tetrahedra and copy no grid
+        to the host. A full evaluation (`training=False`) renders and dumps
+        every sample unless `eval.dump` is false, and writes cd_cat.txt,
+        f_score.txt and chamfer.txt; a training evaluation skips the render
+        and, at its first batch, dumps the visualization samples' rotating
+        views (rank 0). A ragged last batch runs at its own size.
 
         Under a process group a training evaluation runs test batch k on
         rank k mod W, on rank 0's BatchNorm statistics, and gathers the
@@ -597,10 +607,12 @@ class Runner:
         parallel.broadcast_buffers(self.graph)
         results = []   # (it, cats, cd_acc, cd_comp, f_score) per batch
         dump = (not training) and bool(opt.eval.get("dump", True))
+        pipelined = opt.get("tpu", {}).get("eval_pipeline", True)
 
         def finish(it, var, pending, cats):
             eval_3D.eval_metrics_finish(opt_e, var, pending,
-                                        rng=np.random.RandomState(it))
+                                        rng=np.random.RandomState(it),
+                                        need_meshes=dump)
             results.append((it, cats, np.asarray(var.cd_acc),
                             np.asarray(var.cd_comp),
                             np.asarray(var.f_score)))
@@ -628,11 +640,15 @@ class Runner:
                 cats = np.asarray(batch["category_label"])
                 var = self.graph_eval(batch_to_var(batch, self.device),
                                       render=dump)
-                level = eval_3D.eval_metrics_submit(opt_e, var,
-                                                    self.graph.sdf_network)
+                level = eval_3D.eval_metrics_submit(
+                    opt_e, var, self.graph.sdf_network, seed=it,
+                    need_meshes=dump)
                 if pending is not None:
                     finish(*pending)
                 pending = (it, var, level, cats)
+                if not pipelined:   # serial: finish before the next submit
+                    finish(*pending)
+                    pending = None
             if pending is not None:
                 finish(*pending)
         if shard:

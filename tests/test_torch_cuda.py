@@ -1,8 +1,9 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
 fused_sdf_fwd.cu`, K1 / K3 and their bf16 forms with the bf16 weight pack,
-`csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16) and
-the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5).
+`csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16),
+the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5) and the device
+isosurface (`csrc/isosurface.cu`, K6 / K7).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
 imports torch and the port only (no JAX), so on a machine with the card
@@ -16,7 +17,9 @@ K2's parameter, latent and point gradients atol 3e-5 * max|ref|, rtol 2e-4.
 K4 / K5 distances rtol 1e-5, atol 1e-7 (the kernel fuses two of the three
 squares into multiply-adds); K5's argmin equal to the plain one wherever
 the nearest point is not a near-tie (the kernel's choice is at the plain
-minimum within that tolerance), and exactly equal on exact ties.
+minimum within that tolerance), and exactly equal on exact ties. K6 / K7
+equal to their plain versions (cell sums and faces exactly, points to
+1e-5): both round the same float32 steps.
 """
 
 import copy
@@ -773,3 +776,79 @@ def test_eval_submit_copies_the_grid_to_pinned_memory(dev):
         pending.ready.synchronize()
         assert pending.host.is_pinned() and pending.host.device.type == "cpu"
         assert torch.equal(pending.host, pending.level.cpu())
+
+
+def _iso_levels():
+    """A bumpy ellipsoid (tests/test_device_isosurface.py's), a grid with no
+    surface and an exact-ties grid, as one batch of 3 x 25^3."""
+    g = np.linspace(-0.6, 0.6, 25).astype(np.float32)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    bumpy = (np.sqrt(X ** 2 + 1.4 * Y ** 2 + 0.7 * Z ** 2) - 0.42
+             + 0.05 * np.sin(7 * X) * np.cos(5 * Y + 2 * Z))
+    ties = np.random.RandomState(7).randint(-2, 3, size=(25, 25, 25))
+    return np.stack([bumpy, np.ones_like(bumpy), ties]).astype(np.float32)
+
+
+def test_isosurface_kernels_match_plain(dev):
+    """K6's cell sums and K7's faces and points equal their plain versions'
+    on the same grid, CDF and draws (the kernels round every float32 step as
+    the plain version does); the empty grid gives zeros."""
+    from shapeclipper_torch.eval3d import device_isosurface as D
+    from shapeclipper_torch.ops import isosurface as I
+    level = torch.from_numpy(_iso_levels()).to(dev)
+    before = dict(I.KERNEL.launches)
+    sums = D.cell_area_sums(level)
+    torch.testing.assert_close(sums, D.cell_area_sums_plain(level),
+                               rtol=0, atol=0)
+    cdf = torch.cumsum(sums, dim=1)
+    r, u, w = D.surface_draws(3, 50_000, seed=1, device=dev)
+    pts, faces = D.draw_points(level, cdf, r, u, w, -0.6, 0.6,
+                               with_faces=True)
+    want_pts, want_faces = D.draw_points_plain(level, cdf, r, u, w, -0.6,
+                                               0.6, with_faces=True)
+    assert I.KERNEL.launches == {"area": before["area"] + 1,
+                                 "draw": before["draw"] + 1}
+    assert torch.equal(faces, want_faces)
+    # the evaluation's form stores no face and gives the same points
+    assert torch.equal(D.draw_points(level, cdf, r, u, w, -0.6, 0.6), pts)
+    torch.testing.assert_close(pts, want_pts, rtol=0, atol=1e-5)
+    assert torch.count_nonzero(pts[1]) == 0
+    assert bool(torch.isfinite(pts).all())
+
+
+def test_isosurface_sampler_same_on_card_and_cpu(dev):
+    """The same draws give the same points on both devices, to within the
+    CDF scan's rounding (a cumsum on the card sums in another order); on
+    the card the same seed draws the same numbers twice, from a CUDA
+    generator."""
+    from shapeclipper_torch.eval3d import device_isosurface as D
+    level = torch.from_numpy(_iso_levels()[:1])
+    draws = D.surface_draws(1, 20_000, seed=3)
+    got = D.sample_level_surface_batch(level.to(dev), 20_000, -0.6, 0.6,
+                                       draws=draws).cpu()
+    want = D.sample_level_surface_batch(level, 20_000, -0.6, 0.6,
+                                        draws=draws)
+    same = (got - want).abs().amax(-1) <= 1e-5
+    assert int((~same).sum()) <= 2
+    seeded = [D.sample_level_surface_batch(level.to(dev), 20_000, -0.6, 0.6,
+                                           seed=3) for _ in range(2)]
+    assert seeded[0].device.type == "cuda"
+    assert torch.equal(seeded[0], seeded[1])
+
+
+def test_isosurface_wrapper_refuses_bad_inputs(dev):
+    from shapeclipper_torch.ops import isosurface as I
+    level = torch.zeros(1, 9, 9, 9, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        I.KERNEL.cell_areas(level.double())
+    with pytest.raises(ValueError, match="M, M, M"):
+        I.KERNEL.cell_areas(torch.zeros(1, 9, 9, 8, device=dev))
+    with pytest.raises(ValueError, match="no isosurface kernel"):
+        I.KERNEL.cell_areas(level.cpu())
+    cdf = torch.zeros(1, 512, device=dev, dtype=torch.float64)
+    r = torch.zeros(1, 4, device=dev)
+    u = torch.zeros(1, 4, 1, device=dev)
+    with pytest.raises(TypeError, match="float64"):
+        I.KERNEL.draw(level, cdf.float(), r, u, u, -0.6, 0.6)
+    with pytest.raises(ValueError, match="is on"):
+        I.KERNEL.draw(level, cdf, r.cpu(), u, u, -0.6, 0.6)

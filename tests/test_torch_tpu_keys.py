@@ -48,21 +48,27 @@ def test_every_tpu_key_is_honoured_or_named():
     assert "encoders in bfloat16, implicit MLPs in bfloat16" in note
 
 
-@pytest.mark.parametrize("extra", ["profile_iters", "eval_pipeline"])
-def test_keys_outside_the_yaml_are_named_when_set(extra):
-    """A key the YAML does not set is named when set: as ignored
-    (eval_pipeline), or with the value in force (profile_iters, the
-    profiler window)."""
+@pytest.mark.parametrize("extra, value, in_force", [
+    pytest.param("profile_iters", [1, 3], "profiler window iterations 1-2",
+                 id="profile_iters"),
+    pytest.param("eval_pipeline", False, "evaluation serial",
+                 id="eval_pipeline"),
+    pytest.param("device_isosurface", True, "surface sampling on the device",
+                 id="device_isosurface")])
+def test_keys_outside_the_yaml_are_named_when_set(extra, value, in_force):
+    """A key the YAML does not set, or sets to its default, is named with
+    the value in force when set: the profiler window, the serial
+    evaluation (tpu.eval_pipeline), the device surface sampler
+    (tpu.device_isosurface); none of them is named as ignored."""
     opt = options.load_options(FLAGSHIP)
-    opt.tpu[extra] = [1, 3]
+    assert in_force not in trainer.tpu_keys_note(opt)
+    opt.tpu[extra] = value
     opt.tpu.update(encoder_dtype="float32", implicit_dtype="float32")
     note = trainer.tpu_keys_note(opt)
     ignored = re.search(r"ignores tpu\.\{([^}]*)\}", note).group(1)
-    if extra in trainer.HONOURED_TPU_KEYS:
-        assert extra not in ignored
-        assert "profiler window iterations 1-2" in note
-    else:
-        assert extra in ignored
+    assert extra in trainer.HONOURED_TPU_KEYS
+    assert extra not in ignored
+    assert in_force in note
     assert "encoders in float32, implicit MLPs in float32" in note
 
 
