@@ -136,8 +136,15 @@ no CPU fallback):
      times; K1 and K2 timed at a rank's 6 x 32,768 beside 12 x 32,768;
  14. `train --distributed` under torchrun (one NCCL rank: DDP, the
      sharded evaluation's gather) and `train` without it at a tiny size,
-     then `evaluate --resume` of each: equal reports and `Best CD`
-     (tests/test_torch_ddp_cli.py's set-up);
+     then `evaluate --distributed --resume` under torchrun (one NCCL rank)
+     and `evaluate --resume`: equal reports and `Best CD`
+     (tests/test_torch_ddp_cli.py's set-up); then at the full eval width of
+     options/pix3d/config.yaml (its precision, dumps and host surface
+     sampling) over the 8 synthetic test samples, seeded weights as a
+     run's best.pt, evaluated by `evaluate --resume` in this process and
+     by one NCCL rank of `evaluate --distributed --resume`: byte-equal
+     reports, the same dump files, launches per sample K1-bf16 1 / pack 1
+     / K3 3 / K4 2 in both, and both runs' ms per sample;
  15. `loss_weight.category_reg=1`: a batch-4 flagship step on the card
      against the CPU (the loss term 1e-4, the centres' gradient 1e-3, the
      post-step centres 0.05 lr);
@@ -3599,14 +3606,17 @@ def phase_k1_k2_half():
     return out
 
 
+# -------------------------------------------------------------- phase 14
 def phase_ddp_cli():
-    """`python -m torch.distributed.run --standalone --nproc_per_node=1 -m
-    shapeclipper_torch.train --distributed` (one NCCL rank) and the same
+    """(a) `python -m torch.distributed.run --standalone --nproc_per_node=1
+    -m shapeclipper_torch.train --distributed` (one NCCL rank) and the same
     run without `--distributed`, one tiny epoch each with its evaluations,
-    then `evaluate --resume` of each: cd_cat.txt, f_score.txt, chamfer.txt
-    and the `Best CD` line must be equal. As tests/test_torch_ddp_cli.py,
-    `optim.lr=0` and camera steps only, so that both runs evaluate the
-    same weights and the reports compare the distributed loop."""
+    then `evaluate --resume` of each, the distributed run's through
+    `evaluate --distributed` under torchrun (one NCCL rank): cd_cat.txt,
+    f_score.txt, chamfer.txt and the `Best CD` line must be equal. As
+    tests/test_torch_ddp_cli.py, `optim.lr=0` and camera steps only, so
+    that both runs evaluate the same weights and the reports compare the
+    distributed loop. (b) `phase_eval_ranks`."""
     import shutil
     root = os.path.join(OUT_DIR, "clis_ddp")
     shutil.rmtree(root, ignore_errors=True)
@@ -3621,30 +3631,189 @@ def phase_ddp_cli():
              "--optim.iter_camera=1000"]
     best, reports = [], []
     for tag, launch in (("one", []), ("ddp", [
-            "--standalone", "--nproc_per_node=1", "-m",
-            "shapeclipper_torch.train", "--distributed"])):
+            "--standalone", "--nproc_per_node=1", "-m"])):
         out_root = f"--output_root={os.path.join(root, tag)}"
-        module = "torch.distributed.run" if launch else \
-            "shapeclipper_torch.train"
-        out = run_cli(module, launch + tiny + [out_root], train)
+        if launch:
+            out = run_cli("torch.distributed.run", launch + [
+                "shapeclipper_torch.train", "--distributed"] + tiny
+                + [out_root], train)
+            run_cli("torch.distributed.run", launch + [
+                "shapeclipper_torch.evaluate", "--distributed"] + tiny
+                + [out_root], ["--resume"])
+        else:
+            out = run_cli("shapeclipper_torch.train", tiny + [out_root],
+                          train)
+            run_cli("shapeclipper_torch.evaluate", tiny + [out_root],
+                    ["--resume"])
         best.append([ln for ln in out.splitlines()
                      if ln.startswith("Best CD")])
-        run_cli("shapeclipper_torch.evaluate", tiny + [out_root],
-                ["--resume"])
-        run = os.path.join(root, tag, "synthetic_output", "run")
-        texts = {}
-        for name in ("cd_cat.txt", "f_score.txt", "chamfer.txt"):
-            with open(os.path.join(run, name)) as f:
-                texts[name] = f.read()
-        reports.append(texts)
+        reports.append(read_reports(os.path.join(root, tag,
+                                                 "synthetic_output", "run")))
     if len(best[0]) != 1 or best[0] != best[1]:
         raise AssertionError(f"Best CD lines differ: {best}")
     differ = [n for n in reports[0] if reports[0][n] != reports[1][n]]
     if differ:
-        raise AssertionError(f"train --distributed reports differ: {differ}")
-    log(f"[ddp-cli] train --distributed (one NCCL rank under DDP) and "
-        f"train: "
-        f"'{best[0][0]}' both; cd_cat.txt, f_score.txt, chamfer.txt equal")
+        raise AssertionError(f"train / evaluate --distributed reports "
+                             f"differ: {differ}")
+    log(f"[ddp-cli] train --distributed and evaluate --distributed (one "
+        f"NCCL rank each) against train and evaluate: '{best[0][0]}' both; "
+        f"cd_cat.txt, f_score.txt, chamfer.txt equal")
+    return phase_eval_ranks()
+
+
+def read_reports(run):
+    texts = {}
+    for name in ("cd_cat.txt", "f_score.txt", "chamfer.txt"):
+        with open(os.path.join(run, name)) as f:
+            texts[name] = f.read()
+    return texts
+
+
+def phase_eval_ranks():
+    """Phase 14 (b): the full evaluation width of options/pix3d/config.yaml
+    (its own precision, eval.dump and tpu.device_isosurface) over the 8
+    synthetic test samples: seeded weights saved as a run's best.pt, then
+    `evaluate --resume` in this process and `evaluate --distributed
+    --resume` as one NCCL rank under torchrun (`--eval-worker`), each
+    through `evaluate_counted`. The reports must be byte-equal, the dumps
+    the same files, the launches the same and the path's."""
+    import shutil
+    import torch
+    from shapeclipper_torch.eval3d import metrics as M
+    from shapeclipper_torch.models.graph import Graph
+    from shapeclipper_torch.utils import checkpoint as ckpt
+    root = os.path.join(OUT_DIR, "eval_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    opt = load_opt()
+    state = Graph(opt, generator=torch.Generator().manual_seed(SEED)
+                  ).state_dict()
+    n, vox = 8, opt.eval.vox_res
+    args = ["--yaml=options/pix3d/config.yaml", "--group=eval_ranks",
+            "--name=run", "--data.dataset=synthetic", "--data.num_workers=0",
+            "--data.synthetic={azim_range: [-180, 180], elev_range: [-90, "
+            "90], theta_range: [-90, 90]}", "--force_add", "--tb!",
+            "--resume"]
+    res = {}
+    for tag in ("one", "ddp"):
+        out = os.path.join(root, tag)
+        run = os.path.join(out, "eval_ranks", "run")
+        os.makedirs(run)
+        ckpt.write_checkpoint(os.path.join(run, "best.pt"), state)
+        t0 = time.perf_counter()
+        if tag == "one":
+            res[tag] = evaluate_counted(args + [f"--output_root={out}"])
+        else:
+            report = os.path.join(root, "ddp.json")
+            r = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node=1",
+                 os.path.join(REPO, "chip_smoke.py"), "--eval-worker", report,
+                 "--distributed", *args, f"--output_root={out}"],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"evaluate --distributed failed "
+                                     f"({r.returncode}):\n{r.stdout[-3000:]}"
+                                     f"\n{r.stderr[-3000:]}")
+            with open(report) as f:
+                res[tag] = json.load(f)
+        res[tag].update(wall_s=time.perf_counter() - t0,
+                        reports=read_reports(run),
+                        dumps=sorted(os.listdir(os.path.join(run, "dump"))))
+    one, ddp = res["one"], res["ddp"]
+    differ = [k for k in one["reports"]
+              if one["reports"][k] != ddp["reports"][k]]
+    if differ:
+        raise AssertionError(f"evaluate --distributed at the full width: "
+                             f"reports differ: {differ}")
+    if one["dumps"] != ddp["dumps"] or f"{n - 1}_mesh.ply" not in one["dumps"]:
+        raise AssertionError(f"dump files: {one['dumps']} vs {ddp['dumps']}")
+    k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
+    want = dict(k1=0, k3=k3_per * n, k2=0, k1_bf16=n, k3_bf16=0, k2_bf16=0,
+                pack_bf16=n, k4=2 * n, k5=0, k6=0, k7=0)
+    for tag in res:
+        if res[tag]["launches"] != want or res[tag]["n"] != n:
+            raise AssertionError(f"evaluate ({tag}): {res[tag]['n']} "
+                                 f"samples, launches {res[tag]['launches']}, "
+                                 f"expected {want}")
+    rows = np.array([[float(x) for x in line.split()[1:]] for line in
+                     one["reports"]["chamfer.txt"].splitlines()])
+    if rows.shape != (n, 2) or not np.isfinite(rows).all():
+        raise AssertionError(f"chamfer.txt rows {rows}")
+    log(f"[eval-ranks] evaluate --resume at the full eval width of "
+        f"options/pix3d/config.yaml ({opt.eval.image_size[0]}^2 render, vox "
+        f"{vox}, {opt.eval.num_points:,} points, dumps on, bf16 per the "
+        f"YAML) over {n} synthetic test samples, ms per sample steady "
+        f"(samples 2-{n}) / whole Runner.evaluate: one process (this one) "
+        f"{one['steady_ms']:.2f} / {one['evaluate_ms'] / n:.2f}, one NCCL "
+        f"rank under torchrun (evaluate --distributed, a fresh process) "
+        f"{ddp['steady_ms']:.2f} / {ddp['evaluate_ms'] / n:.2f} "
+        f"({one['wall_s']:.1f} / {ddp['wall_s']:.1f} s in all); cd_cat.txt, "
+        f"f_score.txt, chamfer.txt byte-equal, dumps the same "
+        f"{len(one['dumps'])} files; launches {one['launches']} both; CD "
+        f"{rows.mean():.5f}; card {card_line()}")
+    return ddp["launches"]
+
+
+def evaluate_counted(argv):
+    """`shapeclipper_torch.evaluate.main(argv)` with every kernel's launch
+    count reset just before it and read just after, and cuDNN
+    deterministic (so that two runs' reports compare byte for byte) ->
+    the launches, the whole Runner.evaluate's ms (between two
+    synchronisations), its steady ms a batch (from the second batch's
+    submit to the end), the number of test samples and the rank."""
+    import torch
+    from shapeclipper_torch import evaluate, parallel
+    from shapeclipper_torch.eval3d import metrics as M
+    from shapeclipper_torch.train.trainer import Runner
+    timed, submits = {}, []
+
+    def timer(fn):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            timed.update(t=t, end=time.perf_counter(), rank=parallel.rank(),
+                         n=len(self.test_data))
+            return out
+        return run
+
+    def stamp(fn):
+        def submit(*args, **kwargs):
+            submits.append(time.perf_counter())
+            return fn(*args, **kwargs)
+        return submit
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    try:
+        with wrapped([(Runner, "evaluate", timer),
+                      (M, "eval_metrics_submit", stamp)]):
+            evaluate.main(argv)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = read_launches()
+    n = timed["n"]
+    return dict(launches=launches, n=n, rank=timed["rank"],
+                evaluate_ms=(timed["end"] - timed["t"]) * 1e3,
+                steady_ms=(timed["end"] - submits[1]) * 1e3 / (n - 1))
+
+
+def eval_worker(report, argv):
+    """`python chip_smoke.py --eval-worker REPORT ARGS...`, a rank under
+    torchrun (ARGS with `--distributed`): `evaluate_counted(ARGS)` with the
+    TF32 switches off, as in this script's own process; rank 0 writes its
+    result to REPORT."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = evaluate_counted(argv)
+    if res["rank"] == 0:
+        with open(report, "w") as f:
+            json.dump(res, f)
+    return 0
 
 
 def phase_category_reg():
@@ -3879,4 +4048,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--eval-worker"]:
+        sys.exit(eval_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -23,8 +23,9 @@ hand-written Hopper kernels `csrc/fused_sdf_fwd.cu` (K1 / K3) and
 sweep of the metrics through `csrc/chamfer.cu` (K4 / K5, `ops/chamfer.py`).
 `bridge.py` carries the JAX package's weights and optax Adam states
 across. `parallel/` makes the training data parallel over DDP ranks
-(`torchrun ... -m shapeclipper_torch.train --distributed`). Not ported:
-bf16.
+(`torchrun ... -m shapeclipper_torch.train --distributed`) and splits an
+evaluation's test batches over ranks (`... -m shapeclipper_torch.evaluate
+--distributed`).
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
 copy so that it never imports the JAX package).
 
 A thread-pool loader producing stacked numpy batches; sharding slices the
-index space by (shard_id, num_shards) instead of a DistributedSampler.
+index space by (shard_id, num_shards) instead of a DistributedSampler, and
+a batch-level shard (batch_shard_id, num_batch_shards) hands a rank whole
+batches of the unsharded sequence.
 """
 
 from __future__ import annotations
@@ -167,13 +169,16 @@ class Dataset:
         raise NotImplementedError
 
     def setup_loader(self, opt, shuffle=False, drop_last=True, batch_size=None,
-                     shard_id=0, num_shards=1, seed=0):
+                     shard_id=0, num_shards=1, seed=0, batch_shard_id=0,
+                     num_batch_shards=1):
         batch_size = batch_size or opt.batch_size
         return DataLoader(self, batch_size=batch_size, shuffle=shuffle,
                           drop_last=drop_last,
                           num_workers=opt.data.get("num_workers", 4) or 0,
                           shard_id=shard_id, num_shards=num_shards, seed=seed,
-                          worker_type=opt.data.get("worker_type") or "thread")
+                          worker_type=opt.data.get("worker_type") or "thread",
+                          batch_shard_id=batch_shard_id,
+                          num_batch_shards=num_batch_shards)
 
 
 def select_nn_views(opt, query_mask_sampled, nn_masks_sampled, rng):
@@ -234,11 +239,19 @@ class DataLoader:
     processes, `data/base.py:16-30` + `options/pix3d/config.yaml`) — the
     right choice when per-sample work is numpy/decode-bound and cores are
     plentiful. Chosen via `opt.data.worker_type`; measured by
-    `scripts/bench_loader.py`."""
+    `scripts/bench_loader.py`.
+
+    Two shards. (shard_id, num_shards) splits the rows: shard r loads
+    positions r, r + W, ... of every global batch (training). The batch
+    shard (batch_shard_id, num_batch_shards) splits whole batches: shard r
+    loads batches r, r + W, ... of the unsharded sequence and never builds
+    the others (evaluation); `indexed()` pairs each with its index in that
+    sequence."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=True,
                  num_workers=4, shard_id=0, num_shards=1, seed=0,
-                 prefetch=2, worker_type="thread"):
+                 prefetch=2, worker_type="thread", batch_shard_id=0,
+                 num_batch_shards=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -250,6 +263,8 @@ class DataLoader:
         self.epoch = 0
         self.prefetch = prefetch
         self.worker_type = worker_type
+        self.batch_shard_id = batch_shard_id
+        self.num_batch_shards = num_batch_shards
 
     def set_epoch(self, epoch):
         self.epoch = epoch
@@ -269,21 +284,34 @@ class DataLoader:
         idx = idx[self.shard_id::self.num_shards]
         return idx
 
-    def __len__(self):
+    def _num_batches(self):
+        """Batches of the sequence before the batch shard."""
         n = len(self._epoch_indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _batch_numbers(self):
+        return range(self.batch_shard_id, self._num_batches(),
+                     self.num_batch_shards)
+
+    def __len__(self):
+        return len(self._batch_numbers())
+
     def __iter__(self):
+        return (batch for _, batch in self.indexed())
+
+    def indexed(self):
+        """(k, batch) for each batch of this shard, k its index in the
+        sequence before the batch shard."""
         indices = self._epoch_indices()
-        nb = len(self)
-        batches = [indices[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(nb)]
+        numbers = list(self._batch_numbers())
+        batches = [indices[k * self.batch_size:(k + 1) * self.batch_size]
+                   for k in numbers]
 
         if self.num_workers == 0:
-            for b in batches:
-                yield default_collate([self.dataset[int(i)] for i in b])
+            for k, b in zip(numbers, batches):
+                yield k, default_collate([self.dataset[int(i)] for i in b])
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -302,21 +330,21 @@ class DataLoader:
             get = (_fork_get if self.worker_type == "process"
                    else self.dataset.__getitem__)
             with make_pool() as pool:
-                for b in batches:
+                for k, b in zip(numbers, batches):
                     if stop.is_set():
                         return
                     samples = list(pool.map(get, [int(i) for i in b]))
-                    q.put(default_collate(samples))
+                    q.put((k, default_collate(samples)))
             q.put(None)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
             while True:
-                batch = q.get()
-                if batch is None:
+                item = q.get()
+                if item is None:
                     return
-                yield batch
+                yield item
         finally:
             stop.set()
             # Unblock a producer stuck in q.put so it reaches the stop check

@@ -26,6 +26,7 @@ size, one rank included, and so does the Runner's DDP wrapper.
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 import torch.distributed as dist
@@ -88,11 +89,31 @@ def init_from_env(device_type, backend=None):
         raise RuntimeError(f"--distributed needs torchrun's environment "
                            f"({', '.join(missing)} unset): launch with "
                            "torchrun --nproc_per_node=W -m "
-                           "shapeclipper_torch.train --distributed ...")
+                           "shapeclipper_torch.train|evaluate --distributed "
+                           "...")
     env = os.environ
     return init(int(env["RANK"]), int(env["WORLD_SIZE"]),
                 f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
                 device_type, backend, local_rank=int(env["LOCAL_RANK"]))
+
+
+def join_from_cli(opt_cmd, device):
+    """A CLI's `--distributed` flag (popped from `opt_cmd`): line-buffered
+    stdout, since the ranks share one console, and the process group of
+    torchrun's environment -> the device (`cuda:LOCAL_RANK` on CUDA)."""
+    if not opt_cmd.pop("distributed", False):
+        return device
+    sys.stdout.reconfigure(line_buffering=True)
+    local_rank = init_from_env(device)
+    return f"cuda:{local_rank}" if device == "cuda" else device
+
+
+def require_seed(opt):
+    """Every rank must name the same run folder: a seedless run names its
+    folder with a random suffix."""
+    if world_size() > 1 and opt.get("seed") is None:
+        raise SystemExit("--distributed needs a seed: every rank must name "
+                         "the same run folder")
 
 
 def destroy():

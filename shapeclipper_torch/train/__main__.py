@@ -25,6 +25,7 @@ batch. Without torchrun's environment, or NCCL without CUDA, it raises.
 
 from __future__ import annotations
 
+import gc
 import os
 import sys
 
@@ -41,17 +42,10 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     device, argv = options.pop_device(argv)
     opt_cmd = options.parse_arguments(argv)
-    if opt_cmd.pop("distributed", False):
-        # the ranks share one console: each line leaves in one write
-        sys.stdout.reconfigure(line_buffering=True)
-        local_rank = parallel.init_from_env(device)
-        if device == "cuda":
-            device = f"cuda:{local_rank}"
+    device = parallel.join_from_cli(opt_cmd, device)
     try:
         opt = options.set(opt_cmd=opt_cmd)
-        if parallel.world_size() > 1 and opt.get("seed") is None:
-            raise SystemExit("--distributed needs a seed: every rank must "
-                             "name the same run folder")
+        parallel.require_seed(opt)
         if parallel.is_main():
             options.save_options_file(opt)
 
@@ -62,6 +56,11 @@ def main(argv=None):
         trainer.restore_checkpoint(opt)
         trainer.setup_visualizer(opt)
         trainer.train(opt)
+        # the DDP wrapper holds the process group: free it while the group
+        # lives (a gloo rank that freed it after destroy() could hang in
+        # the backend's teardown)
+        del trainer
+        gc.collect()
     finally:
         parallel.destroy()
 

@@ -13,10 +13,11 @@ fallback.
 Under a process group (`parallel`, one process per rank) the Runner is data
 parallel: rank r loads its share of every global batch, `TrainStep` runs
 under `DistributedDataParallel`, the logged losses are the global batch's,
-and the training evaluation splits the test batches over the ranks and
-gathers their per-sample metrics, so that every rank takes the same best
-epoch. Rank 0 alone cleans the output folder and writes checkpoints,
-TensorBoard events and dumps; every rank restores.
+and an evaluation splits the test batches over the ranks and gathers
+their per-sample metrics, so that every rank takes the same best epoch.
+Rank 0 alone cleans the output folder and writes checkpoints, TensorBoard
+events, the training dumps and the evaluation reports; each rank dumps
+its own evaluated samples; every rank restores.
 """
 
 from __future__ import annotations
@@ -176,11 +177,15 @@ class Runner:
         self.num_batches = len(self.train_loader)
         log.info("loading test data...")
         self.test_data = data.Dataset(opt, split=eval_split)
+        # each rank builds test batches rank, rank + W, ... only
         self.test_loader = self.test_data.setup_loader(
             opt, shuffle=False, drop_last=False,
-            batch_size=opt.eval.batch_size)
+            batch_size=opt.eval.batch_size, batch_shard_id=parallel.rank(),
+            num_batch_shards=W)
         log.info("creating data for visualization...")
-        self.viz_data = self._collect_viz_data(opt)
+        # rank 0 alone visualizes
+        self.viz_data = self._collect_viz_data(opt) if parallel.is_main() \
+            else []
 
     def _collect_viz_data(self, opt):
         """One sample per category, up to eval.n_vis_classes, repeated
@@ -597,46 +602,34 @@ class Runner:
         and, at its first batch, dumps the visualization samples' rotating
         views (rank 0). A ragged last batch runs at its own size.
 
-        Under a process group a training evaluation runs test batch k on
-        rank k mod W, on rank 0's BatchNorm statistics, and gathers the
-        per-sample metrics; every rank then sums them in batch order, as
-        one process does, and returns the same value."""
+        Under a process group test batch k runs on rank k mod W (the test
+        loader's batch shard: a rank builds no other batch), on rank 0's
+        BatchNorm statistics; the ranks gather the per-sample metrics and
+        every rank sums them in batch order, as one process does, and
+        returns the same value. Each rank dumps its own samples; rank 0
+        alone writes the reports."""
         opt_e = self.graph_eval.opt
-        W, rank = parallel.world_size(), parallel.rank()
-        shard = training and parallel.is_initialized()
         parallel.broadcast_buffers(self.graph)
-        results = []   # (it, cats, cd_acc, cd_comp, f_score) per batch
+        results = []   # (it, idx, cats, cd_acc, cd_comp, f_score) a batch
         dump = (not training) and bool(opt.eval.get("dump", True))
         pipelined = opt.get("tpu", {}).get("eval_pipeline", True)
 
-        def finish(it, var, pending, cats):
+        def finish(it, var, pending, idx, cats):
             eval_3D.eval_metrics_finish(opt_e, var, pending,
                                         rng=np.random.RandomState(it),
                                         need_meshes=dump)
-            results.append((it, cats, np.asarray(var.cd_acc),
-                            np.asarray(var.cd_comp),
-                            np.asarray(var.f_score)))
+            results.append((it, idx, cats, np.asarray(var.cd_acc),
+                            np.asarray(var.cd_comp), np.asarray(var.f_score)))
             if it == 0 and training and self.viz_data and parallel.is_main():
                 if self.tb:
                     self.visualize_viz_data(opt, step=ep, split="eval")
                 self._dump_rotating_vis(opt, ep)
             if dump:
-                self.dump_results(opt_e, to_host(var), ep,
-                                  write_new=(it == 0))
-            elif not training:
-                # eval.dump=false still records the per-sample chamfer
-                # report (normally written inside dump_results)
-                with open(f"{self.opt.output_path}/chamfer.txt",
-                          "w" if it == 0 else "a") as f:
-                    for i, acc, comp in zip(var.idx.cpu().numpy(),
-                                            var.cd_acc, var.cd_comp):
-                        f.write(f"{i} {acc:.8f} {comp:.8f}\n")
+                self.dump_results(opt_e, to_host(var), ep)
 
         with self._eval_mode():
             pending = None
-            for it, batch in enumerate(self.test_loader):
-                if shard and it % W != rank:
-                    continue
+            for it, batch in self.test_loader.indexed():
                 cats = np.asarray(batch["category_label"])
                 var = self.graph_eval(batch_to_var(batch, self.device),
                                       render=dump)
@@ -645,13 +638,13 @@ class Runner:
                     need_meshes=dump)
                 if pending is not None:
                     finish(*pending)
-                pending = (it, var, level, cats)
+                pending = (it, var, level, np.asarray(batch["idx"]), cats)
                 if not pipelined:   # serial: finish before the next submit
                     finish(*pending)
                     pending = None
             if pending is not None:
                 finish(*pending)
-        if shard:
+        if parallel.is_initialized():
             results = sorted((r for part in parallel.all_gather_object(results)
                               for r in part), key=lambda r: r[0])
 
@@ -661,7 +654,7 @@ class Runner:
         comp_cat = [0.0] * opt.data.num_classes
         counts_cat = [0.001] * opt.data.num_classes
         n_seen = 0
-        for _, cats, cd_acc, cd_comp, f_score in results:
+        for _, _, cats, cd_acc, cd_comp, f_score in results:
             n = len(cats)
             f_scores.append(f_score)
             n_seen += n
@@ -672,9 +665,13 @@ class Runner:
                 comp_cat[cat_idx] += float(cd_comp[i])
             metric_eval["dist_acc"] += float(cd_acc.mean()) * n
             metric_eval["dist_cov"] += float(cd_comp.mean()) * n
-        if not training:
+        if not training and parallel.is_main():
             self._write_eval_reports(opt, acc_cat, comp_cat, counts_cat,
                                      f_scores)
+            with open(f"{self.opt.output_path}/chamfer.txt", "w") as f:
+                for _, idx, _, cd_acc, cd_comp, _ in results:
+                    for i, acc, comp in zip(idx, cd_acc, cd_comp):
+                        f.write(f"{i} {acc:.8f} {comp:.8f}\n")
         for key in metric_eval:
             metric_eval[key] /= max(n_seen, 1)
         if parallel.is_main():
@@ -704,9 +701,9 @@ class Runner:
                 for i, t in enumerate(opt.eval.f_thresholds):
                     f.write("F-score @ %.2f: %.4f\n" % (t * 100, f_all[i]))
 
-    def dump_results(self, opt, var, ep, write_new=False, train=False):
+    def dump_results(self, opt, var, ep, train=False):
         """PNG / PLY dumps of a host (numpy) var into `dump/` (or `vis_{ep}/`
-        with `train`), and its lines of chamfer.txt."""
+        with `train`)."""
         folder = "dump" if not train else f"vis_{ep}"
         os.makedirs(f"{self.opt.output_path}/{folder}", exist_ok=True)
         o = self.opt
@@ -740,11 +737,6 @@ class Runner:
             util_vis.dump_pointclouds_compare(
                 o, var.idx, "pointclouds_comp", var.dpc_pred,
                 var.dpc_points, folder=folder)
-        if not train and "cd_acc" in var:
-            chamfer_fname = f"{self.opt.output_path}/chamfer.txt"
-            with open(chamfer_fname, "w" if write_new else "a") as f:
-                for i, acc, comp in zip(var.idx, var.cd_acc, var.cd_comp):
-                    f.write(f"{i} {acc:.8f} {comp:.8f}\n")
 
     def _dump_rotating_vis(self, opt, ep, n_views=50):
         """Per-eval dumps of the visualization samples: predicted mesh,

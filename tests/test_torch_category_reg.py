@@ -26,6 +26,7 @@ from shapeclipper_torch import bridge
 from shapeclipper_torch.models.graph import Graph
 from shapeclipper_torch.train.trainer import Runner, batch_to_var
 from shapeclipper_torch.utils.easydict import EasyDict as edict
+from tests.torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

@@ -39,6 +39,7 @@ from shapeclipper_torch.train.trainer import (CAMERA_PHASE_INACTIVE, Runner,
 from shapeclipper_torch.utils import checkpoint as ckpt
 from tests.test_torch_train import (make_batch, perturbed_state, step_draws,
                                     train_opt)
+from tests.torch_tmp import kept_if_failed, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -74,10 +75,14 @@ def jax_step_fn(opt, tx, camera):
 
 
 @pytest.fixture(scope="module")
-def jax_run(base_opt, tmp_path_factory):
+def jax_run(base_opt, tmp_path_factory, request):
     """Camera step, full step, save (RUN_DIR/latest.ckpt + options.yaml),
     then the reference's next full step."""
-    run_dir = tmp_path_factory.mktemp("run")
+    with kept_if_failed(request, tmp_path_factory.mktemp("run")) as run_dir:
+        yield jax_steps(base_opt, run_dir)
+
+
+def jax_steps(base_opt, run_dir):
     opt = train_opt(base_opt, run_dir, "vjp")
     params, stats = perturbed_state(opt)
     batch = make_batch(opt)

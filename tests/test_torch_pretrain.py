@@ -57,6 +57,7 @@ from shapeclipper_torch.models.graph import Graph
 from shapeclipper_torch.train.pretrainer import Runner, pretrain_trainable
 from shapeclipper_torch.utils import checkpoint as ckpt
 from shapeclipper_torch.utils.easydict import EasyDict as edict
+from tests.torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

@@ -18,6 +18,7 @@ from shapeclipper_tpu.models.resnet import resnet34 as jax_resnet34
 from shapeclipper_torch import bridge
 from shapeclipper_torch.models.resnet import resnet18, resnet34
 from shapeclipper_torch.train.trainer import Runner
+from tests.torch_tmp import kept_if_failed, tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -44,11 +45,11 @@ def _write_npz(path, net, seed):
 
 
 @pytest.fixture(scope="module")
-def npz_files(tmp_path_factory):
-    root = tmp_path_factory.mktemp("weights")
-    enc = _write_npz(root / "resnet34.npz", resnet34(num_classes=1000), 1)
-    est = _write_npz(root / "resnet18.npz", resnet18(num_classes=1000), 2)
-    return str(root / "resnet34.npz"), str(root / "resnet18.npz"), enc, est
+def npz_files(tmp_path_factory, request):
+    with kept_if_failed(request, tmp_path_factory.mktemp("weights")) as root:
+        enc = _write_npz(root / "resnet34.npz", resnet34(num_classes=1000), 1)
+        est = _write_npz(root / "resnet18.npz", resnet18(num_classes=1000), 2)
+        yield str(root / "resnet34.npz"), str(root / "resnet18.npz"), enc, est
 
 
 def _opt(base_opt, tmp_path, enc_path, est_path, enc_pretrained):

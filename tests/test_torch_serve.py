@@ -36,6 +36,7 @@ from shapeclipper_torch.eval3d import isosurface as tiso
 from shapeclipper_torch.train.trainer import Runner
 from shapeclipper_torch.utils.easydict import EasyDict as tedict
 from tests.torch_native_lib import one_native_library  # noqa: F401
+from tests.torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

@@ -55,6 +55,7 @@ from shapeclipper_torch.models.graph import summarize_loss
 from shapeclipper_torch.train.trainer import (CAMERA_PHASE_INACTIVE, Runner,
                                               batch_to_var)
 from shapeclipper_torch.utils.easydict import EasyDict as edict
+from tests.torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 B, R, S, K = 4, 16, 8, 2

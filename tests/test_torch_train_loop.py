@@ -28,6 +28,7 @@ from shapeclipper_torch.models.graph import Graph
 from shapeclipper_torch.train.trainer import Runner, batch_to_var
 from shapeclipper_torch.utils import checkpoint as ckpt
 from shapeclipper_torch.utils.log import log
+from tests.torch_tmp import tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
