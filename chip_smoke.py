@@ -7,8 +7,8 @@ CLIP annotation paths on one NVIDIA GPU and check them.
 Phases (each one succeeds or raises; any failure exits non-zero, and there is
 no CPU fallback):
   1. set-up: versions, the card, the TF32 switches (both off: fp32), and the
-     build of the four libraries from `shapeclipper_torch/csrc/` into
-     `build/` (four nvcc runs at once);
+     build of the five libraries from `shapeclipper_torch/csrc/` into
+     `build/` (five nvcc runs at once);
   2. K1 / K3 (forward) against their plain PyTorch version at the serving
      shapes: N = 262,144 render points with gradients, N = 274,625 and
      1,030,301 grid points without; K1 again at the training shape, there
@@ -148,7 +148,19 @@ no CPU fallback):
  15. `loss_weight.category_reg=1`: a batch-4 flagship step on the card
      against the CPU (the loss term 1e-4, the centres' gradient 1e-3, the
      post-step centres 0.05 lr);
- 16. the kernel summary line, the card line and the result line.
+ 16. the generic pair K8 / K8-nograd / K9 (`csrc/fused_sdf_generic.cu`),
+     which runs every SDF MLP but the flagship's: each against its plain
+     version in float32 (K9 against the float64 one) and bf16
+     (`check_bf16`'s rule) at the JAX package's second architecture (posenc
+     4, skip 2, 4 x 32) at 12 x 1,024 and at VolSDF's 8 x 256 (skip 4) at
+     12 x 1,024, 12 x 32,768, 24 x 32,768 and the vox-64 grid, K9 bitwise
+     over two launches, each timed beside its plain version and its bound;
+     then that wide MLP (`GENERIC_WIDE_ARGS` on options/pix3d/config.yaml)
+     through the YAML's own step (bf16, merged) for a camera and three
+     full steps, a float32 camera and full step, two requests and a
+     2-sample evaluation at the full eval width, with launch counts that
+     show K8 / K9 in place of K1 / K2 / K3;
+ 17. the kernel summary line, the card line and the result line.
 A warning from the guards that keep metric and visualization failures from
 stopping a training run fails the run.
 
@@ -293,6 +305,26 @@ N_BF16_REQUESTS = 3
 # kernels whose device time counts as cuDNN's in a profiled step
 CONV_KERNELS = ("cudnn", "implicit_gemm", "dgrad", "wgrad", "conv",
                 "nchwToNhwc", "nhwcToNchw")
+# phase 16, the generic pair K8 / K8-nograd / K9 for SDF MLPs other than the
+# flagship's: (posenc, skips, hidden layers, width, latent, force_symmetry)
+# of the JAX package's second architecture (tests/test_fused_sdf.py::
+# test_fwdmode_xla_nondefault_arch) and of VolSDF's SDF MLP (8 x 256, a
+# skip at layer 4, posenc 6), which the paths take as CLI overrides of
+# options/pix3d/config.yaml
+SOURCE_GENERIC = "shapeclipper_torch/csrc/fused_sdf_generic.cu"
+GENERIC_NARROW = (4, (2,), 4, 32, 16, False)
+GENERIC_WIDE = (6, (4,), 8, 256, 64, True)
+GENERIC_WIDE_ARGS = ("--arch.impl_sdf.n_hidden_layers=8",
+                     "--arch.impl_sdf.n_channels=256",
+                     "--arch.impl_sdf.skip_connection=[4]")
+GENERIC_NONE = dict(k8=0, k8_bf16=0, k8_nograd=0, k8_nograd_bf16=0, k9=0,
+                    k9_bf16=0)
+N_GENERIC_STEPS = 3              # full steps of the wide YAML step
+# blocks of the plain version on the card: batch rows, and points of a row
+# for the float64 K9 reference (a whole 24 x 32,768 float64 graph at width
+# 256 would need ~1 TB)
+GENERIC_PLAIN_ROWS = 1
+GENERIC_F64_POINTS = 8192
 
 
 def log(msg):
@@ -2264,7 +2296,7 @@ def phase_eval():
     vox = opt.eval.vox_res
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
     want = dict(k1=n, k3=k3_per * n, k2=0, k1_bf16=0, k3_bf16=0, k2_bf16=0,
-                pack_bf16=0, k4=2 * n, k5=0, k6=0, k7=0)
+                pack_bf16=0, k4=2 * n, k5=0, k6=0, k7=0, **GENERIC_NONE)
     if launches != want:
         raise AssertionError(f"evaluation launches {launches}, expected "
                              f"{want}")
@@ -2637,8 +2669,8 @@ def phase_isosurface():
                                     "nn_kernel"))
     vox = opts[True].eval.vox_res
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
-    zero = dict.fromkeys(("k1", "k2", "k1_bf16", "k3_bf16", "k2_bf16",
-                          "pack_bf16", "k5"), 0)
+    zero = dict(dict.fromkeys(("k1", "k2", "k1_bf16", "k3_bf16", "k2_bf16",
+                               "pack_bf16", "k5"), 0), **GENERIC_NONE)
     want = {True: dict(zero, k3=k3_per * n, k4=2 * n, k6=n, k7=n),
             False: dict(zero, k3=k3_per * n, k4=2 * n, k6=0, k7=0)}
     for dev in (False, True):
@@ -2806,18 +2838,23 @@ def reset_launches():
         F.KERNEL.launches[key] = 0
     for key in F.BACKWARD.launches:
         F.BACKWARD.launches[key] = 0
+    for key in F.GENERIC.launches:
+        F.GENERIC.launches[key] = 0
     C.KERNEL.launches = {"dist": 0, "argmin": 0}
     I.KERNEL.launches = {"area": 0, "draw": 0}
 
 
 def read_launches():
     """Every kernel's launches since `reset_launches` (`_bf16`: the bf16
-    instantiations)."""
+    instantiations; k8 / k8_nograd / k9: the generic pair)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
     from shapeclipper_torch.ops import isosurface as I
-    k, b = F.KERNEL.launches, F.BACKWARD.launches
-    return dict(k1=k["grad"], k3=k["nograd"], k2=b["float32"],
+    k, b, g = F.KERNEL.launches, F.BACKWARD.launches, F.GENERIC.launches
+    return dict(k8=g["grad"], k8_bf16=g["grad_bf16"], k8_nograd=g["nograd"],
+                k8_nograd_bf16=g["nograd_bf16"], k9=g["bwd"],
+                k9_bf16=g["bwd_bf16"],
+                k1=k["grad"], k3=k["nograd"], k2=b["float32"],
                 k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
                 pack_bf16=k["pack_bf16"],
                 k2_bf16=b["bfloat16"], k4=C.KERNEL.launches["dist"],
@@ -3729,7 +3766,7 @@ def phase_eval_ranks():
         raise AssertionError(f"dump files: {one['dumps']} vs {ddp['dumps']}")
     k3_per = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
     want = dict(k1=0, k3=k3_per * n, k2=0, k1_bf16=n, k3_bf16=0, k2_bf16=0,
-                pack_bf16=n, k4=2 * n, k5=0, k6=0, k7=0)
+                pack_bf16=n, k4=2 * n, k5=0, k6=0, k7=0, **GENERIC_NONE)
     for tag in res:
         if res[tag]["launches"] != want or res[tag]["n"] != n:
             raise AssertionError(f"evaluate ({tag}): {res[tag]['n']} "
@@ -3866,6 +3903,453 @@ def phase_category_reg():
                              f"mean {mean} lr")
 
 
+# --------------------------------------------------------------- phase 16
+def generic_flop(arch, kind):
+    """FLOPs a point needs in K8 ('grad'), K8-nograd ('nograd') or K9
+    ('bwd'): twice the function's multiply-adds, the tangent rows' zeros not
+    counted (as MAC_TANGENT): without tangents every weight once; with them
+    a posenc product 2 D rows' worth (a tangent row is non-zero at D / 3
+    features), a hidden product 4 rows, the output layer's tangent rows its
+    sdf column alone; K9 three times the forward with tangents (as K2)."""
+    if kind == "nograd":
+        return 2 * arch.num_weights
+    mac = 0
+    for l, (ka, kb) in enumerate(arch.layer_shapes()):
+        last = l == arch.n_hidden
+        if l > 0:
+            mac += ka[0] * ka[1] + 3 * ka[0] if last else 4 * ka[0] * ka[1]
+        pe = ka if l == 0 else kb
+        if pe is not None:
+            mac += pe[0] * pe[1] + pe[0] if last else 2 * pe[0] * pe[1]
+    return 2 * mac * (3 if kind == "bwd" else 1)
+
+
+def generic_bound(arch, B, N, kind, bf16=False):
+    """(FLOPs, (bound ms, 'operations' or 'bytes')) of K8 / K8-nograd / K9
+    at B x N: the FLOPs of `generic_flop`; the bytes of points, outputs,
+    cotangents and point gradient once a point, the float32 weights and
+    biases once (K9 also writes their gradients); with `bf16` the products
+    at the bf16 peak and the elementwise FLOPs (ELEM_K*'s count for this
+    architecture) at the fp32 one."""
+    L, W, F_ = arch.n_hidden, arch.width, arch.n_freqs
+    flop = generic_flop(arch, kind) * B * N
+    per_point = dict(nograd=4 + W, grad=7 + W, bwd=10 + W)[kind]
+    params = (arch.num_weights + B * arch.bias_width) * (
+        2 if kind == "bwd" else 1)
+    nbytes = 4 * (B * N * per_point + params)
+    if not bf16:
+        return flop, bound(flop, nbytes)
+    elem = L * W * 11 + 9 * F_ + W + 1
+    if kind != "nograd":
+        elem += L * W * 3 + 12 * F_
+    if kind == "bwd":
+        elem += L * W * 14 + arch.bias_width
+    return flop, bound(elem * B * N, nbytes, mm_flop=flop)
+
+
+def generic_case(spec, B, N, seed, points=None):
+    """An SDF network of `spec` (nn.Linear's default init, so that every
+    layer's posenc and latent rows are dense), a latent, points in [-1, 1]^3
+    (or `points`) and cotangents, all on the card, with the packed operands
+    of the generic pair."""
+    import torch
+    from types import SimpleNamespace
+    from shapeclipper_torch.models.implicit import SDFNetwork
+    from shapeclipper_torch.ops import fused_sdf as F
+    n_freqs, skips, hidden, width, latent, sym = spec
+    g = torch.Generator().manual_seed(seed)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False, generator=g)
+    lat = torch.randn(B, latent, generator=g) * 0.3
+    with torch.no_grad():
+        w, b = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+    dev = torch.device("cuda")
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    if points is None:
+        points = torch.rand(B, N, 3, device=dev, generator=gd) * 2 - 1
+    cots = [torch.randn(B, N, *c, device=dev, generator=gd)
+            for c in ((), (width,), (3,))]
+    return SimpleNamespace(arch=F.sdf_arch(net), sym=sym, B=B, N=N,
+                           pts=points.to(dev).contiguous(), w=w.to(dev),
+                           b=b.to(dev), cots=cots)
+
+
+def generic_forward_plain(c, grad, mm, rows=None):
+    """The plain version of K8 / K8-nograd on case `c` (float32), over
+    blocks of `rows` batch rows."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    rows = rows or c.B
+    with torch.inference_mode():
+        parts = [F.generic_forward_reference(
+            c.pts[i:i + rows], c.w, c.b[i:i + rows], c.arch, grad, c.sym, mm)
+            for i in range(0, c.B, rows)]
+    return tuple(None if p[0] is None else torch.cat(p) for p in zip(*parts))
+
+
+def generic_backward_plain(c, mm, dtype, rows, points):
+    """The plain version of K9 on case `c` in `dtype`, over blocks of `rows`
+    batch rows x `points` points: the weights' gradient summed over the
+    blocks, the biases' over each row's blocks."""
+    import torch
+    from shapeclipper_torch.ops import fused_sdf as F
+    dev = c.w.device
+    w = c.w.to(dtype)
+    dw = torch.zeros(c.w.shape, dtype=dtype, device=dev)
+    db = torch.zeros(c.b.shape, dtype=dtype, device=dev)
+    dp = torch.empty(c.pts.shape, dtype=dtype, device=dev)
+    for i in range(0, c.B, rows):
+        r = slice(i, i + rows)
+        for n in range(0, c.N, points):
+            q = slice(n, n + points)
+            gw, gb, gp = F.generic_backward_reference(
+                c.pts[r, q].to(dtype), w, c.b[r].to(dtype), c.arch,
+                *(t[r, q].to(dtype) for t in c.cots), c.sym, mm)
+            dw += gw
+            db[r] += gb
+            dp[r, q] = gp
+    return dw, db, dp
+
+
+def generic_check_bwd(got, want, where):
+    """K9's (d weights, d biases, d points) against the float64 plain
+    version at BWD_ATOL x max|ref| / BWD_RTOL -> {part: max abs err}."""
+    import torch
+    errs, bad = {}, []
+    for part, g, w in zip(("weights", "biases", "points"), got, want):
+        scale = max(float(w.abs().max()), 1e-3)
+        errs[part], ok = within(g.double(), w, BWD_ATOL * scale, BWD_RTOL)
+        if not ok or not torch.isfinite(g).all():
+            bad.append(part)
+    if bad:
+        raise AssertionError(f"K9 disagrees with the float64 plain version "
+                             f"{where} in {bad}: {errs}")
+    return errs
+
+
+def with_wide_sdf(opt):
+    """`opt` with GENERIC_WIDE_ARGS applied as the CLIs apply them."""
+    from shapeclipper_torch.config import options
+    return options.override_options(
+        opt, options.parse_arguments(GENERIC_WIDE_ARGS), key_stack=[],
+        safe_check=True)
+
+
+def phase_generic_kernels(opt):
+    """K8, K8-nograd and K9 (`csrc/fused_sdf_generic.cu`) against their
+    plain versions, float32 (SDF_TOL / GRAD_TOL; K9 against the float64
+    plain version at BWD_ATOL / BWD_RTOL, as K2 at the render shapes) and
+    bf16 (`check_bf16`'s rule against the bf16 plain version, K9's in
+    float64, beside the float32 kernel): at the narrow architecture at 12 x
+    1,024; at the wide one at the eikonal's 12 x 1,024, at 12 x 32,768 (K9
+    also bitwise over two launches), the merged render's 24 x 32,768 and
+    the vox-64 grid's 274,625 (K8-nograd); each timed over SDF_TIMED_CALLS
+    launches between two events (once at the wide render shapes, whose
+    launches take 0.1-1 s) beside its plain version (over blocks of
+    GENERIC_PLAIN_ROWS batch rows where it would not fit whole) and its
+    bound -> {key: results at the main path's shape}, with `narrow_*` and
+    `eikonal_*` readings."""
+    import torch
+    from shapeclipper_torch.eval3d.metrics import dense_grid_points
+    from shapeclipper_torch.ops import fused_sdf as F
+
+    G = F.GENERIC
+    for label, name in (("K8", "fwd_kernelILb1ELb0E"),
+                        ("K8-bf16", "fwd_kernelILb1ELb1E"),
+                        ("K8-nograd", "fwd_kernelILb0ELb0E"),
+                        ("K8-nograd-bf16", "fwd_kernelILb0ELb1E"),
+                        ("K9", "bwd_kernelILb0E"), ("K9-bf16", "bwd_kernelILb1E")):
+        regs, st, ld, stack = ptxas_usage(G.ptxas_log, "sdf_generic_" + name,
+                                          stack=True)
+        log(f"[generic] {label} ptxas: {regs} registers, {st} / {ld} bytes "
+            f"spill stores / loads, {stack} bytes stack")
+        if st or ld:
+            raise AssertionError(f"{label} spills registers: {st} / {ld}")
+    parts = ("sdf", "feat", "grad")
+    res = {}
+
+    def fwd(c, grad, mm):
+        return G.forward(c.pts, c.w, c.b, c.arch, grad, c.sym, mm)
+
+    def bwd(c, mm):
+        return G.backward(c.pts, c.w, c.b, c.arch, *c.cots, c.sym, mm)
+
+    def timed(fn, wide):
+        return cuda_ms(fn, runs=1 if wide else 10, warmup=0 if wide else 3,
+                       calls=SDF_TIMED_CALLS)
+
+    def forward_case(tag, c, grad, wide=False, rows=None, time_it=True):
+        kind = "grad" if grad else "nograd"
+        with torch.inference_mode():
+            k32 = fwd(c, grad, "float32")
+            k16 = fwd(c, grad, "bfloat16")
+            torch.cuda.synchronize()
+            errs = check_forward(k32, generic_forward_plain(
+                c, grad, "float32", rows), f"(K8 {kind}, {tag})")
+            errs_b = check_bf16(
+                {p: t for p, t in zip(parts, k16) if t is not None},
+                dict(zip(parts, generic_forward_plain(c, grad, "bfloat16",
+                                                      rows))),
+                dict(zip(parts, k32)), f"(K8-bf16 {kind}, {tag})",
+                BF16_MAX_TOL, BF16_MEAN_TOL)
+            del k32, k16
+            out = {}
+            for mm in (("float32", "bfloat16") if time_it else ()):
+                ms = timed(lambda: fwd(c, grad, mm), wide)
+                plain_ms = cuda_ms(lambda: generic_forward_plain(
+                    c, grad, mm, rows), runs=1 if wide else 5, warmup=1)
+                _, (bound_ms, bound_by) = generic_bound(
+                    c.arch, c.B, c.N, kind, mm == "bfloat16")
+                out[mm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+        err32 = max(errs.values())
+        err16 = max(e[0] for e in errs_b.values())
+        log(f"[generic] K8 {kind} {tag} B={c.B} N={c.N}: max abs err "
+            + ", ".join(f"{p}={e:.3e}" for p, e in errs.items())
+            + f" (tol sdf/feat {SDF_TOL}, grad {GRAD_TOL}); bf16 max / mean "
+            "/ mean distance from float32 " + ", ".join(
+                f"{p} {e[0]:.3e} / {e[1]:.3e} / {e[2]:.3e}"
+                for p, e in errs_b.items()))
+        for mm, r in out.items():
+            log(f"[generic]   {mm}: {r['ms']:.4f} ms ({SDF_TIMED_CALLS} "
+                f"launches between two events), plain {r['plain_ms']:.4f} ms"
+                f" ({r['plain_ms'] / r['ms']:.2f}x), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it reached)")
+        return err32, err16, out
+
+    def backward_case(tag, c, wide=False, bf16=True, repeat=False,
+                      time_it=True):
+        got = bwd(c, "float32")
+        torch.cuda.synchronize()
+        ref = generic_backward_plain(c, "float32", torch.float64,
+                                     GENERIC_PLAIN_ROWS, GENERIC_F64_POINTS)
+        errs = generic_check_bwd(got, ref, f"({tag} B={c.B} N={c.N})")
+        del ref
+        err16, line16 = None, ""
+        if bf16:
+            got16 = bwd(c, "bfloat16")
+            ref16 = generic_backward_plain(c, "bfloat16", torch.float64,
+                                           GENERIC_PLAIN_ROWS,
+                                           GENERIC_F64_POINTS)
+            names = ("weights", "biases", "points")
+            scale = {p: max(float(r.abs().max()), 1e-3)
+                     for p, r in zip(names, ref16)}
+            errs_b = check_bf16(
+                dict(zip(names, got16)), dict(zip(names, ref16)),
+                dict(zip(names, got)), f"(K9-bf16 {tag} B={c.B} N={c.N})",
+                {p: BF16_K2_MAX * v for p, v in scale.items()},
+                {p: BF16_K2_MEAN * v for p, v in scale.items()})
+            err16 = max(e[0] for e in errs_b.values())
+            line16 = "; K9-bf16 against the float64 bf16 plain version " \
+                "over max|ref|: max / mean " + ", ".join(
+                    f"{p} {e[0] / scale[p]:.3e} / {e[1] / scale[p]:.3e}"
+                    for p, e in errs_b.items()) + \
+                f" (tol {BF16_K2_MAX} / {BF16_K2_MEAN})"
+            del got16, ref16
+        if repeat:
+            again = bwd(c, "float32")
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"two K9 launches differ at {tag}")
+            line16 += "; two launches bitwise equal"
+        del got
+        torch.cuda.empty_cache()
+        log(f"[generic] K9 {tag} B={c.B} N={c.N} against the float64 plain "
+            "version: max abs err " + ", ".join(
+                f"{p}={e:.3e}" for p, e in errs.items())
+            + f" (tol atol {BWD_ATOL} x max|ref|, rtol {BWD_RTOL})" + line16)
+        out = {}
+        for mm in (("float32", "bfloat16") if time_it else ()):
+            ms = timed(lambda: bwd(c, mm), wide)
+            plain_ms = cuda_ms(lambda: generic_backward_plain(
+                c, mm, torch.float32, GENERIC_PLAIN_ROWS if wide else c.B,
+                c.N), runs=1 if wide else 5, warmup=1)
+            torch.cuda.empty_cache()
+            _, (bound_ms, bound_by) = generic_bound(c.arch, c.B, c.N, "bwd",
+                                                    mm == "bfloat16")
+            out[mm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            log(f"[generic]   {mm}: {ms:.4f} ms ({SDF_TIMED_CALLS} launches "
+                f"between two events), plain {plain_ms:.4f} ms "
+                f"({plain_ms / ms:.2f}x), bound {bound_ms:.4f} ms "
+                f"({bound_by}, {100 * bound_ms / ms:.1f}% of it reached)")
+        return max(errs.values()), err16, out
+
+    def entry(key, err, timing, **extra):
+        res.setdefault(key, dict(err=0.0))
+        res[key]["err"] = max(res[key]["err"], err)
+        res[key].update(timing, **extra)
+
+    narrow = generic_case(GENERIC_NARROW, 12, 1024, SEED + 16)
+    for grad, key in ((True, "k8"), (False, "k8_nograd")):
+        e32, e16, t = forward_case("narrow", narrow, grad)
+        entry(key, e32, {f"narrow_{k}": v for k, v in t["float32"].items()})
+        if grad:
+            entry("k8_bf16", e16, {f"narrow_{k}": v
+                                   for k, v in t["bfloat16"].items()})
+        else:
+            res["k8_nograd"]["err"] = max(res["k8_nograd"]["err"], e16)
+    e32, e16, t = backward_case("narrow", narrow, repeat=True)
+    entry("k9", e32, {f"narrow_{k}": v for k, v in t["float32"].items()})
+    entry("k9_bf16", e16, {f"narrow_{k}": v
+                           for k, v in t["bfloat16"].items()})
+    del narrow
+
+    eik = generic_case(GENERIC_WIDE, 12, 1024, SEED + 17)
+    e32, e16, t = forward_case("wide, eikonal", eik, True)
+    entry("k8", e32, {f"eikonal_{k}": v for k, v in t["float32"].items()})
+    entry("k8_bf16", e16, {f"eikonal_{k}": v
+                           for k, v in t["bfloat16"].items()})
+    e32, e16, t = backward_case("wide, eikonal", eik)
+    entry("k9", e32, {f"eikonal_{k}": v for k, v in t["float32"].items()})
+    entry("k9_bf16", e16, {f"eikonal_{k}": v
+                           for k, v in t["bfloat16"].items()})
+    del eik
+
+    c12 = generic_case(GENERIC_WIDE, 12, 32768, SEED + 18)
+    e32, e16, _ = forward_case("wide, render", c12, True, wide=True,
+                               time_it=False)
+    entry("k8", e32, {})
+    entry("k8_bf16", e16, {})
+    e32, _, _ = backward_case("wide, render", c12, wide=True, bf16=False,
+                              repeat=True, time_it=False)
+    entry("k9", e32, {})
+    del c12
+    torch.cuda.empty_cache()
+
+    c24 = generic_case(GENERIC_WIDE, MERGED_VIEWS, 32768, SEED + 19)
+    e32, e16, t = forward_case("wide, merged render", c24, True, wide=True,
+                               rows=4)
+    entry("k8", e32, t["float32"], shape=f"{c24.B}x{c24.N}")
+    entry("k8_bf16", e16, dict(t["bfloat16"], f32_ms=t["float32"]["ms"]),
+          shape=f"{c24.B}x{c24.N}")
+    e32, e16, t = backward_case("wide, merged render", c24, wide=True)
+    entry("k9", e32, t["float32"], shape=f"{c24.B}x{c24.N}")
+    entry("k9_bf16", e16, dict(t["bfloat16"], f32_ms=t["float32"]["ms"]),
+          shape=f"{c24.B}x{c24.N}")
+    del c24
+    torch.cuda.empty_cache()
+
+    grid = dense_grid_points(opt, 64, torch.device("cuda"))[None]
+    cg = generic_case(GENERIC_WIDE, 1, grid.shape[1], SEED + 20, points=grid)
+    e32, e16, t = forward_case("wide, vox-64 grid", cg, False)
+    entry("k8_nograd", max(e32, e16),
+          dict(t["float32"], bf16_ms=t["bfloat16"]["ms"]),
+          shape=f"1x{cg.N}")
+    del cg
+    torch.cuda.empty_cache()
+    log(f"[generic] card {card_line()}")
+    return res
+
+
+def phase_generic_paths():
+    """The wide SDF MLP (GENERIC_WIDE_ARGS on options/pix3d/config.yaml)
+    through the port's entry points, launch counts reset just before and
+    read just after each: the YAML's own step (bf16, merged; batch 12,
+    224^2, 512 rays x 64 samples) for a camera and N_GENERIC_STEPS full
+    steps (K8-bf16 2 / K9-bf16 1, then 2 / 2), a float32 camera and full
+    step (K8 2 / K9 1, then 2 / 2), two requests at the YAML's dtypes (K8-bf16
+    1 + N_VIEWS, K8-nograd 3 a request) and `Runner.evaluate` over 2
+    synthetic test samples at the full eval width pinned to float32 as
+    phase 8 (K8 1, K8-nograd 3, K4 2 a sample); K1 / K2 / K3, their bf16
+    forms and the pack never -> the launches of each path."""
+    import torch
+    from shapeclipper_torch.eval3d import metrics as M
+    from shapeclipper_torch.ops import fused_sdf as F
+    from shapeclipper_torch.train.trainer import Runner, batch_to_var
+
+    launches = {}
+
+    def counted(tag, fn, want):
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        now = read_launches()
+        got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}")
+        return out, ms
+
+    for dtype, steps, k8, k9 in (("bfloat16", N_GENERIC_STEPS, "k8_bf16",
+                                  "k9_bf16"), ("float32", 1, "k8", "k9")):
+        opt = with_wide_sdf(flagship_opt(dtype=dtype, merged=True))
+        runner = train_runner(opt, "cuda")
+        if F.sdf_route(runner.graph.sdf_network) != "generic":
+            raise AssertionError("the wide SDF MLP took the flagship route")
+        var = batch_to_var(one_batch(opt), runner.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        for step in range(1 + steps):
+            loss, ms = counted(
+                f"wide {dtype} step {step}",
+                lambda: runner.train_iteration(opt, var),
+                {k8: 2, k9: 1 if step == 0 else 2})
+            check_loss(f"wide {dtype} step {step}", loss)
+            times.append(ms)
+            log(f"[generic-train] {dtype} step {step} ({'camera' if step == 0 else 'full'}): "
+                f"{ms:.1f} ms, loss " + ", ".join(
+                    f"{k} {float(v):.4f}" for k, v in loss.items()
+                    if k != "finite"))
+        launches[f"train_{dtype}"] = read_launches()
+        log(f"[generic-train] {F.route_note(F.arch_from_opt(opt))}, "
+            f"{dtype}: steady full step {statistics.median(times[2:] or times[1:]):.1f} ms"
+            f" (median of full steps {2 if steps > 1 else 1}-{steps}), peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+            f" GiB; launches {launches[f'train_{dtype}']}; card {card_line()}")
+        del runner, var
+        torch.cuda.empty_cache()
+
+    opt = with_wide_sdf(load_opt(dtype="bfloat16"))
+    runner = Runner(opt, "cuda")
+    runner.build_networks(opt)
+    runner.restore_checkpoint(opt)
+    vox = opt.eval.vox_res
+    per_request = dict(k8_bf16=1 + N_VIEWS,
+                       k8_nograd=-(-(vox + 1) ** 3 // M.GRID_CHUNK))
+    reset_launches()
+    latencies = []
+    for i in range(2):
+        (var, level, mesh), ms = counted(
+            f"wide request {i}", lambda: serve(
+                runner, opt, request_image(i, opt.H, opt.W)), per_request)
+        latencies.append(ms)
+        for key in ("rgb_recon_map", "normal_recon_map", "proj_latent_sdf"):
+            check_finite(f"wide request {i} {key}", var[key])
+        check_finite(f"wide request {i} level", level)
+    launches["serve"] = read_launches()
+    log(f"[generic-serve] 2 requests, wide SDF MLP, the YAML's dtypes: "
+        + ", ".join(f"{t:.1f}" for t in latencies) + f" ms; launches per "
+        f"request {per_request}; mesh of the last {mesh.vertices.shape[0]} "
+        "vertices")
+    del runner
+
+    n = 2
+    opt = with_wide_sdf(eval_opt("generic_eval", n_samples=n))
+    runner = eval_runner(opt, "cuda")
+    reset_launches()
+    (cd, rows, fs), ms = counted(
+        "wide evaluation", lambda: evaluate_collect(runner, opt),
+        dict(k8=n, k8_nograd=-(-(opt.eval.vox_res + 1) ** 3 // M.GRID_CHUNK)
+             * n, k4=2 * n))
+    if rows.shape != (n, 2) or not np.isfinite(rows).all() or \
+            not np.isfinite(cd):
+        raise AssertionError(f"wide evaluation: CD {cd}, chamfer rows "
+                             f"{rows.shape}")
+    launches["eval"] = read_launches()
+    log(f"[generic-eval] {n} samples at the full eval width, wide SDF MLP "
+        f"(float32): {ms:.1f} ms, CD {cd:.5f}, F-scores "
+        f"{np.round(fs.mean(0), 4).tolist()}; launches {launches['eval']}")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3895,8 +4379,8 @@ def main():
     # read this run's ptxas log
     cuda_lib.build_kernels(force=True)
     log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} with "
-        f"{SOURCE_BWD_BF16}, {SOURCE_NN} and {SOURCE_ISO} (four nvcc runs "
-        f"at once) in {time.perf_counter() - t0:.2f} s")
+        f"{SOURCE_BWD_BF16}, {SOURCE_GENERIC}, {SOURCE_NN} and {SOURCE_ISO} "
+        f"(five nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
     for lib in cuda_lib.libraries():
         log(lib.ptxas_log.strip())
     warnings = []
@@ -3947,6 +4431,8 @@ def main():
     run(phase_k1_k2_half)
     run(phase_ddp_cli)                                  # phase 14
     run(phase_category_reg)                             # phase 15
+    gen = run(phase_generic_kernels, opt)               # phase 16
+    gen_launches = run(phase_generic_paths)
     log(f"[done] seconds by phase function: {json.dumps(seconds)}")
     guarded = [w for w in warnings if w.startswith(GUARD_WARNINGS)]
     if guarded:
@@ -4032,6 +4518,27 @@ def main():
              replaces=REPLACES_K7, launches=iso_launches["k7"],
              max_abs_err=err7, **iso[ISO_VOX[0]]["k7"], library_ms=None,
              **{f"{k}_vox100": v for k, v in iso[ISO_VOX[1]]["k7"].items()}),
+    ]
+    def generic_entry(key, name, path, **more):
+        r = gen[key]
+        return dict(name=name, route="cuda", source=SOURCE_GENERIC,
+                    replaces=REPLACES_BWD if key.startswith("k9")
+                    else REPLACES, launches=gen_launches[path][key],
+                    max_abs_err=r.pop("err"), **r, library_ms=None, **more)
+
+    summary += [
+        generic_entry("k8", "fused_sdf_generic_fwd (K8, compute_grad=True, "
+                      "SDF MLPs off the flagship)", "eval",
+                      train_launches=gen_launches["train_float32"]["k8"]),
+        generic_entry("k8_bf16", "fused_sdf_generic_fwd (K8-bf16, "
+                      "compute_grad=True, bf16 products)", "train_bfloat16",
+                      serve_launches=gen_launches["serve"]["k8_bf16"]),
+        generic_entry("k8_nograd", "fused_sdf_generic_fwd (K8-nograd, "
+                      "compute_grad=False)", "eval",
+                      serve_launches=gen_launches["serve"]["k8_nograd"]),
+        generic_entry("k9", "fused_sdf_generic_bwd (K9)", "train_float32"),
+        generic_entry("k9_bf16", "fused_sdf_generic_bwd (K9-bf16, bf16 "
+                      "products)", "train_bfloat16"),
     ]
     for k in summary:
         if k["launches"] < 1:

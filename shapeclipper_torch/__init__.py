@@ -19,7 +19,9 @@ YAML files and flags plus `--device=cuda|cpu` (cuda by default):
 
 Every SDF evaluation of the render and the grid on CUDA goes through the
 hand-written Hopper kernels `csrc/fused_sdf_fwd.cu` (K1 / K3) and
-`csrc/fused_sdf_bwd.cu` (K2) (`ops/fused_sdf.py`), every nearest-neighbour
+`csrc/fused_sdf_bwd.cu` (K2) for the flagship's SDF MLP, and
+`csrc/fused_sdf_generic.cu` (K8 / K9) for any other (`ops/fused_sdf.py::
+sdf_route`), every nearest-neighbour
 sweep of the metrics through `csrc/chamfer.cu` (K4 / K5, `ops/chamfer.py`).
 `bridge.py` carries the JAX package's weights and optax Adam states
 across. `parallel/` makes the training data parallel over DDP ranks

@@ -95,8 +95,8 @@ class CudaLibrary:
 def libraries():
     """Every CUDA library of the port, in build order."""
     from . import chamfer, fused_sdf, isosurface
-    return (fused_sdf.KERNEL, fused_sdf.BACKWARD, chamfer.KERNEL,
-            isosurface.KERNEL)
+    return (fused_sdf.KERNEL, fused_sdf.BACKWARD, fused_sdf.GENERIC,
+            chamfer.KERNEL, isosurface.KERNEL)
 
 
 def build_kernels(force=False):

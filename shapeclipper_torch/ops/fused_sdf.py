@@ -1,7 +1,12 @@
 """Fused SDF-MLP forward (+ forward-mode point gradient) and its backward:
 the plain PyTorch version and the wrappers of the Hopper kernels
 `csrc/fused_sdf_fwd.cu` (K1 / K3) and `csrc/fused_sdf_bwd.cu` (K2), whose
-library also links `csrc/fused_sdf_bwd_bf16.cu` (K2-bf16).
+library also links `csrc/fused_sdf_bwd_bf16.cu` (K2-bf16), written for the
+flagship architecture (`FLAGSHIP`), and of the architecture-generic pair
+`csrc/fused_sdf_generic.cu` (K8 forward, K8-nograd, K9 backward) for every
+other SDF MLP inside `ENVELOPE`. `sdf_route` picks the pair from the
+network's architecture: a dispatch, never a fallback (a flagship whose
+kernels fail raises).
 
 Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
   * `prepare_fused_params`: the latent folded into per-sample biases and the
@@ -11,11 +16,11 @@ Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
     [primal; t_x; t_y; t_z] through the same products), with the kernel's
     activation formulation (`_act_pair`).
   * `fused_sdf_forward` (no gradients; serving): CPU tensors take the plain
-    version; CUDA tensors launch the kernel (K1 with `compute_grad`, K3
-    without) or raise.
+    version; CUDA tensors launch the kernel (K1 / K8 with `compute_grad`,
+    K3 / K8-nograd without) or raise.
   * `fused_sdf_train` (training): CPU tensors take plain autograd through
-    the plain version; CUDA tensors run K1 forward and K2 backward in one
-    `torch.autograd.Function`, or raise.
+    the plain version; CUDA tensors run K1 forward and K2 backward (K8 and
+    K9 off the flagship) in one `torch.autograd.Function`, or raise.
 There is no fallback from CUDA to the plain version.
 
 `mm_dtype` is the JAX package's `_mm_cast` switch: "float32", or
@@ -40,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,12 +58,18 @@ INV_SQRT2 = 0.7071067811865476
 _SOURCE = os.path.join(CSRC_DIR, "fused_sdf_fwd.cu")
 _SOURCE_BWD = os.path.join(CSRC_DIR, "fused_sdf_bwd.cu")
 _SOURCE_BWD_BF16 = os.path.join(CSRC_DIR, "fused_sdf_bwd_bf16.cu")
+_SOURCE_GENERIC = os.path.join(CSRC_DIR, "fused_sdf_generic.cu")
 
-# the architecture the kernel is written for (options/pix3d/config.yaml)
-KERNEL_ARCH = dict(n_freqs=6, skip_in=(1, 2), n_hidden=5, width=64,
-                   latent_dim=64)
+# the packed sizes of `FLAGSHIP`, the architecture K1 / K3 / K2 are written
+# for
 NUM_WEIGHTS = 28032
 BIAS_WIDTH = 5 * 64 + 65
+# what K8 / K9 take (`csrc/fused_sdf_generic.cu`): inclusive ranges, and
+# skip layers anywhere in 1 .. n_hidden
+ENVELOPE = dict(width=(1, 512), n_hidden=(1, 16), n_freqs=(0, 16))
+# the kernels of each route: forward with tangents, without, backward
+ROUTES = {"flagship": ("K1", "K3", "K2"),
+          "generic": ("K8", "K8-nograd", "K9")}
 # K1's and K3's tile in points (`csrc/fused_sdf_fwd.cu`: Smem::kPoints), and
 # a warp's tile of their bf16 instantiations (Bf16Tile::kPoints)
 FWD_TILE_POINTS = {"grad": 64, "nograd": 256}
@@ -86,8 +98,106 @@ def _coord_masks(n_freqs, device=None):
 
 
 def _arch(sdf_network):
-    return (sdf_network.posenc_res, tuple(sdf_network.skip_in),
-            sdf_network.n_hidden)
+    """(n_freqs, skip_in, n_hidden): `_forward_plain`'s arguments."""
+    return sdf_arch(sdf_network)[:3]
+
+
+class SdfArch(NamedTuple):
+    """An SDF MLP's shape as the fused pair sees it: posenc frequencies,
+    skip layers, hidden layers and their width (the latent is folded into
+    the biases, so its width does not enter)."""
+    n_freqs: int
+    skip_in: tuple
+    n_hidden: int
+    width: int
+
+    @property
+    def pe_dim(self):
+        return 3 + 6 * self.n_freqs
+
+    @property
+    def skip_mask(self):
+        return sum(1 << l for l in self.skip_in)
+
+    def layer_shapes(self):
+        """[(Ka [in, out], Kb [pe, out] or None)] as `prepare_fused_params`
+        returns them: layer 0 reads the posenc, a skip layer h and posenc."""
+        W, D = self.width, self.pe_dim
+        shapes = []
+        for l in range(self.n_hidden + 1):
+            out = W + 1 if l == self.n_hidden else W
+            if l == 0:
+                shapes.append(((D, out), None))
+            else:
+                shapes.append(((W, out), (D, out) if l in self.skip_in
+                               else None))
+        return shapes
+
+    @property
+    def num_weights(self):
+        return sum(a[0] * a[1] + (b[0] * b[1] if b else 0)
+                   for a, b in self.layer_shapes())
+
+    @property
+    def bias_width(self):
+        return self.n_hidden * self.width + self.width + 1
+
+    def describe(self):
+        return (f"posenc {self.n_freqs}, skips {self.skip_in}, "
+                f"{self.n_hidden} hidden x {self.width}")
+
+
+# the SDF MLP of options/pix3d/config.yaml, which K1 / K3 / K2 are written
+# for
+FLAGSHIP = SdfArch(6, (1, 2), 5, 64)
+
+
+def sdf_arch(sdf_network):
+    return SdfArch(sdf_network.posenc_res, tuple(sdf_network.skip_in),
+                   sdf_network.n_hidden, sdf_network.n_channels)
+
+
+def arch_from_opt(opt):
+    """The SdfArch that `SDFNetwork.from_opt(opt)` builds."""
+    a = opt.arch.impl_sdf
+    return SdfArch(a.pos_enc, tuple(a.skip_connection), a.n_hidden_layers,
+                   a.n_channels)
+
+
+def sdf_route(arch):
+    """'flagship' (K1 / K3 + K2 and their bf16 forms) for `FLAGSHIP`,
+    'generic' (K8 / K8-nograd + K9) for every other architecture inside
+    `ENVELOPE`; a ValueError naming the envelope outside it. `arch` is an
+    SdfArch or an SDFNetwork."""
+    if not isinstance(arch, SdfArch):
+        arch = sdf_arch(arch)
+    if arch == FLAGSHIP:
+        return "flagship"
+    inside = all(lo <= getattr(arch, k) <= hi
+                 for k, (lo, hi) in ENVELOPE.items())
+    if not inside or any(not 1 <= l <= arch.n_hidden for l in arch.skip_in):
+        e = ENVELOPE
+        raise ValueError(
+            "the fused SDF kernels run SDF MLPs with n_channels "
+            f"{e['width'][0]}-{e['width'][1]}, n_hidden_layers "
+            f"{e['n_hidden'][0]}-{e['n_hidden'][1]}, pos_enc "
+            f"{e['n_freqs'][0]}-{e['n_freqs'][1]} and skip_connection within "
+            f"{{1 .. n_hidden_layers}}; got {arch.describe()}")
+    return "generic"
+
+
+def route_note(arch):
+    """What the CUDA path runs for `arch`, for a log line."""
+    try:
+        route = sdf_route(arch)
+    except ValueError:
+        return (f"SDF MLP {arch.describe()} lies outside the fused kernels' "
+                "envelope (CUDA raises)")
+    fwd, nograd, bwd = ROUTES[route]
+    name = "the flagship's kernels" if route == "flagship" else \
+        "the generic pair"
+    return (f"SDF MLP {arch.describe()} through {name} ({fwd} / {nograd} "
+            f"+ {bwd})")
 
 
 def prepare_fused_params(sdf_network, latent):
@@ -117,13 +227,28 @@ def prepare_fused_params(sdf_network, latent):
     return kernels, biases
 
 
+def _arch_of_kernels(kernels):
+    """The SdfArch that `prepare_fused_params`'s kernels were made for."""
+    D, W = kernels[0][0].shape
+    return SdfArch((D - 3) // 6, tuple(l for l in range(1, len(kernels))
+                                       if kernels[l][1] is not None),
+                   len(kernels) - 1, W)
+
+
 def pack_fused_params(kernels, biases):
-    """-> (weights [28032], biases [B, 385]): the kernel's packed layout
-    (`csrc/fused_sdf_fwd.cu`), every layer kernel [in, out] row-major."""
+    """-> (weights [arch.num_weights], biases [B, arch.bias_width]): the
+    kernels' packed layout (`csrc/fused_sdf_fwd.cu` for the flagship's 28,032
+    and 385, `csrc/fused_sdf_generic.cu` for any), every layer kernel
+    [in, out] row-major, a skip layer's h rows before its posenc rows."""
+    arch = _arch_of_kernels(kernels)
+    shapes = [(tuple(a.shape), None if b is None else tuple(b.shape))
+              for a, b in kernels]
+    assert shapes == arch.layer_shapes(), (shapes, arch)
     weights = torch.cat([k.reshape(-1) for pair in kernels for k in pair
                          if k is not None]).contiguous()
     bias = torch.cat(biases, dim=1).contiguous()
-    assert weights.numel() == NUM_WEIGHTS and bias.shape[1] == BIAS_WIDTH
+    assert weights.numel() == arch.num_weights \
+        and bias.shape[1] == arch.bias_width, (weights.shape, bias.shape)
     return weights, bias
 
 
@@ -297,6 +422,50 @@ def fused_sdf_forward_reference(sdf_network, points, latent,
     return _forward_plain(kernels, biases, points, n_freqs, skip_in,
                           n_hidden, compute_grad, sdf_network.force_symmetry,
                           mm_dtype)
+
+
+def unpack_fused_params(weights, bias, arch):
+    """The inverse of `pack_fused_params` for `arch`: (kernels, biases) as
+    views of `weights` [arch.num_weights] and `bias` [B, arch.bias_width]."""
+    kernels, off = [], 0
+    for shapes in arch.layer_shapes():
+        pair = []
+        for shape in shapes:
+            if shape is None:
+                pair.append(None)
+                continue
+            n = shape[0] * shape[1]
+            pair.append(weights[off:off + n].view(shape))
+            off += n
+        kernels.append(tuple(pair))
+    widths = [arch.width] * arch.n_hidden + [arch.width + 1]
+    return kernels, list(torch.split(bias, widths, dim=1))
+
+
+def generic_forward_reference(points, weights, bias, arch, compute_grad,
+                              force_symmetry, mm_dtype="float32"):
+    """The plain version of `GenericSdfKernel.forward` (K8 / K8-nograd), in
+    the dtype of its inputs: -> (sdf [B,N], feat [B,N,W], grad or None)."""
+    kernels, biases = unpack_fused_params(weights, bias, arch)
+    sdf, feat, grad = _forward_plain(kernels, biases, points, arch.n_freqs,
+                                     arch.skip_in, arch.n_hidden,
+                                     compute_grad, force_symmetry, mm_dtype)
+    return sdf[..., 0], feat, grad
+
+
+def generic_backward_reference(points, weights, bias, arch, sbar, fbar, gbar,
+                               force_symmetry, mm_dtype="float32"):
+    """The plain version of `GenericSdfKernel.backward` (K9): autograd of
+    the plain forward with tangents, in the dtype of its inputs -> (d
+    weights, d biases, d points)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (points, weights, bias)]
+        outs = generic_forward_reference(*leaves, arch, True, force_symmetry,
+                                         mm_dtype)
+        dpoints, dweights, dbias = torch.autograd.grad(outs, leaves,
+                                                       (sbar, fbar, gbar))
+    return dweights, dbias, dpoints
 
 
 # ---------------------------------------------------------------------------
@@ -516,20 +685,143 @@ class FusedSdfBackwardKernel(CudaLibrary):
         return dweights, dbiases, dpoints
 
 
+class GenericSdfKernel(CudaLibrary):
+    """The architecture-generic pair (`csrc/fused_sdf_generic.cu`): K8
+    (forward with tangents, 'grad'), K8-nograd ('nograd') and K9 (the
+    backward, 'bwd'), each with '_bf16' for the bfloat16 products. One build
+    serves every architecture of `ENVELOPE`, which arrives at each launch.
+    `launches` counts each where it is launched and nowhere else."""
+
+    stem = "scl_fused_sdf_generic"
+    source = _SOURCE_GENERIC
+
+    def __init__(self, build_dir=BUILD_DIR):
+        super().__init__(build_dir)
+        self.launches = {k + m: 0 for k in ("grad", "nograd", "bwd")
+                         for m in ("", "_bf16")}
+
+    def _bind(self, lib):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.scl_sdf_generic_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
+        lib.scl_sdf_generic_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.scl_sdf_generic_num_weights.argtypes = [i] * 4
+        lib.scl_sdf_generic_tile_points.argtypes = [i] * 6
+        lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
+        for name in ("fwd", "bwd", "num_weights", "tile_points",
+                     "bwd_blocks_per_sm"):
+            getattr(lib, f"scl_sdf_generic_{name}").restype = i
+        for arch in (FLAGSHIP, SdfArch(4, (2,), 4, 32),
+                     SdfArch(0, (), 16, 512)):
+            if lib.scl_sdf_generic_num_weights(*self._arch_args(arch)) \
+                    != arch.num_weights:
+                raise RuntimeError("the generic SDF library packs another "
+                                   f"layout for {arch}")
+
+    @staticmethod
+    def _arch_args(arch):
+        return arch.n_freqs, arch.n_hidden, arch.width, arch.skip_mask
+
+    @staticmethod
+    def _check_operands(arch, points, weights, biases, *cots):
+        """Raise unless every operand is float32, contiguous, on the points'
+        CUDA device and of the shape the kernels index: points [B,N,3],
+        weights [arch.num_weights] (bf16 products round them inside),
+        biases [B, arch.bias_width], the cotangents [B,N], [B,N,W],
+        [B,N,3]."""
+        B, N = points.shape[:2]
+        shapes = [(B, N, 3), (arch.num_weights,), (B, arch.bias_width)]
+        shapes += [(B, N), (B, N, arch.width), (B, N, 3)][:len(cots)]
+        for t, shape in zip((points, weights, biases, *cots), shapes):
+            if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                    or not t.is_contiguous() or t.device != points.device \
+                    or t.device.type != "cuda":
+                raise TypeError(f"the generic SDF kernels take contiguous "
+                                f"float32 {shape} on a CUDA device, got "
+                                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+    def forward(self, points, weights, biases, arch, compute_grad,
+                force_symmetry, mm_dtype="float32"):
+        """points [B,N,3], weights [arch.num_weights], biases [B,
+        arch.bias_width] (float32, contiguous, one CUDA device) -> (sdf
+        [B,N], feat [B,N,W], grad [B,N,3] or None), float32: one launch of
+        K8 (K8-nograd without `compute_grad`)."""
+        _check_mm_dtype(mm_dtype)
+        self._check_operands(arch, points, weights, biases)
+        lib = self.build()
+        B, N, _ = points.shape
+        dev = points.device
+        f32 = dict(device=dev, dtype=torch.float32)
+        sdf = torch.empty(B, N, **f32)
+        feat = torch.empty(B, N, arch.width, **f32)
+        grad = torch.empty(B, N, 3, **f32) if compute_grad else None
+        with torch.cuda.device(dev):
+            err = lib.scl_sdf_generic_fwd(
+                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                sdf.data_ptr(), feat.data_ptr(),
+                grad.data_ptr() if compute_grad else None, B, N,
+                *self._arch_args(arch), int(bool(compute_grad)),
+                int(bool(force_symmetry)), int(mm_dtype == "bfloat16"),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"generic SDF forward launch failed: "
+                               f"cudaError {err}")
+        key = "grad" if compute_grad else "nograd"
+        self.launches[key + ("_bf16" if mm_dtype == "bfloat16" else "")] += 1
+        return sdf, feat, grad
+
+    def backward(self, points, weights, biases, arch, sbar, fbar, gbar,
+                 force_symmetry, mm_dtype="float32"):
+        """K9: points, weights and biases as `forward`, the cotangents sbar
+        [B,N], fbar [B,N,W], gbar [B,N,3] -> (d weights [arch.num_weights],
+        d biases [B, arch.bias_width], d points [B,N,3]), float32. Its
+        blocks (as many as fit on the card, at most one a tile) each add
+        into their own slice of the partials, which a second launch sums."""
+        _check_mm_dtype(mm_dtype)
+        self._check_operands(arch, points, weights, biases, sbar, fbar, gbar)
+        lib = self.build()
+        B, N, _ = points.shape
+        dev = points.device
+        bf16 = int(mm_dtype == "bfloat16")
+        args = self._arch_args(arch)
+        tile = lib.scl_sdf_generic_tile_points(*args, 1, 1)
+        with torch.cuda.device(dev):
+            per_sm = lib.scl_sdf_generic_bwd_blocks_per_sm(*args, bf16)
+            if tile < 1 or per_sm < 1:
+                raise RuntimeError(f"generic SDF backward has no launch for "
+                                   f"{arch}: tile {tile}, blocks {per_sm}")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = min(sms * per_sm, B * -(-N // tile))
+            f32 = dict(device=dev, dtype=torch.float32)
+            width = arch.num_weights + B * arch.bias_width
+            dpoints = torch.empty(B, N, 3, **f32)
+            out = torch.empty(width, **f32)
+            partials = torch.empty(grid, width, **f32)
+            stash = torch.empty(grid, arch.n_hidden * arch.width * 4 * tile,
+                                **f32)
+            err = lib.scl_sdf_generic_bwd(
+                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                sbar.data_ptr(), fbar.data_ptr(), gbar.data_ptr(),
+                dpoints.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                stash.data_ptr(), B, N, grid, *args,
+                int(bool(force_symmetry)), bf16,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"generic SDF backward launch failed: "
+                               f"cudaError {err}")
+        self.launches["bwd" + ("_bf16" if bf16 else "")] += 1
+        return (out[:arch.num_weights],
+                out[arch.num_weights:].view(B, arch.bias_width), dpoints)
+
+
 KERNEL = FusedSdfKernel()
 BACKWARD = FusedSdfBackwardKernel()
+GENERIC = GenericSdfKernel()
 
 
 def _check_cuda_inputs(sdf_network, points, latent):
-    n_freqs, skip_in, n_hidden = _arch(sdf_network)
-    a = KERNEL_ARCH
-    if (n_freqs, skip_in, n_hidden) != (a["n_freqs"], a["skip_in"],
-                                        a["n_hidden"]) \
-            or sdf_network.n_channels != a["width"] \
-            or sdf_network.proj_latent_dim != a["latent_dim"]:
-        raise ValueError(f"the fused SDF kernel is built for {a}; got posenc "
-                         f"{n_freqs}, skips {skip_in}, {n_hidden} hidden x "
-                         f"{sdf_network.n_channels}")
+    """-> the network's route (`sdf_route`); raises on what the kernels do
+    not take."""
+    route = sdf_route(sdf_network)
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points must be [B, N, 3], got {tuple(points.shape)}")
     if latent.dim() != 2 or latent.shape[0] != points.shape[0]:
@@ -547,13 +839,15 @@ def _check_cuda_inputs(sdf_network, points, latent):
         if p.device != points.device or p.dtype != torch.float32:
             raise ValueError("SDF network parameters must be float32 on "
                              f"{points.device}")
+    return route
 
 
 def fused_sdf_forward(sdf_network, points, latent, compute_grad=False,
                       mm_dtype="float32"):
-    """points [B, N, 3], latent [B, C] -> (sdf [B,N,1], feat [B,N,64],
+    """points [B, N, 3], latent [B, C] -> (sdf [B,N,1], feat [B,N,W],
     grad [B,N,3] or None), with the products' operands in `mm_dtype`. CPU
-    tensors take the plain version; CUDA tensors run the Hopper kernel."""
+    tensors take the plain version; CUDA tensors run the Hopper kernel of
+    the network's route."""
     _check_mm_dtype(mm_dtype)
     if points.device.type == "cpu":
         return fused_sdf_forward_reference(sdf_network, points, latent,
@@ -566,23 +860,36 @@ def fused_sdf_forward(sdf_network, points, latent, compute_grad=False,
         raise RuntimeError("fused_sdf_forward has no backward; call it under "
                            "torch.inference_mode() / torch.no_grad(), or "
                            "use fused_sdf_train for gradients")
-    _check_cuda_inputs(sdf_network, points, latent)
+    route = _check_cuda_inputs(sdf_network, points, latent)
     weights, bias = pack_fused_params(
         *prepare_fused_params(sdf_network, latent))
-    sdf, feat, grad = KERNEL.launch(points, weights, bias,
-                                    compute_grad, sdf_network.force_symmetry,
-                                    mm_dtype)
+    if route == "flagship":
+        sdf, feat, grad = KERNEL.launch(points, weights, bias, compute_grad,
+                                        sdf_network.force_symmetry, mm_dtype)
+    else:
+        sdf, feat, grad = GENERIC.forward(points, weights, bias,
+                                          sdf_arch(sdf_network), compute_grad,
+                                          sdf_network.force_symmetry,
+                                          mm_dtype)
     return sdf[..., None], feat, grad
 
 
 class _FusedSdfTrain(torch.autograd.Function):
-    """K1 (forward with tangents) and K2 (its VJP) as one autograd node over
-    the packed weights, the per-sample biases and the points. The latent
-    folding and skip scaling stay outside, in differentiable torch, as
+    """K1 (forward with tangents) and K2 (its VJP) -- K8 and K9 for an
+    `arch` off the flagship -- as one autograd node over the packed
+    weights, the per-sample biases and the points. The latent folding and
+    skip scaling stay outside, in differentiable torch, as
     `fused_sdf_train` does around its `custom_vjp` in the JAX package."""
 
     @staticmethod
-    def forward(ctx, weights, biases, points, force_symmetry, mm_dtype):
+    def forward(ctx, weights, biases, points, force_symmetry, mm_dtype,
+                arch=None):
+        ctx.force_symmetry, ctx.mm_dtype, ctx.arch = (force_symmetry,
+                                                      mm_dtype, arch)
+        if arch is not None:
+            ctx.save_for_backward(points, weights.detach(), biases)
+            return GENERIC.forward(points, weights.detach(), biases, arch,
+                                   True, force_symmetry, mm_dtype)
         if mm_dtype == "bfloat16":
             # one launch writes both bf16 layouts: the fragments that
             # K1-bf16 reads and the plain copy that K2-bf16 reads
@@ -592,7 +899,6 @@ class _FusedSdfTrain(torch.autograd.Function):
         sdf, feat, grad = KERNEL.launch(points, w_fwd, biases, True,
                                         force_symmetry, mm_dtype)
         ctx.save_for_backward(points, w_bwd, biases)
-        ctx.force_symmetry, ctx.mm_dtype = force_symmetry, mm_dtype
         return sdf, feat, grad
 
     @staticmethod
@@ -600,23 +906,30 @@ class _FusedSdfTrain(torch.autograd.Function):
     def backward(ctx, sbar, fbar, gbar):
         points, w_bwd, biases = ctx.saved_tensors
         # unused outputs arrive as zeros (autograd materializes them)
-        dweights, dbiases, dpoints = BACKWARD.launch(
-            points, w_bwd, biases, sbar.contiguous(), fbar.contiguous(),
-            gbar.contiguous(), ctx.force_symmetry, ctx.mm_dtype)
-        return dweights, dbiases, dpoints, None, None
+        cots = (sbar.contiguous(), fbar.contiguous(), gbar.contiguous())
+        if ctx.arch is not None:
+            dweights, dbiases, dpoints = GENERIC.backward(
+                points, w_bwd, biases, ctx.arch, *cots, ctx.force_symmetry,
+                ctx.mm_dtype)
+        else:
+            dweights, dbiases, dpoints = BACKWARD.launch(
+                points, w_bwd, biases, *cots, ctx.force_symmetry,
+                ctx.mm_dtype)
+        return dweights, dbiases, dpoints, None, None, None
 
 
 def fused_sdf_train(sdf_network, points, latent, detach_latent=False,
                     mm_dtype="float32"):
-    """Differentiable (sdf [B,N,1], feat [B,N,64], grad [B,N,3]) for
+    """Differentiable (sdf [B,N,1], feat [B,N,W], grad [B,N,3]) for
     points [B, N, 3] and latent [B, C], with the products' operands in
     `mm_dtype`; gradients reach the SDF network's parameters, the latent
     (unless `detach_latent`) and the points.
 
     CPU tensors: plain autograd through `_forward_plain(compute_grad=True)`
     (the counterpart of the JAX package's `sdf_fwdmode_xla`, and the plain
-    version of the K1 + K2 pair). CUDA tensors: K1 forward and K2 backward,
-    or an error; there is no fallback."""
+    version of the K1 + K2 pair). CUDA tensors: K1 forward and K2 backward
+    (K8 and K9 off the flagship, `sdf_route`), or an error; there is no
+    fallback."""
     _check_mm_dtype(mm_dtype)
     if detach_latent:
         latent = latent.detach()
@@ -628,10 +941,11 @@ def fused_sdf_train(sdf_network, points, latent, detach_latent=False,
                               mm_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no fused SDF path for device {points.device}")
-    _check_cuda_inputs(sdf_network, points, latent)
+    route = _check_cuda_inputs(sdf_network, points, latent)
     weights, bias = pack_fused_params(
         *prepare_fused_params(sdf_network, latent))
+    arch = None if route == "flagship" else sdf_arch(sdf_network)
     sdf, feat, grad = _FusedSdfTrain.apply(weights, bias, points,
                                            sdf_network.force_symmetry,
-                                           mm_dtype)
+                                           mm_dtype, arch)
     return sdf[..., None], feat, grad

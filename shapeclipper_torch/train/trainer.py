@@ -37,6 +37,7 @@ from .. import parallel
 from ..eval3d import metrics as eval_3D
 from ..models.estimator import reset_scale_params
 from ..models.graph import Graph, summarize_loss
+from ..ops.fused_sdf import arch_from_opt, route_note
 from ..utils import checkpoint as ckpt
 from ..utils.easydict import EasyDict as edict
 from ..utils.log import Timer, log
@@ -68,14 +69,18 @@ IGNORED_TPU_KEYS = ("sdf_grad_mode", "fold_eikonal", "remat_renderer",
 
 def tpu_keys_note(opt):
     """The log line on the `tpu:` configuration: the keys of `opt.tpu` that
-    the port ignores, and what it does instead."""
+    the port ignores, and what it does instead, with the fused SDF route
+    that the configured SDF MLP takes on CUDA (`ops/fused_sdf.py::
+    sdf_route`)."""
     tpu = opt.get("tpu", {})
     ignored = [k for k in IGNORED_TPU_KEYS if k in tpu]
     merged = [k for k in ("merge_encoders", "merge_flip_estimator",
                           "merge_nn_render") if tpu.get(k, True)]
     window = tpu.get("profile_iters")
+    route = (route_note(arch_from_opt(opt)) if opt.get("arch")
+             else "the fused kernels")
     return (f"the port ignores tpu.{{{', '.join(ignored)}}}: every CUDA SDF "
-            "evaluation through the fused kernels (K1 / K3 + K2), no "
+            f"evaluation through fused kernels ({route}), no "
             "donation switch; it honours tpu.{"
             + ", ".join(HONOURED_TPU_KEYS) + "}: encoders in "
             f"{tpu.get('encoder_dtype') or 'float32'}, implicit MLPs in "

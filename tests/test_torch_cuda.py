@@ -1,8 +1,9 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
 fused_sdf_fwd.cu`, K1 / K3 and their bf16 forms with the bf16 weight pack,
-`csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16),
-the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5) and the device
+`csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16), the
+generic pair for every other SDF MLP (`csrc/fused_sdf_generic.cu`, K8 /
+K9), the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5) and the device
 isosurface (`csrc/isosurface.cu`, K6 / K7).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
@@ -852,3 +853,95 @@ def test_isosurface_wrapper_refuses_bad_inputs(dev):
         I.KERNEL.draw(level, cdf.float(), r, u, u, -0.6, 0.6)
     with pytest.raises(ValueError, match="is on"):
         I.KERNEL.draw(level, cdf, r.cpu(), u, u, -0.6, 0.6)
+
+
+# ------------------------------------------------------- the generic pair
+GENERIC_ARCHS = {"jax_test": (4, (2,), 4, 32, 16, False),
+                 "deep_odd": (6, (2, 5), 7, 45, 8, True),
+                 "no_posenc": (0, (1,), 3, 24, 12, True)}
+
+
+@pytest.mark.parametrize("name", list(GENERIC_ARCHS))
+def test_generic_pair_matches_plain(dev, name):
+    """K8 (with and without tangents) against its plain version at SDF_TOL /
+    GRAD_TOL, K9 against the float64 plain version at atol 3e-5 * max|ref|,
+    rtol 2e-4, and two K9 launches bitwise equal; 2 x 300 points (a ragged
+    last tile), every third on the x0 = 0 plane; the routed entry points
+    launch K8 / K9 and not K1 / K2 / K3."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_ARCHS[name]
+    g = torch.Generator().manual_seed(3)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False,
+                     generator=g).to(dev)
+    pts = torch.rand(2, 300, 3, generator=g) * 2 - 1
+    pts[:, ::3, 0] = 0.0
+    pts, lat = pts.to(dev), (torch.randn(2, latent, generator=g) * 0.3).to(dev)
+    arch = F.sdf_arch(net)
+    assert F.sdf_route(net) == "generic"
+    with torch.no_grad():
+        w, b = F.pack_fused_params(*F.prepare_fused_params(net, lat))
+        for grad in (True, False):
+            got = F.GENERIC.forward(pts, w, b, arch, grad, sym)
+            want = F.generic_forward_reference(pts, w, b, arch, grad, sym)
+            for k, r, tol in zip(got, want, (SDF_TOL, SDF_TOL, GRAD_TOL)):
+                if r is not None:
+                    torch.testing.assert_close(k, r, **tol)
+    cots = [torch.randn(2, 300, *c, generator=g).to(dev)
+            for c in ((), (width,), (3,))]
+    got = F.GENERIC.backward(pts, w, b, arch, *cots, sym)
+    again = F.GENERIC.backward(pts, w, b, arch, *cots, sym)
+    want = F.generic_backward_reference(
+        *(t.double() for t in (pts, w, b)), arch, *(c.double() for c in cots),
+        sym)
+    for k, k2, r in zip(got, again, want):
+        assert torch.equal(k, k2)
+        scale = max(float(r.abs().max()), 1e-3)
+        torch.testing.assert_close(k.double(), r, atol=3e-5 * scale,
+                                   rtol=2e-4)
+    before = (dict(F.GENERIC.launches), dict(F.KERNEL.launches),
+              dict(F.BACKWARD.launches))
+    p = pts.clone().requires_grad_(True)
+    sum(o.sum() for o in F.fused_sdf_train(net, p, lat)).backward()
+    with torch.no_grad():
+        F.fused_sdf_forward(net, pts, lat)
+    torch.cuda.synchronize()
+    after = (F.GENERIC.launches, F.KERNEL.launches, F.BACKWARD.launches)
+    assert {k: after[0][k] - before[0][k] for k in after[0]} == dict(
+        grad=1, nograd=1, bwd=1, grad_bf16=0, nograd_bf16=0, bwd_bf16=0)
+    assert after[1] == before[1] and after[2] == before[2]
+
+
+def test_generic_pair_bf16_matches_plain(dev):
+    """K8-bf16 and K9-bf16 at the deep architecture against the bf16 plain
+    version (K9's in float64): max error within 1e-2 (a float32 sum one ulp
+    apart can round to the neighbouring bf16 operand), mean error under
+    half the mean distance from the float32 kernels."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_ARCHS["deep_odd"]
+    g = torch.Generator().manual_seed(4)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False, generator=g)
+    pts = (torch.rand(2, 2048, 3, generator=g) * 2 - 1).to(dev)
+    lat = (torch.randn(2, latent, generator=g) * 0.3).to(dev)
+    with torch.no_grad():
+        w, b = F.pack_fused_params(*F.prepare_fused_params(net, lat.cpu()))
+    w, b, arch = w.to(dev), b.to(dev), F.sdf_arch(net)
+    cots = [torch.randn(2, 2048, *c, generator=g).to(dev)
+            for c in ((), (width,), (3,))]
+    pairs = [(F.GENERIC.forward(pts, w, b, arch, True, sym, "bfloat16"),
+              F.generic_forward_reference(pts, w, b, arch, True, sym,
+                                          "bfloat16"),
+              F.GENERIC.forward(pts, w, b, arch, True, sym))]
+    pairs.append((F.GENERIC.backward(pts, w, b, arch, *cots, sym, "bfloat16"),
+                  F.generic_backward_reference(
+                      *(t.double() for t in (pts, w, b)), arch,
+                      *(c.double() for c in cots), sym, "bfloat16"),
+                  F.GENERIC.backward(pts, w, b, arch, *cots, sym)))
+    for got, want, f32 in pairs:
+        for k, r, k32 in zip(got, want, f32):
+            scale = max(float(r.abs().max()), 1.0)
+            err = (k.double() - r.double()).abs()
+            gap = (k.double() - k32.double()).abs().mean()
+            assert float(err.max()) <= 1e-2 * scale
+            assert float(err.mean()) < 0.5 * float(gap)
