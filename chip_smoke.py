@@ -149,12 +149,15 @@ no CPU fallback):
      against the CPU (the loss term 1e-4, the centres' gradient 1e-3, the
      post-step centres 0.05 lr);
  16. the generic pair K8 / K8-nograd / K9 (`csrc/fused_sdf_generic.cu`),
-     which runs every SDF MLP but the flagship's: each against its plain
-     version in float32 (K9 against the float64 one) and bf16
-     (`check_bf16`'s rule) at the JAX package's second architecture (posenc
+     which runs every SDF MLP but the flagship's, and their bf16 forms on
+     the tensor cores with their weight pack
+     (`csrc/fused_sdf_generic_bf16.cu`): each against its plain version in
+     float32 (K9 against the float64 one) and bf16 (`check_bf16`'s rule;
+     the pack bitwise) at the JAX package's second architecture (posenc
      4, skip 2, 4 x 32) at 12 x 1,024 and at VolSDF's 8 x 256 (skip 4) at
-     12 x 1,024, 12 x 32,768, 24 x 32,768 and the vox-64 grid, K9 bitwise
-     over two launches, each timed beside its plain version and its bound;
+     12 x 1,024, 12 x 32,768, 24 x 32,768 and the vox-64 grid, K9 and
+     K9-bf16 bitwise over two launches, each timed beside its plain version
+     and its bound, K9's partials' and stash's bytes a launch logged;
      then that wide MLP (`GENERIC_WIDE_ARGS` on options/pix3d/config.yaml)
      through the YAML's own step (bf16, merged) for a camera and three
      full steps, a float32 camera and full step, two requests and a
@@ -312,13 +315,14 @@ CONV_KERNELS = ("cudnn", "implicit_gemm", "dgrad", "wgrad", "conv",
 # skip at layer 4, posenc 6), which the paths take as CLI overrides of
 # options/pix3d/config.yaml
 SOURCE_GENERIC = "shapeclipper_torch/csrc/fused_sdf_generic.cu"
+SOURCE_GENERIC_BF16 = "shapeclipper_torch/csrc/fused_sdf_generic_bf16.cu"
 GENERIC_NARROW = (4, (2,), 4, 32, 16, False)
 GENERIC_WIDE = (6, (4,), 8, 256, 64, True)
 GENERIC_WIDE_ARGS = ("--arch.impl_sdf.n_hidden_layers=8",
                      "--arch.impl_sdf.n_channels=256",
                      "--arch.impl_sdf.skip_connection=[4]")
 GENERIC_NONE = dict(k8=0, k8_bf16=0, k8_nograd=0, k8_nograd_bf16=0, k9=0,
-                    k9_bf16=0)
+                    k9_bf16=0, generic_pack=0)
 N_GENERIC_STEPS = 3              # full steps of the wide YAML step
 # blocks of the plain version on the card: batch rows, and points of a row
 # for the float64 K9 reference (a whole 24 x 32,768 float64 graph at width
@@ -2846,14 +2850,15 @@ def reset_launches():
 
 def read_launches():
     """Every kernel's launches since `reset_launches` (`_bf16`: the bf16
-    instantiations; k8 / k8_nograd / k9: the generic pair)."""
+    instantiations; k8 / k8_nograd / k9: the generic pair, generic_pack the
+    bf16 pack of its weights)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
     from shapeclipper_torch.ops import isosurface as I
     k, b, g = F.KERNEL.launches, F.BACKWARD.launches, F.GENERIC.launches
     return dict(k8=g["grad"], k8_bf16=g["grad_bf16"], k8_nograd=g["nograd"],
                 k8_nograd_bf16=g["nograd_bf16"], k9=g["bwd"],
-                k9_bf16=g["bwd_bf16"],
+                k9_bf16=g["bwd_bf16"], generic_pack=g["pack_bf16"],
                 k1=k["grad"], k3=k["nograd"], k2=b["float32"],
                 k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
                 pack_bf16=k["pack_bf16"],
@@ -3947,6 +3952,27 @@ def generic_bound(arch, B, N, kind, bf16=False):
     return flop, bound(elem * B * N, nbytes, mm_flop=flop)
 
 
+def generic_traffic(arch, B, N, mm):
+    """(partials' bytes, stash's bytes) that K9 (bf16 products with `mm`
+    "bfloat16") moves in a launch at B x N, modelled from its tiling, not
+    measured: each tile reads and writes its block's float32 partial of
+    every weight (and its batch row's biases), plus the partials zeroed
+    once and summed once; each point writes 16 bytes a hidden channel and
+    layer of stash, which the input cotangent's activation backward reads
+    once and the rebuild of the next layer's rows once more, for every
+    layer but the last."""
+    from shapeclipper_torch.ops import fused_sdf as F
+    lib = F.GENERIC.build()
+    args = F.GenericSdfKernel._arch_args(arch)
+    tile = lib.scl_sdf_generic_tile_points(*args, 1, 1,
+                                           int(mm == "bfloat16"))
+    grid, width, _ = F.GENERIC.scratch_floats(arch, B, N, mm)
+    tiles = B * -(-N // tile)
+    part = 4 * (2 * tiles * (arch.num_weights + arch.bias_width)
+                + 2 * grid * width)
+    return part, (3 * arch.n_hidden - 1) * 16 * arch.width * B * N
+
+
 def generic_case(spec, B, N, seed, points=None):
     """An SDF network of `spec` (nn.Linear's default init, so that every
     layer's posenc and latent rows are dense), a latent, points in [-1, 1]^3
@@ -4037,29 +4063,35 @@ def with_wide_sdf(opt):
 
 
 def phase_generic_kernels(opt):
-    """K8, K8-nograd and K9 (`csrc/fused_sdf_generic.cu`) against their
-    plain versions, float32 (SDF_TOL / GRAD_TOL; K9 against the float64
-    plain version at BWD_ATOL / BWD_RTOL, as K2 at the render shapes) and
-    bf16 (`check_bf16`'s rule against the bf16 plain version, K9's in
-    float64, beside the float32 kernel): at the narrow architecture at 12 x
-    1,024; at the wide one at the eikonal's 12 x 1,024, at 12 x 32,768 (K9
-    also bitwise over two launches), the merged render's 24 x 32,768 and
-    the vox-64 grid's 274,625 (K8-nograd); each timed over SDF_TIMED_CALLS
-    launches between two events (once at the wide render shapes, whose
-    launches take 0.1-1 s) beside its plain version (over blocks of
-    GENERIC_PLAIN_ROWS batch rows where it would not fit whole) and its
-    bound -> {key: results at the main path's shape}, with `narrow_*` and
-    `eikonal_*` readings."""
+    """K8, K8-nograd and K9 (`csrc/fused_sdf_generic.cu`) and their bf16
+    forms on the tensor cores (`csrc/fused_sdf_generic_bf16.cu`) against
+    their plain versions, float32 (SDF_TOL / GRAD_TOL; K9 against the
+    float64 plain version at BWD_ATOL / BWD_RTOL, as K2 at the render
+    shapes) and bf16 (`check_bf16`'s rule against the bf16 plain version,
+    K9's in float64, beside the float32 kernel): at the narrow architecture
+    at 12 x 1,024; at the wide one at the eikonal's 12 x 1,024, at 12 x
+    32,768, the merged render's 24 x 32,768 (K9 and K9-bf16 also bitwise
+    over two launches at the narrow and the merged shape) and the vox-64
+    grid's 274,625 (K8-nograd); each timed over SDF_TIMED_CALLS launches
+    between two events (once at the wide render shapes, whose launches take
+    0.01-1 s) beside its plain version (over blocks of GENERIC_PLAIN_ROWS
+    batch rows where it would not fit whole) and its bound; the bf16 pack
+    bitwise against its plain version and timed at the wide architecture;
+    K9's partials' and stash's bytes a launch at 24 x 32,768 -> {key:
+    results at the main path's shape}, with `narrow_*` and `eikonal_*`
+    readings."""
     import torch
     from shapeclipper_torch.eval3d.metrics import dense_grid_points
     from shapeclipper_torch.ops import fused_sdf as F
 
     G = F.GENERIC
-    for label, name in (("K8", "fwd_kernelILb1ELb0E"),
-                        ("K8-bf16", "fwd_kernelILb1ELb1E"),
-                        ("K8-nograd", "fwd_kernelILb0ELb0E"),
-                        ("K8-nograd-bf16", "fwd_kernelILb0ELb1E"),
-                        ("K9", "bwd_kernelILb0E"), ("K9-bf16", "bwd_kernelILb1E")):
+    for label, name in (("K8", "fwd_kernelILb1EE"),
+                        ("K8-bf16", "fwd_bf16_kernelILb1EE"),
+                        ("K8-nograd", "fwd_kernelILb0EE"),
+                        ("K8-nograd-bf16", "fwd_bf16_kernelILb0EE"),
+                        ("K9", "bwd_kernelEPKf"),
+                        ("K9-bf16", "bwd_bf16_kernel"),
+                        ("bf16 pack", "pack_bf16_kernel")):
         regs, st, ld, stack = ptxas_usage(G.ptxas_log, "sdf_generic_" + name,
                                           stack=True)
         log(f"[generic] {label} ptxas: {regs} registers, {st} / {ld} bytes "
@@ -4149,11 +4181,16 @@ def phase_generic_kernels(opt):
                 f" (tol {BF16_K2_MAX} / {BF16_K2_MEAN})"
             del got16, ref16
         if repeat:
-            again = bwd(c, "float32")
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"two K9 launches differ at {tag}")
-            line16 += "; two launches bitwise equal"
+            for mm in ("float32", "bfloat16") if bf16 else ("float32",):
+                one = got if mm == "float32" else bwd(c, mm)
+                again = bwd(c, mm)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(one, again)):
+                    raise AssertionError(f"two K9 ({mm}) launches differ at "
+                                         f"{tag}")
+                del one, again
+            line16 += "; two launches bitwise equal" + (
+                " (each form)" if bf16 else "")
         del got
         torch.cuda.empty_cache()
         log(f"[generic] K9 {tag} B={c.B} N={c.N} against the float64 plain "
@@ -4225,11 +4262,38 @@ def phase_generic_kernels(opt):
     entry("k8", e32, t["float32"], shape=f"{c24.B}x{c24.N}")
     entry("k8_bf16", e16, dict(t["bfloat16"], f32_ms=t["float32"]["ms"]),
           shape=f"{c24.B}x{c24.N}")
-    e32, e16, t = backward_case("wide, merged render", c24, wide=True)
+    e32, e16, t = backward_case("wide, merged render", c24, wide=True,
+                                repeat=True)
+    traffic = {mm: generic_traffic(c24.arch, c24.B, c24.N, mm)
+               for mm in ("float32", "bfloat16")}
+    for mm, (part, stash) in traffic.items():
+        log(f"[generic] K9 {mm} at {c24.B} x {c24.N} (modelled bytes): "
+            f"partials {part / 1e9:.1f} GB, stash {stash / 1e9:.1f} GB a "
+            "launch")
     entry("k9", e32, t["float32"], shape=f"{c24.B}x{c24.N}")
     entry("k9_bf16", e16, dict(t["bfloat16"], f32_ms=t["float32"]["ms"]),
           shape=f"{c24.B}x{c24.N}")
-    del c24
+    # the bf16 pack: bitwise its plain version, timed beside it
+    got = G.pack_bf16(c24.w, c24.arch)
+    want = F.generic_pack_bf16_reference(c24.w, c24.arch)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("the generic bf16 pack differs from its plain "
+                             "version")
+    packed = got.numel()
+    res["generic_pack"] = dict(
+        err=float((got.float() - want.float()).abs().max()),
+        ms=cuda_ms(lambda: G.pack_bf16(c24.w, c24.arch),
+                   calls=SDF_TIMED_CALLS),
+        plain_ms=cuda_ms(lambda: F.generic_pack_bf16_reference(c24.w,
+                                                               c24.arch)),
+        bound_ms=bound(0, 4 * c24.arch.num_weights + 2 * packed)[0],
+        bound_by="bytes", shape=f"{packed} bf16")
+    log(f"[generic] bf16 pack of {c24.arch.num_weights} weights into "
+        f"{packed}: bitwise its plain version; {res['generic_pack']['ms']:.4f}"
+        f" ms, plain {res['generic_pack']['plain_ms']:.4f} ms, bound "
+        f"{res['generic_pack']['bound_ms']:.4f} ms")
+    del c24, got, want
     torch.cuda.empty_cache()
 
     grid = dense_grid_points(opt, 64, torch.device("cuda"))[None]
@@ -4249,9 +4313,10 @@ def phase_generic_paths():
     through the port's entry points, launch counts reset just before and
     read just after each: the YAML's own step (bf16, merged; batch 12,
     224^2, 512 rays x 64 samples) for a camera and N_GENERIC_STEPS full
-    steps (K8-bf16 2 / K9-bf16 1, then 2 / 2), a float32 camera and full
-    step (K8 2 / K9 1, then 2 / 2), two requests at the YAML's dtypes (K8-bf16
-    1 + N_VIEWS, K8-nograd 3 a request) and `Runner.evaluate` over 2
+    steps (K8-bf16 2 / K9-bf16 1, then 2 / 2, the bf16 pack once before
+    each), a float32 camera and full step (K8 2 / K9 1, then 2 / 2), two
+    requests at the YAML's dtypes (K8-bf16 and the pack 1 + N_VIEWS,
+    K8-nograd 3 a request) and `Runner.evaluate` over 2
     synthetic test samples at the full eval width pinned to float32 as
     phase 8 (K8 1, K8-nograd 3, K4 2 a sample); K1 / K2 / K3, their bf16
     forms and the pack never -> the launches of each path."""
@@ -4276,6 +4341,7 @@ def phase_generic_paths():
 
     for dtype, steps, k8, k9 in (("bfloat16", N_GENERIC_STEPS, "k8_bf16",
                                   "k9_bf16"), ("float32", 1, "k8", "k9")):
+        bf16 = dtype == "bfloat16"
         opt = with_wide_sdf(flagship_opt(dtype=dtype, merged=True))
         runner = train_runner(opt, "cuda")
         if F.sdf_route(runner.graph.sdf_network) != "generic":
@@ -4289,7 +4355,9 @@ def phase_generic_paths():
             loss, ms = counted(
                 f"wide {dtype} step {step}",
                 lambda: runner.train_iteration(opt, var),
-                {k8: 2, k9: 1 if step == 0 else 2})
+                dict({k8: 2, k9: 1 if step == 0 else 2},
+                     **({"generic_pack": 3 if step == 0 else 4} if bf16
+                        else {})))
             check_loss(f"wide {dtype} step {step}", loss)
             times.append(ms)
             log(f"[generic-train] {dtype} step {step} ({'camera' if step == 0 else 'full'}): "
@@ -4310,7 +4378,7 @@ def phase_generic_paths():
     runner.build_networks(opt)
     runner.restore_checkpoint(opt)
     vox = opt.eval.vox_res
-    per_request = dict(k8_bf16=1 + N_VIEWS,
+    per_request = dict(k8_bf16=1 + N_VIEWS, generic_pack=1 + N_VIEWS,
                        k8_nograd=-(-(vox + 1) ** 3 // M.GRID_CHUNK))
     reset_launches()
     latencies = []
@@ -4379,7 +4447,8 @@ def main():
     # read this run's ptxas log
     cuda_lib.build_kernels(force=True)
     log(f"[setup] kernels built from {SOURCE}, {SOURCE_BWD} with "
-        f"{SOURCE_BWD_BF16}, {SOURCE_GENERIC}, {SOURCE_NN} and {SOURCE_ISO} "
+        f"{SOURCE_BWD_BF16}, {SOURCE_GENERIC} with {SOURCE_GENERIC_BF16}, "
+        f"{SOURCE_NN} and {SOURCE_ISO} "
         f"(five nvcc runs at once) in {time.perf_counter() - t0:.2f} s")
     for lib in cuda_lib.libraries():
         log(lib.ptxas_log.strip())
@@ -4521,7 +4590,9 @@ def main():
     ]
     def generic_entry(key, name, path, **more):
         r = gen[key]
-        return dict(name=name, route="cuda", source=SOURCE_GENERIC,
+        source = SOURCE_GENERIC_BF16 if key in (
+            "k8_bf16", "k9_bf16", "generic_pack") else SOURCE_GENERIC
+        return dict(name=name, route="cuda", source=source,
                     replaces=REPLACES_BWD if key.startswith("k9")
                     else REPLACES, launches=gen_launches[path][key],
                     max_abs_err=r.pop("err"), **r, library_ms=None, **more)
@@ -4530,15 +4601,20 @@ def main():
         generic_entry("k8", "fused_sdf_generic_fwd (K8, compute_grad=True, "
                       "SDF MLPs off the flagship)", "eval",
                       train_launches=gen_launches["train_float32"]["k8"]),
-        generic_entry("k8_bf16", "fused_sdf_generic_fwd (K8-bf16, "
-                      "compute_grad=True, bf16 products)", "train_bfloat16",
+        generic_entry("k8_bf16", "fused_sdf_generic_fwd_bf16 (K8-bf16, "
+                      "compute_grad=True, bf16 products on the tensor "
+                      "cores)", "train_bfloat16",
                       serve_launches=gen_launches["serve"]["k8_bf16"]),
         generic_entry("k8_nograd", "fused_sdf_generic_fwd (K8-nograd, "
                       "compute_grad=False)", "eval",
                       serve_launches=gen_launches["serve"]["k8_nograd"]),
         generic_entry("k9", "fused_sdf_generic_bwd (K9)", "train_float32"),
-        generic_entry("k9_bf16", "fused_sdf_generic_bwd (K9-bf16, bf16 "
-                      "products)", "train_bfloat16"),
+        generic_entry("k9_bf16", "fused_sdf_generic_bwd_bf16 (K9-bf16, bf16 "
+                      "products on the tensor cores)", "train_bfloat16"),
+        generic_entry("generic_pack", "fused_sdf_generic_pack_bf16 (K8-bf16 "
+                      "/ K9-bf16's zero-padded bf16 weights)",
+                      "train_bfloat16",
+                      serve_launches=gen_launches["serve"]["generic_pack"]),
     ]
     for k in summary:
         if k["launches"] < 1:

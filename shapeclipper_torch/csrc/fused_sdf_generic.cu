@@ -10,7 +10,10 @@
 // Replaces the Pallas TPU kernels `shapeclipper_tpu/ops/fused_sdf.py::
 // _forward_call` (the `pl.pallas_call` at line 311) and `_backward_call`
 // (line 617) under any `cfg = (n_freqs, skip_in, n_hidden, ...)` and any
-// widths of their weights, with float32 or bf16 products (`_mm_cast`).
+// widths of their weights, with float32 products. Their bf16 forms
+// (`_mm_cast("bfloat16")`) run on the tensor cores in
+// `fused_sdf_generic_bf16.cu`, built into the same library; the C entry
+// points below dispatch on `mm_bf16`.
 //
 // The architecture arrives at run time (`Arch`): F frequencies (posenc
 // width D = 3 + 6F), L hidden layers of width W, a bitmask of the skip
@@ -35,19 +38,12 @@
 // t_d the raw tangent rows), the posenc rows' cotangent reversed through
 // dpe and d2pe, then the |x0| sign.
 //
-// bf16 (`mm_dtype="bfloat16"`): every product's operands are rounded to
-// bfloat16 (nearest even) where they are staged -- the activation rows, the
-// posenc rows and the weight chunks, and in K9 the cotangent rows after the
-// bias gradient has read them -- and every sum stays float32, as
-// `_CastProduct` computes.
-//
 // What bounds it on this card: arithmetic. With tangents a point needs
 // 4 rows x (the MLP's multiply-adds) in the forward and three times that in
 // K9 (recompute, input cotangent, weight gradient); bytes are a few hundred
 // per point. This first design runs every product as register-blocked
 // float32 FMA, at a fraction of the fp32 peak: simple and right first;
-// tensor cores (wgmma), cp.async / TMA staging and a resident weight set are
-// later work.
+// 3xTF32 on the tensor cores and a resident weight set are later work.
 //
 // The design. 256 threads a block; a tile of P points (R = 4P rows with
 // tangents, P without; a tile never spans two batch rows, points past N
@@ -84,44 +80,14 @@
 //       read the stash or the cotangents from global memory are unrolled,
 //       so that the loads are in flight together.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_sdf_generic.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 // weights a staged chunk holds (kStage / cb reduction rows of a pass's cb
 // columns: 32, 16 or 8 rows) and each thread moves
 constexpr int kStage = 2048;
 constexpr int kStagePerThread = kStage / kThreads;
-constexpr int kMaxHidden = 16;
-constexpr int kMaxWidth = 512;
-constexpr int kMaxFreqs = 16;
-constexpr float kBeta = 100.f;      // softplus(100 x) / 100
-constexpr int kSmemLimit = 232448;  // bytes of shared memory a block can use
-
-struct Arch {
-  int n_freqs, n_hidden, width, skip_mask;
-  int pe_dim;      // D = 3 + 6 F
-  int rows;        // R: rows of a tile
-  int points;      // P: points of a tile (R / 4 with tangents, R without)
-  int rs;          // shared row stride, R + 4
-  int cgroups;     // column groups: kThreads / (R / 4)
-  int bias_width;  // L W + W + 1
-  int num_weights;
-  int woff[kMaxHidden + 2];  // each layer's offset in the packed weights
-};
-
-__host__ __device__ inline bool layer_pe(const Arch& a, int l) {
-  return l == 0 || ((a.skip_mask >> l) & 1);
-}
-__host__ __device__ inline int layer_h(const Arch& a, int l) {
-  return l > 0 ? a.width : 0;
-}
-__host__ __device__ inline int layer_out(const Arch& a, int l) {
-  return l == a.n_hidden ? a.width + 1 : a.width;
-}
 
 // Shared-memory floats of a block: K8 two activation buffers [W][rs], the
 // posenc rows [D][rs]; K9 two buffers [W + 1][rs] (activations or
@@ -139,31 +105,6 @@ inline int smem_floats(const Arch& a, int rows, bool backward) {
   return act + chunk_floats(rows) + rs + 64;
 }
 
-// Fills `a` for the architecture, or returns false outside the envelope.
-inline bool make_arch(Arch* a, int n_freqs, int n_hidden, int width,
-                      int skip_mask) {
-  if (width < 1 || width > kMaxWidth || n_hidden < 1 ||
-      n_hidden > kMaxHidden || n_freqs < 0 || n_freqs > kMaxFreqs)
-    return false;
-  const int allowed = ((1 << (n_hidden + 1)) - 1) & ~1;  // bits 1 .. L
-  if (skip_mask & ~allowed) return false;
-  a->n_freqs = n_freqs;
-  a->n_hidden = n_hidden;
-  a->width = width;
-  a->skip_mask = skip_mask;
-  a->pe_dim = 3 + 6 * n_freqs;
-  a->bias_width = n_hidden * width + width + 1;
-  int off = 0;
-  for (int l = 0; l <= n_hidden; ++l) {
-    a->woff[l] = off;
-    off += (layer_h(*a, l) + (layer_pe(*a, l) ? a->pe_dim : 0)) *
-           layer_out(*a, l);
-  }
-  a->woff[n_hidden + 1] = off;
-  a->num_weights = off;
-  return true;
-}
-
 // The tile's rows: the largest of 64, 32, 16 whose shared memory fits.
 inline int choose_rows(const Arch& a, bool backward) {
   for (int rows = 64; rows >= 16; rows /= 2)
@@ -177,40 +118,6 @@ inline void set_tile(Arch* a, int rows, bool grad) {
   a->points = grad ? rows / 4 : rows;
   a->rs = rows + 4;
   a->cgroups = kThreads / (rows / 4);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  return kBf16 ? bf16_round(x) : x;
-}
-
-// (softplus(100 x) / 100, sigmoid(100 x)) sharing one exp, as `_act_pair`.
-__device__ __forceinline__ void act_pair(float prim, float& act, float& sig) {
-  const float z = kBeta * prim;
-  const float e = expf(-fabsf(z));
-  const float inv = 1.f / (1.f + e);
-  sig = z >= 0.f ? inv : 1.f - inv;
-  act = (fmaxf(z, 0.f) + log1pf(e)) / kBeta;
-}
-
-// Posenc feature d: its coordinate, its kind (0 the coordinate itself, 1 a
-// sine, 2 a cosine) and its frequency 2^f. Order [x, sin(2^0 x), cos(2^0 x),
-// sin(2^1 x), ...], each block of 3 coordinates.
-__device__ __forceinline__ void pe_feature(int d, int& coord, int& kind,
-                                           float& freq) {
-  coord = d % 3;
-  if (d < 3) {
-    kind = 0;
-    freq = 1.f;
-    return;
-  }
-  const int f = (d - 3) / 6;
-  kind = ((d - 3) % 6) < 3 ? 1 : 2;
-  freq = (float)(1 << f);
 }
 
 // This thread's place in a product: row group rg (rows 4 rg .. 4 rg + 3) and
@@ -245,7 +152,6 @@ __device__ __forceinline__ void chunk_place(int e, int cb, bool trans, int& i,
   }
 }
 
-template <bool kBf16>
 __device__ __forceinline__ void load_chunk(float (&v)[kStagePerThread],
                                            int cb, const float* w, int ld,
                                            bool trans, int k0, int kmax,
@@ -258,7 +164,7 @@ __device__ __forceinline__ void load_chunk(float (&v)[kStagePerThread],
     float x = 0.f;
     if (k < kmax && n < nmax)
       x = trans ? w[(size_t)n * ld + k] : w[(size_t)k * ld + n];
-    v[u] = operand<kBf16>(x);
+    v[u] = x;
   }
 }
 
@@ -277,19 +183,18 @@ __device__ __forceinline__ void store_chunk(float* chunk,
 // stride rs in shared memory. Every thread of the block calls it (it
 // synchronises); it starts with a barrier, so a buffer written before the
 // call is read only after every thread wrote its part.
-template <bool kBf16>
 __device__ void accumulate(float (&acc)[4][4], const Arch& a, Place pl,
                            const float* src, int K, const float* w, int ld,
                            bool trans, int c0, int nmax, float* chunk) {
   const int cb = 4 * a.cgroups, cs = cb + 4, kc = kStage / cb;
   float next[kStagePerThread];
-  load_chunk<kBf16>(next, cb, w, ld, trans, 0, K, c0, nmax);
+  load_chunk(next, cb, w, ld, trans, 0, K, c0, nmax);
   for (int k0 = 0; k0 < K; k0 += kc) {
     __syncthreads();  // every thread is done with the previous chunk
     store_chunk(chunk, next, cb, trans);
     __syncthreads();
     if (k0 + kc < K)
-      load_chunk<kBf16>(next, cb, w, ld, trans, k0 + kc, K, c0, nmax);
+      load_chunk(next, cb, w, ld, trans, k0 + kc, K, c0, nmax);
     const int kn = min(kc, K - k0);
     const float* s = src + (size_t)k0 * a.rs + 4 * pl.rg;
     const float* c = chunk + 4 * pl.cg;
@@ -307,11 +212,10 @@ __device__ void accumulate(float (&acc)[4][4], const Arch& a, Place pl,
   }
 }
 
-// The tile's posenc rows pt[d][r] (rounded in bf16: they are only ever a
-// product's operand) and the x0 signs; with tangents row 4 p + q + 1 holds
-// the tangent along coordinate q (dpe where feature d reads coordinate q,
-// else 0).
-template <bool kGrad, bool kBf16>
+// The tile's posenc rows pt[d][r] and the x0 signs; with tangents row
+// 4 p + q + 1 holds the tangent along coordinate q (dpe where feature d reads
+// coordinate q, else 0).
+template <bool kGrad>
 __device__ void build_posenc(const Arch& a, const float* points, int b, int N,
                              int n0, int force_symmetry, float* pt,
                              float* sign) {
@@ -335,11 +239,10 @@ __device__ void build_posenc(const Arch& a, const float* points, int b, int N,
     }
     if (kGrad) {
       float* row = pt + (size_t)d * a.rs + 4 * p;
-      row[0] = operand<kBf16>(v);
-      for (int q = 0; q < 3; ++q)
-        row[q + 1] = q == coord ? operand<kBf16>(dv) : 0.f;
+      row[0] = v;
+      for (int q = 0; q < 3; ++q) row[q + 1] = q == coord ? dv : 0.f;
     } else {
-      pt[(size_t)d * a.rs + p] = operand<kBf16>(v);
+      pt[(size_t)d * a.rs + p] = v;
     }
   }
   for (int p = threadIdx.x; p < P; p += kThreads) {
@@ -352,7 +255,7 @@ __device__ void build_posenc(const Arch& a, const float* points, int b, int N,
 // The hidden layers 0 .. L-1 of a tile: h_l = act(layer l of [h_(l-1);
 // posenc]) into the other buffer, each layer's [prim; raw tangents] into
 // `stash` ([l][c][r]) when given. Returns the buffer that holds h_(L-1).
-template <bool kGrad, bool kBf16>
+template <bool kGrad>
 __device__ float* forward_hidden(const Arch& a, Place pl,
                                  const float* weights, const float* bias_row,
                                  float* hin, float* hout, const float* pt,
@@ -364,10 +267,10 @@ __device__ float* forward_hidden(const Arch& a, Place pl,
     const float* bias = bias_row + l * W;
     for (int c0 = 0; c0 < W; c0 += cb) {
       float acc[4][4] = {};
-      if (Kh) accumulate<kBf16>(acc, a, pl, hin, Kh, w, W, false, c0, W,
+      if (Kh) accumulate(acc, a, pl, hin, Kh, w, W, false, c0, W,
                                 chunk);
       if (layer_pe(a, l))
-        accumulate<kBf16>(acc, a, pl, pt, a.pe_dim, w + (size_t)Kh * W, W,
+        accumulate(acc, a, pl, pt, a.pe_dim, w + (size_t)Kh * W, W,
                           false, c0, W, chunk);
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + 4 * pl.cg + j;
@@ -388,8 +291,6 @@ __device__ float* forward_hidden(const Arch& a, Place pl,
           for (int q = 0; q < 4; ++q) act_pair(acc[q][j] + bias[c], o[q], sig);
           v = make_float4(o[0], o[1], o[2], o[3]);
         }
-        v = make_float4(operand<kBf16>(v.x), operand<kBf16>(v.y),
-                        operand<kBf16>(v.z), operand<kBf16>(v.w));
         *reinterpret_cast<float4*>(hout + (size_t)c * a.rs + 4 * pl.rg) = v;
       }
     }
@@ -401,7 +302,7 @@ __device__ float* forward_hidden(const Arch& a, Place pl,
 }
 
 // K8 (with tangents) and K8-nograd: one block a tile.
-template <bool kGrad, bool kBf16>
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads)
     sdf_generic_fwd_kernel(const float* __restrict__ points,
                            const float* __restrict__ weights,
@@ -422,10 +323,9 @@ __global__ void __launch_bounds__(kThreads)
   const Place pl = place(a);
   const float* bias_row = biases + (size_t)b * a.bias_width;
 
-  build_posenc<kGrad, kBf16>(a, points, b, N, n0, force_symmetry, pt, sign);
-  const float* h = forward_hidden<kGrad, kBf16>(a, pl, weights, bias_row,
-                                                buf0, buf1, pt, chunk,
-                                                nullptr);
+  build_posenc<kGrad>(a, points, b, N, n0, force_symmetry, pt, sign);
+  const float* h = forward_hidden<kGrad>(a, pl, weights, bias_row, buf0,
+                                         buf1, pt, chunk, nullptr);
   // the output layer: [sdf | feature] on the primal rows, the gradient from
   // the tangent rows' sdf column
   const int L = a.n_hidden, Nout = W + 1;
@@ -433,9 +333,9 @@ __global__ void __launch_bounds__(kThreads)
   const float* bias = bias_row + L * W;
   for (int c0 = 0; c0 < Nout; c0 += cb) {
     float acc[4][4] = {};
-    accumulate<kBf16>(acc, a, pl, h, W, w, Nout, false, c0, Nout, chunk);
+    accumulate(acc, a, pl, h, W, w, Nout, false, c0, Nout, chunk);
     if (layer_pe(a, L))
-      accumulate<kBf16>(acc, a, pl, pt, D, w + (size_t)W * Nout, Nout, false,
+      accumulate(acc, a, pl, pt, D, w + (size_t)W * Nout, Nout, false,
                         c0, Nout, chunk);
     for (int q = 0; q < 4; ++q) {
       const int p = kGrad ? pl.rg : 4 * pl.rg + q, n = n0 + p;
@@ -527,7 +427,6 @@ __device__ void weight_grad(const Arch& a, int Kh, bool pe, int Nout,
 // K9: persistent blocks over the tiles (with tangents); the block's slices:
 // part [num_weights + B bias_width] (d weights, then d biases) and stash
 // [L][W][R].
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     sdf_generic_bwd_kernel(const float* __restrict__ points,
                            const float* __restrict__ weights,
@@ -565,10 +464,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int n0 = (tile % tiles_per_batch) * P;
     const float* bias_row = biases + (size_t)b * a.bias_width;
     __syncthreads();  // the previous tile is done with every buffer
-    build_posenc<true, kBf16>(a, points, b, N, n0, force_symmetry, pt, sign);
+    build_posenc<true>(a, points, b, N, n0, force_symmetry, pt, sign);
     for (int e = threadIdx.x; e < D * rs; e += kThreads) gt[e] = 0.f;
-    float* h = forward_hidden<true, kBf16>(a, pl, weights, bias_row, bufa,
-                                           bufb, pt, chunk, stash);
+    float* h = forward_hidden<true>(a, pl, weights, bias_row, bufa, bufb, pt,
+                                    chunk, stash);
     float* cot = h == bufa ? bufb : bufa;
     __syncthreads();
     // the output layer's cotangent rows: [sdf_bar | feat_bar] on the primal
@@ -592,18 +491,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool pe = layer_pe(a, l);
       const float* w = weights + a.woff[l];
       __syncthreads();
-      // the bias gradient: the primal rows' cotangent, unrounded
+      // the bias gradient: the primal rows' cotangent
       for (int c = threadIdx.x; c < Nout; c += kThreads) {
         float s = 0.f;
         for (int p = 0; p < P; ++p) s += cot[(size_t)c * rs + 4 * p];
         db[(size_t)b * a.bias_width + l * W + c] += s;
-      }
-      if (kBf16) {
-        __syncthreads();
-        for (int e = threadIdx.x; e < Nout * R; e += kThreads) {
-          float* x = cot + (size_t)(e / R) * rs + e % R;
-          *x = bf16_round(*x);
-        }
       }
       __syncthreads();
       weight_grad(a, Kh, pe, Nout, h, pt, cot, zero, dk + a.woff[l]);
@@ -613,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* st = stash + (size_t)(l - 1) * W * R;
         for (int c0 = 0; c0 < W; c0 += cb) {
           float acc[4][4] = {};
-          accumulate<kBf16>(acc, a, pl, cot, Nout, w, Nout, true, c0, W,
+          accumulate(acc, a, pl, cot, Nout, w, Nout, true, c0, W,
                             chunk);
           for (int j = 0; j < 4; ++j) {
             const int k = c0 + 4 * pl.cg + j;
@@ -634,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (pe) {
         for (int c0 = 0; c0 < D; c0 += cb) {
           float acc[4][4] = {};
-          accumulate<kBf16>(acc, a, pl, cot, Nout, w + (size_t)Kh * Nout,
+          accumulate(acc, a, pl, cot, Nout, w + (size_t)Kh * Nout,
                             Nout, true, c0, D, chunk);
           for (int j = 0; j < 4; ++j) {
             const int d = c0 + 4 * pl.cg + j;
@@ -656,9 +548,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float act, sig;
           act_pair(s4.x, act, sig);
           *reinterpret_cast<float4*>(cot + (size_t)c * rs + 4 * p) =
-              make_float4(operand<kBf16>(act), operand<kBf16>(s4.y * sig),
-                          operand<kBf16>(s4.z * sig),
-                          operand<kBf16>(s4.w * sig));
+              make_float4(act, s4.y * sig, s4.z * sig, s4.w * sig);
         }
       }
       float* t = cot;  // C_(l-1) is in h now, h_(l-2) in cot
@@ -688,29 +578,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// out[i] = sum over the blocks g of part[g][i], g in order.
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, size_t n,
-                                    int blocks) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int g = 0; g < blocks; ++g) s += part[(size_t)g * n + i];
-  out[i] = s;
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------- C entry
 
 namespace {
-
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
 
 // The architecture and its tile for a launch, or false outside the envelope.
 bool launch_arch(Arch* a, int n_freqs, int n_hidden, int width, int skip_mask,
@@ -732,11 +604,22 @@ extern "C" int scl_sdf_generic_num_weights(int n_freqs, int n_hidden,
                                                             : -1;
 }
 
-// Points of a tile: K8 (`backward` 0, with or without tangents) or K9, or
-// -1 outside the envelope.
+// The bf16 forms' packed weights (`scl_sdf_generic_pack_bf16`, bf16
+// elements), or -1 outside the envelope.
+extern "C" int scl_sdf_generic_packed_bf16(int n_freqs, int n_hidden,
+                                           int width, int skip_mask) {
+  return sdf_generic_bf16_packed(n_freqs, n_hidden, width, skip_mask);
+}
+
+// Points of a tile: K8 (`backward` 0, with or without tangents) or K9, with
+// float32 or (mm_bf16) bf16 products, or -1 outside the envelope.
 extern "C" int scl_sdf_generic_tile_points(int n_freqs, int n_hidden,
                                            int width, int skip_mask,
-                                           int compute_grad, int backward) {
+                                           int compute_grad, int backward,
+                                           int mm_bf16) {
+  if (mm_bf16)
+    return sdf_generic_bf16_tile_points(n_freqs, n_hidden, width, skip_mask,
+                                        compute_grad || backward, backward);
   Arch a;
   if (!launch_arch(&a, n_freqs, n_hidden, width, skip_mask,
                    compute_grad || backward, backward))
@@ -744,41 +627,73 @@ extern "C" int scl_sdf_generic_tile_points(int n_freqs, int n_hidden,
   return a.points;
 }
 
+// Floats of K9's stash a block (float32 or bf16 products), or -1 outside
+// the envelope.
+extern "C" int scl_sdf_generic_stash_floats(int n_freqs, int n_hidden,
+                                            int width, int skip_mask,
+                                            int mm_bf16) {
+  if (mm_bf16)
+    return sdf_generic_bf16_stash_floats(n_freqs, n_hidden, width,
+                                         skip_mask);
+  Arch a;
+  if (!launch_arch(&a, n_freqs, n_hidden, width, skip_mask, true, true))
+    return -1;
+  return a.n_hidden * a.width * a.rows;
+}
+
 // K9's blocks that fit on one SM at once (its grid is that times the SMs,
 // capped at the tiles), or -1 outside the envelope / a cudaError_t < 0.
 extern "C" int scl_sdf_generic_bwd_blocks_per_sm(int n_freqs, int n_hidden,
                                                  int width, int skip_mask,
                                                  int mm_bf16) {
+  if (mm_bf16)
+    return sdf_generic_bf16_bwd_blocks_per_sm(n_freqs, n_hidden, width,
+                                              skip_mask);
   Arch a;
   if (!launch_arch(&a, n_freqs, n_hidden, width, skip_mask, true, true))
     return -1;
   const size_t smem = smem_floats(a, a.rows, true) * sizeof(float);
   int blocks = 0;
-  cudaError_t err;
-  if (mm_bf16) {
-    err = allow_smem(sdf_generic_bwd_kernel<true>, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sdf_generic_bwd_kernel<true>, kThreads, smem);
-  } else {
-    err = allow_smem(sdf_generic_bwd_kernel<false>, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sdf_generic_bwd_kernel<false>, kThreads, smem);
-  }
+  cudaError_t err = allow_smem(sdf_generic_bwd_kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, sdf_generic_bwd_kernel, kThreads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// K8: points [B,N,3], weights [num_weights], biases [B, L W + W + 1] ->
-// sdf [B,N], feat [B,N,W], grad [B,N,3] (with compute_grad); float32 (bf16
-// products with mm_bf16, the operands rounded inside), contiguous, on the
-// current device. One launch on `stream`; returns a cudaError_t.
+// The bf16 forms' weights: the packed float32 weights [num_weights] ->
+// `packed` [scl_sdf_generic_packed_bf16] bf16, each layer zero-padded to
+// multiples of 16 (`fused_sdf_generic_bf16.cu`). One launch on `stream`;
+// returns a cudaError_t.
+extern "C" int scl_sdf_generic_pack_bf16(const void* weights, void* packed,
+                                         int n_freqs, int n_hidden, int width,
+                                         int skip_mask, void* stream) {
+  return sdf_generic_bf16_pack(static_cast<const float*>(weights), packed,
+                               n_freqs, n_hidden, width, skip_mask,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K8: points [B,N,3], weights, biases [B, L W + W + 1] -> sdf [B,N], feat
+// [B,N,W], grad [B,N,3] (with compute_grad); float32, contiguous, on the
+// current device. The weights are the packed float32 ones [num_weights],
+// or with mm_bf16 (bf16 products) their bf16 pack. One launch on `stream`;
+// returns a cudaError_t.
 extern "C" int scl_sdf_generic_fwd(const void* points, const void* weights,
                                    const void* biases, void* sdf, void* feat,
                                    void* grad, int B, int N, int n_freqs,
                                    int n_hidden, int width, int skip_mask,
                                    int compute_grad, int force_symmetry,
                                    int mm_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(points);
+  const float* bi = static_cast<const float*>(biases);
+  float* so = static_cast<float*>(sdf);
+  float* fo = static_cast<float*>(feat);
+  float* go = static_cast<float*>(grad);
+  if (mm_bf16)
+    return sdf_generic_bf16_fwd(p, weights, bi, so, fo, go, B, N,
+                                compute_grad != 0, force_symmetry, n_freqs,
+                                n_hidden, width, skip_mask, s);
   Arch a;
   if (B <= 0 || N <= 0 ||
       !launch_arch(&a, n_freqs, n_hidden, width, skip_mask, compute_grad != 0,
@@ -787,27 +702,17 @@ extern "C" int scl_sdf_generic_fwd(const void* points, const void* weights,
   const long long tiles = (long long)B * ((N + a.points - 1) / a.points);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(a, a.rows, false) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* p = static_cast<const float*>(points);
   const float* w = static_cast<const float*>(weights);
-  const float* bi = static_cast<const float*>(biases);
-  float* so = static_cast<float*>(sdf);
-  float* fo = static_cast<float*>(feat);
-  float* go = static_cast<float*>(grad);
   cudaError_t err;
-#define SCL_FWD(G, M)                                                    \
-  err = allow_smem(sdf_generic_fwd_kernel<G, M>, smem);                  \
+#define SCL_FWD(G)                                                       \
+  err = allow_smem(sdf_generic_fwd_kernel<G>, smem);                     \
   if (err != cudaSuccess) return (int)err;                               \
-  sdf_generic_fwd_kernel<G, M><<<(int)tiles, kThreads, smem, s>>>(       \
+  sdf_generic_fwd_kernel<G><<<(int)tiles, kThreads, smem, s>>>(          \
       p, w, bi, so, fo, go, N, force_symmetry, a);
-  if (compute_grad && mm_bf16) {
-    SCL_FWD(true, true)
-  } else if (compute_grad) {
-    SCL_FWD(true, false)
-  } else if (mm_bf16) {
-    SCL_FWD(false, true)
+  if (compute_grad) {
+    SCL_FWD(true)
   } else {
-    SCL_FWD(false, false)
+    SCL_FWD(false)
   }
 #undef SCL_FWD
   return (int)cudaGetLastError();
@@ -816,9 +721,10 @@ extern "C" int scl_sdf_generic_fwd(const void* points, const void* weights,
 // K9: points [B,N,3], weights, biases (as K8), the cotangents sbar [B,N],
 // fbar [B,N,W], gbar [B,N,3] -> dpoints [B,N,3] and out [num_weights +
 // B (L W + W + 1)] (d weights, then d biases); partials [grid][the same]
-// and stash [grid][L W 4P] are scratch, one slice a block. Any grid >= 1 is
-// correct; the caller passes `scl_sdf_generic_bwd_blocks_per_sm` x the SMs,
-// capped at the tiles. Two launches on `stream`; returns a cudaError_t.
+// and stash [grid][scl_sdf_generic_stash_floats] are scratch, one slice a
+// block. Any grid >= 1 is correct; the caller passes
+// `scl_sdf_generic_bwd_blocks_per_sm` x the SMs, capped at the tiles. Two
+// launches on `stream`; returns a cudaError_t.
 extern "C" int scl_sdf_generic_bwd(const void* points, const void* weights,
                                    const void* biases, const void* sbar,
                                    const void* fbar, const void* gbar,
@@ -827,6 +733,15 @@ extern "C" int scl_sdf_generic_bwd(const void* points, const void* weights,
                                    int n_freqs, int n_hidden, int width,
                                    int skip_mask, int force_symmetry,
                                    int mm_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mm_bf16)
+    return sdf_generic_bf16_bwd(
+        static_cast<const float*>(points), weights,
+        static_cast<const float*>(biases), static_cast<const float*>(sbar),
+        static_cast<const float*>(fbar), static_cast<const float*>(gbar),
+        static_cast<float*>(dpoints), static_cast<float*>(out),
+        static_cast<float*>(partials), static_cast<float*>(stash), B, N, grid,
+        force_symmetry, n_freqs, n_hidden, width, skip_mask, s);
   Arch a;
   if (B <= 0 || N <= 0 || grid <= 0 ||
       !launch_arch(&a, n_freqs, n_hidden, width, skip_mask, true, true))
@@ -834,23 +749,14 @@ extern "C" int scl_sdf_generic_bwd(const void* points, const void* weights,
   if ((long long)B * ((N + a.points - 1) / a.points) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(a, a.rows, true) * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define SCL_BWD(M)                                                        \
-  err = allow_smem(sdf_generic_bwd_kernel<M>, smem);                      \
-  if (err != cudaSuccess) return (int)err;                                \
-  sdf_generic_bwd_kernel<M><<<grid, kThreads, smem, s>>>(                 \
-      static_cast<const float*>(points), static_cast<const float*>(weights), \
-      static_cast<const float*>(biases), static_cast<const float*>(sbar),  \
-      static_cast<const float*>(fbar), static_cast<const float*>(gbar),    \
-      static_cast<float*>(dpoints), static_cast<float*>(partials),         \
+  cudaError_t err = allow_smem(sdf_generic_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  sdf_generic_bwd_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(points), static_cast<const float*>(weights),
+      static_cast<const float*>(biases), static_cast<const float*>(sbar),
+      static_cast<const float*>(fbar), static_cast<const float*>(gbar),
+      static_cast<float*>(dpoints), static_cast<float*>(partials),
       static_cast<float*>(stash), B, N, force_symmetry, a);
-  if (mm_bf16) {
-    SCL_BWD(true)
-  } else {
-    SCL_BWD(false)
-  }
-#undef SCL_BWD
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)a.num_weights + (size_t)B * a.bias_width;

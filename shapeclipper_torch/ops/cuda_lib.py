@@ -36,11 +36,13 @@ class CudaLibrary:
     """A library's `.cu` sources built with nvcc (sm_90a, plain C interface)
     into `build/`, once per content hash, and loaded with ctypes. A subclass
     names `stem` and `source` (and any `extra_sources` linked into the same
-    library) and binds its C functions in `_bind`."""
+    library, and the `headers` they include, which enter its content hash)
+    and binds its C functions in `_bind`."""
 
     stem = None
     source = None
     extra_sources = ()
+    headers = ()
 
     def __init__(self, build_dir=BUILD_DIR):
         self.build_dir = build_dir
@@ -53,7 +55,7 @@ class CudaLibrary:
 
     def library_path(self):
         h = hashlib.sha1()
-        for src in self.sources():
+        for src in (*self.sources(), *self.headers):
             with open(src, "rb") as f:
                 h.update(f.read())
         digest = h.hexdigest()[:12]

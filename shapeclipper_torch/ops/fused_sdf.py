@@ -59,6 +59,8 @@ _SOURCE = os.path.join(CSRC_DIR, "fused_sdf_fwd.cu")
 _SOURCE_BWD = os.path.join(CSRC_DIR, "fused_sdf_bwd.cu")
 _SOURCE_BWD_BF16 = os.path.join(CSRC_DIR, "fused_sdf_bwd_bf16.cu")
 _SOURCE_GENERIC = os.path.join(CSRC_DIR, "fused_sdf_generic.cu")
+_SOURCE_GENERIC_BF16 = os.path.join(CSRC_DIR, "fused_sdf_generic_bf16.cu")
+_HEADER_GENERIC = os.path.join(CSRC_DIR, "fused_sdf_generic.cuh")
 
 # the packed sizes of `FLAGSHIP`, the architecture K1 / K3 / K2 are written
 # for
@@ -343,6 +345,46 @@ def pack_bf16_reference(weights):
                         torch.zeros((), dtype=torch.bfloat16,
                                     device=weights.device))
     return frags, plain
+
+
+def _padded_widths(arch):
+    """(wp, dp, op): the width, 3 + 6 F and width + 1 rounded up to 16, as
+    the bf16 pack stores them."""
+    return tuple(-(-x // 16) * 16
+                 for x in (arch.width, arch.pe_dim, arch.width + 1))
+
+
+def generic_packed_bf16(arch):
+    """bf16 elements of `generic_pack_bf16_reference`'s pack."""
+    wp, dp, op = _padded_widths(arch)
+    return sum(((wp if l else 0) + (dp if l == 0 or l in arch.skip_in
+                                    else 0)) * (op if l == arch.n_hidden
+                                                else wp)
+               for l in range(arch.n_hidden + 1))
+
+
+def generic_pack_bf16_reference(weights, arch):
+    """The plain version of `GenericSdfKernel.pack_bf16`: the packed
+    float32 weights [arch.num_weights] -> K8-bf16 / K9-bf16's weights, bf16
+    (nearest even): each layer a zero-padded [kp][np] matrix, its rows the
+    h rows padded to wp then (layer 0 and the skip layers) the posenc rows
+    padded to dp, its columns padded to wp (the output layer: op,
+    `_padded_widths`); the layers back to back."""
+    wp, dp, op = _padded_widths(arch)
+    kernels, _ = unpack_fused_params(
+        weights, weights.new_zeros(1, arch.bias_width), arch)
+    parts = []
+    for l, (ka, kb) in enumerate(kernels):
+        n = op if l == arch.n_hidden else wp
+        pe = ka if l == 0 else kb
+        blocks = [] if l == 0 else [(ka, wp)]
+        if pe is not None:
+            blocks.append((pe, dp))
+        for k, rows in blocks:
+            m = weights.new_zeros(rows, n)
+            m[:k.shape[0], :k.shape[1]] = k
+            parts.append(m.reshape(-1))
+    return torch.cat(parts).to(torch.bfloat16)
 
 
 def _product(mm_dtype):
@@ -686,34 +728,45 @@ class FusedSdfBackwardKernel(CudaLibrary):
 
 
 class GenericSdfKernel(CudaLibrary):
-    """The architecture-generic pair (`csrc/fused_sdf_generic.cu`): K8
-    (forward with tangents, 'grad'), K8-nograd ('nograd') and K9 (the
-    backward, 'bwd'), each with '_bf16' for the bfloat16 products. One build
-    serves every architecture of `ENVELOPE`, which arrives at each launch.
-    `launches` counts each where it is launched and nowhere else."""
+    """The architecture-generic pair: K8 (forward with tangents, 'grad'),
+    K8-nograd ('nograd') and K9 (the backward, 'bwd'), float32 FMA in
+    `csrc/fused_sdf_generic.cu`, and with '_bf16' their bf16 forms on the
+    tensor cores in `csrc/fused_sdf_generic_bf16.cu`, which read the
+    weights' bf16 pack ('pack_bf16', one launch before each bf16 launch).
+    One build serves every architecture of `ENVELOPE`, which arrives at
+    each launch. `launches` counts each where it is launched and nowhere
+    else."""
 
     stem = "scl_fused_sdf_generic"
     source = _SOURCE_GENERIC
+    extra_sources = (_SOURCE_GENERIC_BF16,)
+    headers = (_HEADER_GENERIC,)
 
     def __init__(self, build_dir=BUILD_DIR):
         super().__init__(build_dir)
         self.launches = {k + m: 0 for k in ("grad", "nograd", "bwd")
                          for m in ("", "_bf16")}
+        self.launches["pack_bf16"] = 0
 
     def _bind(self, lib):
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.scl_sdf_generic_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
         lib.scl_sdf_generic_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.scl_sdf_generic_pack_bf16.argtypes = [p] * 2 + [i] * 4 + [p]
         lib.scl_sdf_generic_num_weights.argtypes = [i] * 4
-        lib.scl_sdf_generic_tile_points.argtypes = [i] * 6
+        lib.scl_sdf_generic_packed_bf16.argtypes = [i] * 4
+        lib.scl_sdf_generic_tile_points.argtypes = [i] * 7
+        lib.scl_sdf_generic_stash_floats.argtypes = [i] * 5
         lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
-        for name in ("fwd", "bwd", "num_weights", "tile_points",
-                     "bwd_blocks_per_sm"):
+        for name in ("fwd", "bwd", "pack_bf16", "num_weights", "packed_bf16",
+                     "tile_points", "stash_floats", "bwd_blocks_per_sm"):
             getattr(lib, f"scl_sdf_generic_{name}").restype = i
         for arch in (FLAGSHIP, SdfArch(4, (2,), 4, 32),
                      SdfArch(0, (), 16, 512)):
-            if lib.scl_sdf_generic_num_weights(*self._arch_args(arch)) \
-                    != arch.num_weights:
+            args = self._arch_args(arch)
+            if lib.scl_sdf_generic_num_weights(*args) != arch.num_weights \
+                    or lib.scl_sdf_generic_packed_bf16(*args) \
+                    != generic_packed_bf16(arch):
                 raise RuntimeError("the generic SDF library packs another "
                                    f"layout for {arch}")
 
@@ -725,7 +778,7 @@ class GenericSdfKernel(CudaLibrary):
     def _check_operands(arch, points, weights, biases, *cots):
         """Raise unless every operand is float32, contiguous, on the points'
         CUDA device and of the shape the kernels index: points [B,N,3],
-        weights [arch.num_weights] (bf16 products round them inside),
+        weights [arch.num_weights] (the bf16 forms read their pack),
         biases [B, arch.bias_width], the cotangents [B,N], [B,N,W],
         [B,N,3]."""
         B, N = points.shape[:2]
@@ -739,12 +792,48 @@ class GenericSdfKernel(CudaLibrary):
                                 f"float32 {shape} on a CUDA device, got "
                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
+    def pack_bf16(self, weights, arch):
+        """weights [arch.num_weights] float32 -> what K8-bf16 / K9-bf16 read
+        ([generic_packed_bf16(arch)] bf16, `generic_pack_bf16_reference`'s
+        layout): on CUDA one launch of the pack kernel; CPU tensors take the
+        plain version."""
+        if weights.dtype != torch.float32 \
+                or tuple(weights.shape) != (arch.num_weights,) \
+                or not weights.is_contiguous():
+            raise TypeError(f"the generic bf16 pack takes {arch.num_weights} "
+                            f"contiguous float32 weights, got {weights.dtype} "
+                            f"{tuple(weights.shape)}")
+        if weights.device.type == "cpu":
+            return generic_pack_bf16_reference(weights, arch)
+        if weights.device.type != "cuda":
+            raise ValueError(f"no generic bf16 pack for device "
+                             f"{weights.device}")
+        lib = self.build()
+        dev = weights.device
+        packed = torch.empty(generic_packed_bf16(arch), device=dev,
+                             dtype=torch.bfloat16)
+        with torch.cuda.device(dev):
+            err = lib.scl_sdf_generic_pack_bf16(
+                weights.data_ptr(), packed.data_ptr(),
+                *self._arch_args(arch),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"generic bf16 weight pack launch failed: "
+                               f"cudaError {err}")
+        self.launches["pack_bf16"] += 1
+        return packed
+
+    def _weights(self, weights, arch, mm_dtype):
+        return (self.pack_bf16(weights, arch) if mm_dtype == "bfloat16"
+                else weights)
+
     def forward(self, points, weights, biases, arch, compute_grad,
                 force_symmetry, mm_dtype="float32"):
         """points [B,N,3], weights [arch.num_weights], biases [B,
         arch.bias_width] (float32, contiguous, one CUDA device) -> (sdf
         [B,N], feat [B,N,W], grad [B,N,3] or None), float32: one launch of
-        K8 (K8-nograd without `compute_grad`)."""
+        K8 (K8-nograd without `compute_grad`), after the bf16 pack for bf16
+        products."""
         _check_mm_dtype(mm_dtype)
         self._check_operands(arch, points, weights, biases)
         lib = self.build()
@@ -754,9 +843,10 @@ class GenericSdfKernel(CudaLibrary):
         sdf = torch.empty(B, N, **f32)
         feat = torch.empty(B, N, arch.width, **f32)
         grad = torch.empty(B, N, 3, **f32) if compute_grad else None
+        w = self._weights(weights, arch, mm_dtype)
         with torch.cuda.device(dev):
             err = lib.scl_sdf_generic_fwd(
-                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                points.data_ptr(), w.data_ptr(), biases.data_ptr(),
                 sdf.data_ptr(), feat.data_ptr(),
                 grad.data_ptr() if compute_grad else None, B, N,
                 *self._arch_args(arch), int(bool(compute_grad)),
@@ -769,40 +859,53 @@ class GenericSdfKernel(CudaLibrary):
         self.launches[key + ("_bf16" if mm_dtype == "bfloat16" else "")] += 1
         return sdf, feat, grad
 
+    def scratch_floats(self, arch, B, N, mm_dtype="float32"):
+        """(grid, partial floats a block, stash floats a block) of a K9
+        launch at B x N on the current CUDA device: its blocks (as many as
+        fit on the card, at most one a tile) each own a slice of the
+        weight- and bias-gradient partials and of the stash."""
+        lib = self.build()
+        bf16 = int(mm_dtype == "bfloat16")
+        args = self._arch_args(arch)
+        tile = lib.scl_sdf_generic_tile_points(*args, 1, 1, bf16)
+        per_sm = lib.scl_sdf_generic_bwd_blocks_per_sm(*args, bf16)
+        stash = lib.scl_sdf_generic_stash_floats(*args, bf16)
+        if tile < 1 or per_sm < 1 or stash < 1:
+            raise RuntimeError(f"generic SDF backward has no launch for "
+                               f"{arch}: tile {tile}, blocks {per_sm}")
+        sms = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+        grid = min(sms * per_sm, B * -(-N // tile))
+        return grid, arch.num_weights + B * arch.bias_width, stash
+
     def backward(self, points, weights, biases, arch, sbar, fbar, gbar,
                  force_symmetry, mm_dtype="float32"):
         """K9: points, weights and biases as `forward`, the cotangents sbar
         [B,N], fbar [B,N,W], gbar [B,N,3] -> (d weights [arch.num_weights],
         d biases [B, arch.bias_width], d points [B,N,3]), float32. Its
-        blocks (as many as fit on the card, at most one a tile) each add
-        into their own slice of the partials, which a second launch sums."""
+        blocks each add into their own slice of the partials, which a
+        second launch sums (`scratch_floats`); the bf16 pack first for bf16
+        products."""
         _check_mm_dtype(mm_dtype)
         self._check_operands(arch, points, weights, biases, sbar, fbar, gbar)
         lib = self.build()
         B, N, _ = points.shape
         dev = points.device
         bf16 = int(mm_dtype == "bfloat16")
-        args = self._arch_args(arch)
-        tile = lib.scl_sdf_generic_tile_points(*args, 1, 1)
         with torch.cuda.device(dev):
-            per_sm = lib.scl_sdf_generic_bwd_blocks_per_sm(*args, bf16)
-            if tile < 1 or per_sm < 1:
-                raise RuntimeError(f"generic SDF backward has no launch for "
-                                   f"{arch}: tile {tile}, blocks {per_sm}")
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = min(sms * per_sm, B * -(-N // tile))
+            grid, width, stash_floats = self.scratch_floats(arch, B, N,
+                                                            mm_dtype)
+            w = self._weights(weights, arch, mm_dtype)
             f32 = dict(device=dev, dtype=torch.float32)
-            width = arch.num_weights + B * arch.bias_width
             dpoints = torch.empty(B, N, 3, **f32)
             out = torch.empty(width, **f32)
             partials = torch.empty(grid, width, **f32)
-            stash = torch.empty(grid, arch.n_hidden * arch.width * 4 * tile,
-                                **f32)
+            stash = torch.empty(grid, stash_floats, **f32)
             err = lib.scl_sdf_generic_bwd(
-                points.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                points.data_ptr(), w.data_ptr(), biases.data_ptr(),
                 sbar.data_ptr(), fbar.data_ptr(), gbar.data_ptr(),
                 dpoints.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                stash.data_ptr(), B, N, grid, *args,
+                stash.data_ptr(), B, N, grid, *self._arch_args(arch),
                 int(bool(force_symmetry)), bf16,
                 torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:

@@ -20,3 +20,4 @@ inline float __bfloat162float(__nv_bfloat16 h) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }

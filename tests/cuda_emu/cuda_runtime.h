@@ -1,7 +1,13 @@
 // The subset of the CUDA runtime that the device code of
-// shapeclipper_torch/csrc/fused_sdf_generic.cu uses, for running that code
-// on the CPU (tests/test_torch_generic_emulated.py): a block's threads are
-// std::threads, __syncthreads a std::barrier over them, blocks run in turn.
+// shapeclipper_torch/csrc/fused_sdf_generic.cu and fused_sdf_generic_bf16.cu
+// uses, for running that code on the CPU
+// (tests/test_torch_generic_emulated.py):
+// a block's threads are std::threads, __syncthreads a std::barrier over
+// them, blocks run in turn. The warp-collective fragment functions of
+// fused_sdf_generic_bf16.cu (ldmatrix, mma.sync m16n8k16 bf16, shuffles)
+// exchange through per-warp slots behind a per-warp std::barrier, with the
+// PTX ISA's fragment layouts; cp.async copies are queued per thread and
+// land when the thread waits for their group (harness.cpp).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -22,6 +28,10 @@ struct float4 {
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
 
 #define __global__
 #define __device__
@@ -34,5 +44,44 @@ inline float4 make_float4(float a, float b, float c, float d) {
 
 using std::max;
 using std::min;
+inline float __expf(float x) { return std::exp(x); }
+inline float __logf(float x) { return std::log(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 void __syncthreads();
 typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
+
+// the fragment plumbing of fused_sdf_generic_bf16.cu
+#define SCL_EMULATED 1
+void __syncwarp(unsigned mask = 0xffffffffu);
+float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+// ldmatrix.m8n8 .x{count} (.trans): `row` is this lane's row address
+void emu_ldmatrix(uint32_t* r, const void* row, int count, bool trans);
+inline void ldsm2(uint32_t (&r)[2], const void* p) {
+  emu_ldmatrix(r, p, 2, false);
+}
+inline void ldsm2t(uint32_t (&r)[2], const void* p) {
+  emu_ldmatrix(r, p, 2, true);
+}
+inline void ldsm4(uint32_t (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, 4, false);
+}
+inline void ldsm4t(uint32_t (&r)[4], const void* p) {
+  emu_ldmatrix(r, p, 4, true);
+}
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, c += A B
+void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+              uint32_t b1);
+void cp_async16(void* dst, const void* src, bool valid);
+void cp_async_commit();
+void emu_cp_async_wait(int n);
+inline void prefetch_l2(const void*) {}
+template <int N>
+inline void cp_async_wait() {
+  emu_cp_async_wait(N);
+}

@@ -3,7 +3,8 @@ the card: the fused SDF forward and backward (`shapeclipper_torch/csrc/
 fused_sdf_fwd.cu`, K1 / K3 and their bf16 forms with the bf16 weight pack,
 `csrc/fused_sdf_bwd.cu`, K2, and `csrc/fused_sdf_bwd_bf16.cu`, K2-bf16), the
 generic pair for every other SDF MLP (`csrc/fused_sdf_generic.cu`, K8 /
-K9), the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5) and the device
+K9, and their bf16 forms on the tensor cores with their weight pack,
+`csrc/fused_sdf_generic_bf16.cu`), the nearest-neighbour sweep (`csrc/chamfer.cu`, K4 / K5) and the device
 isosurface (`csrc/isosurface.cu`, K6 / K7).
 
 Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
@@ -908,16 +909,26 @@ def test_generic_pair_matches_plain(dev, name):
     torch.cuda.synchronize()
     after = (F.GENERIC.launches, F.KERNEL.launches, F.BACKWARD.launches)
     assert {k: after[0][k] - before[0][k] for k in after[0]} == dict(
-        grad=1, nograd=1, bwd=1, grad_bf16=0, nograd_bf16=0, bwd_bf16=0)
+        grad=1, nograd=1, bwd=1, grad_bf16=0, nograd_bf16=0, bwd_bf16=0,
+        pack_bf16=0)
     assert after[1] == before[1] and after[2] == before[2]
 
 
-def test_generic_pair_bf16_matches_plain(dev):
-    """K8-bf16 and K9-bf16 at the deep architecture against the bf16 plain
-    version (K9's in float64): max error within 1e-2 (a float32 sum one ulp
-    apart can round to the neighbouring bf16 operand), mean error under
-    half the mean distance from the float32 kernels."""
-    n_freqs, skips, hidden, width, latent, sym = GENERIC_ARCHS["deep_odd"]
+GENERIC_BF16_ARCHS = {"deep_odd": GENERIC_ARCHS["deep_odd"],
+                      "narrow": (4, (2,), 4, 32, 16, False),
+                      "wide": (6, (4,), 8, 256, 64, True)}
+
+
+@pytest.mark.parametrize("name", list(GENERIC_BF16_ARCHS))
+def test_generic_pair_bf16_matches_plain(dev, name):
+    """K8-bf16, K8-nograd-bf16 and K9-bf16 (tensor cores) against the bf16
+    plain version (K9's in float64) at the deep, the narrow (the JAX
+    package's second architecture) and the wide (VolSDF's 8 x 256)
+    architecture: max error within 1e-2 (a float32 sum one ulp apart can
+    round to the neighbouring bf16 operand), mean error under half the
+    mean distance from the float32 kernels; two K9-bf16 launches bitwise
+    equal; one pack launch before each bf16 launch."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
     g = torch.Generator().manual_seed(4)
     net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
                      n_channels=width, skip_in=skips, posenc_res=n_freqs,
@@ -929,19 +940,49 @@ def test_generic_pair_bf16_matches_plain(dev):
     w, b, arch = w.to(dev), b.to(dev), F.sdf_arch(net)
     cots = [torch.randn(2, 2048, *c, generator=g).to(dev)
             for c in ((), (width,), (3,))]
-    pairs = [(F.GENERIC.forward(pts, w, b, arch, True, sym, "bfloat16"),
-              F.generic_forward_reference(pts, w, b, arch, True, sym,
+    before = dict(F.GENERIC.launches)
+    pairs = [(F.GENERIC.forward(pts, w, b, arch, grad, sym, "bfloat16"),
+              F.generic_forward_reference(pts, w, b, arch, grad, sym,
                                           "bfloat16"),
-              F.GENERIC.forward(pts, w, b, arch, True, sym))]
-    pairs.append((F.GENERIC.backward(pts, w, b, arch, *cots, sym, "bfloat16"),
-                  F.generic_backward_reference(
+              F.GENERIC.forward(pts, w, b, arch, grad, sym))
+             for grad in (True, False)]
+    got16 = F.GENERIC.backward(pts, w, b, arch, *cots, sym, "bfloat16")
+    again = F.GENERIC.backward(pts, w, b, arch, *cots, sym, "bfloat16")
+    pairs.append((got16, F.generic_backward_reference(
                       *(t.double() for t in (pts, w, b)), arch,
                       *(c.double() for c in cots), sym, "bfloat16"),
                   F.GENERIC.backward(pts, w, b, arch, *cots, sym)))
+    torch.cuda.synchronize()
+    for k, k2 in zip(got16, again):
+        assert torch.equal(k, k2)
     for got, want, f32 in pairs:
         for k, r, k32 in zip(got, want, f32):
+            if r is None:
+                continue
             scale = max(float(r.abs().max()), 1.0)
             err = (k.double() - r.double()).abs()
             gap = (k.double() - k32.double()).abs().mean()
             assert float(err.max()) <= 1e-2 * scale
             assert float(err.mean()) < 0.5 * float(gap)
+    after = F.GENERIC.launches
+    assert {k: after[k] - before[k] for k in after} == dict(
+        grad=1, nograd=1, bwd=1, grad_bf16=1, nograd_bf16=1, bwd_bf16=2,
+        pack_bf16=4)
+
+
+@pytest.mark.parametrize("name", list(GENERIC_BF16_ARCHS))
+def test_generic_bf16_pack_matches_plain(dev, name):
+    """The generic pair's bf16 weight pack (each layer zero-padded to
+    multiples of 16) bitwise against its plain version."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
+    g = torch.Generator().manual_seed(5)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False, generator=g)
+    with torch.no_grad():
+        w, _ = F.pack_fused_params(*F.prepare_fused_params(
+            net, torch.zeros(1, latent)))
+    arch = F.sdf_arch(net)
+    got = F.GENERIC.pack_bf16(w.to(dev), arch)
+    want = F.generic_pack_bf16_reference(w, arch)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))

@@ -1,15 +1,22 @@
-"""The generic fused SDF pair's device code (K8 / K8-nograd / K9 of
-`shapeclipper_torch/csrc/fused_sdf_generic.cu`) run on the CPU, against
-its plain versions in `ops/fused_sdf.py`.
+"""The generic fused SDF pair's device code (the float32 K8 / K8-nograd /
+K9 of `shapeclipper_torch/csrc/fused_sdf_generic.cu`, their bf16 forms on
+the tensor cores and the bf16 weight pack of `csrc/fused_sdf_generic_bf16.cu`)
+run on the CPU, against its plain versions in `ops/fused_sdf.py`.
 
-There is no CUDA compiler here, so the test compiles the source's device
+There is no CUDA compiler here, so the test compiles each source's device
 part (everything above its C entry points) with g++ against the stub
-headers of `tests/cuda_emu/`: a block's 256 threads are std::threads,
-`__syncthreads` a barrier over them, blocks run in turn, shared memory
-starts as NaN patterns. This checks the kernels' indexing, tiling, barriers
-and arithmetic at small sizes; whether nvcc builds them and how fast they
-run only the card shows (`tests/test_torch_cuda.py -k generic`, phase 16 of
-`chip_smoke.py`). It skips where g++ cannot build C++20 (`<barrier>`).
+headers of `tests/cuda_emu/`, one translation unit each as nvcc builds
+them: a block's 256 threads are std::threads, `__syncthreads` a barrier
+over them, blocks run in turn, shared memory starts as NaN patterns. The
+bf16 file's warp collectives (ldmatrix x1 / x2 / x4 and .trans, mma.sync
+m16n8k16 bf16, shuffles) are emulated with the PTX ISA's fragment layouts
+behind a per-warp barrier, and its cp.async copies land only when their
+thread waits for them, so a read before the wait shows; the emulation is
+itself held to numpy through those layouts. This checks the kernels'
+indexing, tiling, barriers and arithmetic at small sizes; whether nvcc
+builds them and how fast they run only the card shows (`tests/
+test_torch_cuda.py -k generic`, phase 16 of `chip_smoke.py`). It skips
+where g++ cannot build C++20 (`<barrier>`).
 
 Tolerances: float32 kernels against the float64 plain version, K8 as the
 card tests (sdf / feature atol 2e-5, gradient atol 5e-4 rtol 5e-3), K9
@@ -51,32 +58,41 @@ def emu(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ to build the CPU emulation")
     out = tmp_path_factory.mktemp("cuda_emu")
-    with open(F._SOURCE_GENERIC) as f:
-        device = f.read().split(MARKER)[0]
-    assert "__global__" in device and "extern \"C\"" not in device
-    device = device.replace("#include <cuda_bf16.h>", '#include "cuda_bf16.h"')
-    device = device.replace("#include <cuda_runtime.h>",
-                            '#include "cuda_runtime.h"')
-    (out / "device_part.inc").write_text(device)
+    for source, name in ((F._SOURCE_GENERIC, "device_part.inc"),
+                         (F._SOURCE_GENERIC_BF16, "device_part_bf16.inc")):
+        with open(source) as f:
+            device = f.read().split(MARKER)[0]
+        assert "__global__" in device and "extern \"C\"" not in device
+        (out / name).write_text(device)
     lib = out / "libgeneric_emu.so"
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC",
-         "-I", str(out), "-I", EMU_DIR, "-o", str(lib),
-         os.path.join(EMU_DIR, "harness.cpp")],
+         "-I", str(out), "-I", EMU_DIR,
+         "-I", os.path.dirname(F._SOURCE_GENERIC), "-o", str(lib), os.path.join(EMU_DIR, "harness.cpp"),
+         os.path.join(EMU_DIR, "harness_bf16.cpp")],
         capture_output=True, text=True, timeout=600)
     if proc.returncode and "barrier" in proc.stderr:
         pytest.skip("g++ has no C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr[-3000:]
     emu = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
-    emu.emu_fwd.argtypes = [p] * 6 + [i] * 9
-    emu.emu_bwd.argtypes = [p] * 10 + [i] * 9
+    emu.emu_fwd.argtypes = [p] * 6 + [i] * 8
+    emu.emu_bwd.argtypes = [p] * 10 + [i] * 8
     emu.emu_tile_points.argtypes = [i] * 6
+    emu.emu_bf16_fwd.argtypes = [p] * 6 + [i] * 8
+    emu.emu_bf16_bwd.argtypes = [p] * 10 + [i] * 8
+    emu.emu_bf16_pack.argtypes = [p] * 2 + [i] * 4
+    emu.emu_bf16_tile_points.argtypes = [i] * 6
+    emu.emu_bf16_stash_floats.argtypes = [i] * 4
+    emu.emu_bf16_packed.argtypes = [i] * 4
+    emu.emu_ldmatrix_rows.argtypes = [p, i, i, p]
+    emu.emu_fragment_product.argtypes = [p] * 4 + [i]
     return emu
 
 
 def _ptr(t):
-    assert t.is_contiguous() and t.dtype == torch.float32
+    assert t.is_contiguous() and t.dtype in (torch.float32, torch.bfloat16,
+                                             torch.int32)
     return ctypes.c_void_p(t.data_ptr())
 
 
@@ -100,31 +116,43 @@ def _case(spec, B, N, seed):
 
 def _run(emu, case, bf16, grid=3):
     """K8 with and without tangents, then K9 over `grid` blocks, emulated
-    -> ((sdf, feat, grad), (sdf, feat)) and (d weights, d biases, d
-    points)."""
+    (float32, or the bf16 forms on the emulated pack, which must equal its
+    plain version bitwise) -> ((sdf, feat, grad), (sdf, feat)) and (d
+    weights, d biases, d points)."""
     arch, sym, pts, w, b, cots = case
     B, N = pts.shape[:2]
     args = (arch.n_freqs, arch.n_hidden, arch.width, arch.skip_mask)
+    if bf16:
+        weights = torch.full((emu.emu_bf16_packed(*args),), float("nan"),
+                             dtype=torch.bfloat16)
+        assert emu.emu_bf16_pack(_ptr(w), _ptr(weights), *args) == 0
+        assert torch.equal(weights.view(torch.int16),
+                           F.generic_pack_bf16_reference(w, arch)
+                           .view(torch.int16))
+        fwd_fn, bwd_fn = emu.emu_bf16_fwd, emu.emu_bf16_bwd
+        tile = emu.emu_bf16_tile_points(*args, 1, 1)
+        stash_floats = emu.emu_bf16_stash_floats(*args)
+    else:
+        weights, fwd_fn, bwd_fn = w, emu.emu_fwd, emu.emu_bwd
+        tile = emu.emu_tile_points(*args, 1, 1)
+        stash_floats = arch.n_hidden * arch.width * 4 * tile
     fwd = []
     for grad in (True, False):
         out = [torch.full((B, N), float("nan")),
                torch.full((B, N, arch.width), float("nan")),
                torch.full((B, N, 3), float("nan"))]
-        assert emu.emu_fwd(_ptr(pts), _ptr(w), _ptr(b), *map(_ptr, out), B,
-                           N, *args, int(grad), int(sym), int(bf16)) == 0
+        assert fwd_fn(_ptr(pts), _ptr(weights), _ptr(b), *map(_ptr, out), B,
+                      N, *args, int(grad), int(sym)) == 0
         fwd.append(out if grad else out[:2])
-    tile = emu.emu_tile_points(*args, 1, 1)
     assert B * -(-N // tile) > grid
     width = arch.num_weights + B * arch.bias_width
     dpoints = torch.full((B, N, 3), float("nan"))
     out = torch.full((width,), float("nan"))
     partials = torch.full((grid, width), float("nan"))
-    stash = torch.full((grid, arch.n_hidden * arch.width * 4 * tile),
-                       float("nan"))
-    assert emu.emu_bwd(_ptr(pts), _ptr(w), _ptr(b), *map(_ptr, cots),
-                       _ptr(dpoints), _ptr(out), _ptr(partials),
-                       _ptr(stash), B, N, grid, *args, int(sym),
-                       int(bf16)) == 0
+    stash = torch.full((grid, stash_floats), float("nan"))
+    assert bwd_fn(_ptr(pts), _ptr(weights), _ptr(b), *map(_ptr, cots),
+                  _ptr(dpoints), _ptr(out), _ptr(partials), _ptr(stash), B,
+                  N, grid, *args, int(sym)) == 0
     return fwd, (out[:arch.num_weights], out[arch.num_weights:].view(B, -1),
                  dpoints)
 
@@ -142,7 +170,10 @@ def _plain(case, mm, dtype):
 def test_emulated_generic_pair_matches_plain(emu, name):
     """K8 with and without tangents and K9 (three blocks over a ragged set
     of tiles, so that each block adds several tiles to its partials), with
-    float32 and with bf16 products, against the plain versions."""
+    float32 products and in their bf16 forms on the tensor cores (after
+    the bf16 pack, bitwise its plain version), against the plain versions.
+    The bf16 forms' tiles are larger (64 points but at width 512), so they
+    run 2 x 150 points there."""
     case = _case(ARCHS[name], 2, 37, seed=7)
     f32 = _run(emu, case, False)
     want = _plain(case, "float32", torch.float64)
@@ -158,14 +189,18 @@ def test_emulated_generic_pair_matches_plain(emu, name):
     # operand and move a value by far more than float32 noise, so (as
     # chip_smoke.check_bf16) the largest error is held to 1e-2 of the
     # value's scale and the mean error under half the mean distance from
-    # the float32 kernel
+    # float32 (here the float32 plain version on the same inputs)
+    if ARCHS[name][3] < 512:
+        case = _case(ARCHS[name], 2, 150, seed=7)
     b16 = _run(emu, case, True)
     want = _plain(case, "bfloat16", torch.float32)
+    away = _plain(case, "float32", torch.float32)
     got = [t for part in b16[0] for t in part] + list(b16[1])
     ref = [t for part in want[0] for t in part] + list(want[1])
-    away = [t for part in f32[0] for t in part] + list(f32[1])
+    away = [t for part in away[0] for t in part] + list(away[1])
     for g, r, a in zip(got, ref, away):
         err = (g - r).abs()
+        assert torch.isfinite(g).all()
         assert float(err.max()) <= 1e-2 * max(float(r.abs().max()), 1.0)
         assert float(err.mean()) < 0.5 * float((g - a).abs().mean())
 
@@ -183,3 +218,74 @@ def test_emulated_tiles_follow_shared_memory(emu):
     assert tiles(16, 16, 512, 0) == (8, 32, 8)
     assert tiles(6, 8, 513, 0) == (-1, -1, -1)
     assert tiles(6, 8, 256, 1 << 9) == (-1, -1, -1)
+
+
+def test_emulated_bf16_tiles_follow_shared_memory(emu):
+    """The bf16 forms' tile is the largest of 256, 128, 64, 32 rows whose
+    bf16 buffers fit a block's 227 KB: at width 256 K8-bf16 / K8-nograd-bf16
+    / K9-bf16 take 32 / 128 / 32 points (128 rows), twice the float32
+    kernels' 16 / 64 / 16; at width 512 16 / 64 / 16; at width 32 64 / 256
+    / 64; outside the envelope there is none. The pack pads each layer to
+    multiples of 16."""
+    def tiles(f, l, w, m):
+        return (emu.emu_bf16_tile_points(f, l, w, m, 1, 0),
+                emu.emu_bf16_tile_points(f, l, w, m, 0, 0),
+                emu.emu_bf16_tile_points(f, l, w, m, 1, 1))
+    assert tiles(6, 8, 256, 1 << 4) == (32, 128, 32)
+    assert tiles(16, 2, 512, 0b110) == (16, 64, 16)
+    assert tiles(16, 16, 512, 0) == (16, 64, 16)
+    assert tiles(4, 4, 32, 1 << 2) == (64, 256, 64)
+    assert tiles(6, 8, 513, 0) == (-1, -1, -1)
+    assert tiles(6, 8, 256, 1 << 9) == (-1, -1, -1)
+    for arch in (F.SdfArch(6, (4,), 8, 256), F.SdfArch(2, (2, 5, 6), 6, 13)):
+        assert emu.emu_bf16_packed(arch.n_freqs, arch.n_hidden, arch.width,
+                                   arch.skip_mask) \
+            == F.generic_packed_bf16(arch)
+
+
+def _bf16_bits(x):
+    """float32 array -> its bf16 bits (nearest even) as uint16, and the
+    bf16 values as float64."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    b = t.to(torch.bfloat16)
+    return b.view(torch.int16).numpy().view(np.uint16), b.double().numpy()
+
+
+@pytest.mark.parametrize("count", [1, 2, 4])
+@pytest.mark.parametrize("trans", [False, True])
+def test_emulated_ldmatrix_follows_the_fragment_layout(emu, count, trans):
+    """ldmatrix.m8n8 .x1 / .x2 / .x4 (.trans), lane l handing over row l of
+    a [32][8] bf16 array: matrix i is rows 8 i .. 8 i + 7, and lane (g, t)
+    receives row g, columns 2 t, 2 t + 1 (the lower in the low half) or,
+    with .trans, rows 2 t, 2 t + 1 of column g (the PTX ISA's layout)."""
+    rows = np.random.RandomState(count + 8 * trans).randint(
+        0, 1 << 16, (32, 8)).astype(np.uint16)
+    out = torch.zeros(32, 4, dtype=torch.int32)
+    assert emu.emu_ldmatrix_rows(
+        ctypes.c_void_p(rows.ctypes.data), count, int(trans), _ptr(out)) == 0
+    got = out.numpy().view(np.uint32)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i in range(count):
+            m = rows[8 * i:8 * i + 8].astype(np.uint32)
+            lo, hi = ((m[2 * t, g], m[2 * t + 1, g]) if trans
+                      else (m[g, 2 * t], m[g, 2 * t + 1]))
+            assert got[lane, i] == lo | (hi << 16), (lane, i)
+
+
+@pytest.mark.parametrize("b_from_rows", [False, True])
+def test_emulated_mma_matches_numpy(emu, b_from_rows):
+    """One mma.sync m16n8k16 bf16 through the fragments the kernels load:
+    A by ldmatrix.x4, B by ldmatrix.x2.trans from [k][n] rows or by plain
+    ldmatrix.x2 from [n][k] rows (W and W^T in the kernels), C and D in the
+    accumulator's layout: D = C + A B in float64 to float32 rounding (bf16
+    products are exact in float32; the emulation rounds the sum once)."""
+    rng = np.random.RandomState(3 + b_from_rows)
+    a_bits, a = _bf16_bits(rng.randn(16, 16))
+    b_bits, b = _bf16_bits(rng.randn(16, 8))
+    c = rng.randn(16, 8).astype(np.float32)
+    d = np.zeros((16, 8), np.float32)
+    assert emu.emu_fragment_product(
+        *(ctypes.c_void_p(x.ctypes.data) for x in (a_bits, b_bits, c, d)),
+        int(b_from_rows)) == 0
+    np.testing.assert_allclose(d, c + a @ b, rtol=1e-6, atol=1e-6)
