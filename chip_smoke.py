@@ -148,13 +148,14 @@ no CPU fallback):
  15. `loss_weight.category_reg=1`: a batch-4 flagship step on the card
      against the CPU (the loss term 1e-4, the centres' gradient 1e-3, the
      post-step centres 0.05 lr);
- 16. the generic pair K8 / K8-nograd / K9 (`csrc/fused_sdf_generic.cu`),
-     which runs every SDF MLP but the flagship's, and their bf16 forms on
-     the tensor cores with their weight pack
-     (`csrc/fused_sdf_generic_bf16.cu`): each against its plain version in
-     float32 (K9 against the float64 one) and bf16 (`check_bf16`'s rule;
-     the pack bitwise) at the JAX package's second architecture (posenc
-     4, skip 2, 4 x 32) at 12 x 1,024 and at VolSDF's 8 x 256 (skip 4) at
+ 16. the generic pair K8 / K8-nograd / K9 (`csrc/fused_sdf_generic.cu`:
+     3xTF32 on the tensor cores, after their tf32 weight pack), which runs
+     every SDF MLP but the flagship's, and their bf16 forms on the tensor
+     cores with their bf16 weight pack (`csrc/fused_sdf_generic_bf16.cu`):
+     each against its plain version in float32 (K9 against the float64
+     one) and bf16 (`check_bf16`'s rule; each pack bitwise) at the JAX
+     package's second architecture (posenc 4, skip 2, 4 x 32) at 12 x
+     1,024 and at VolSDF's 8 x 256 (skip 4) at
      12 x 1,024, 12 x 32,768, 24 x 32,768 and the vox-64 grid, K9 and
      K9-bf16 bitwise over two launches, each timed beside its plain version
      and its bound, K9's partials' and stash's bytes a launch logged;
@@ -258,8 +259,10 @@ CLIP_IMAGES = 256               # synthetic images a split for ViT-L/14
 GUARD_WARNINGS = ("train-split metric eval failed", "rotating vis failed")
 
 # roofline of one H100 SXM (NVIDIA data sheet, 700 W): fp32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores, dense TF32 on them (the generic pair's float32 products, as
+# three tf32 products each) and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # Multiply-adds a point needs (the function's, not the kernels' dense rows).
 # Without tangents every weight is used once: 28,032. With tangents, a
@@ -322,7 +325,7 @@ GENERIC_WIDE_ARGS = ("--arch.impl_sdf.n_hidden_layers=8",
                      "--arch.impl_sdf.n_channels=256",
                      "--arch.impl_sdf.skip_connection=[4]")
 GENERIC_NONE = dict(k8=0, k8_bf16=0, k8_nograd=0, k8_nograd_bf16=0, k9=0,
-                    k9_bf16=0, generic_pack=0)
+                    k9_bf16=0, generic_pack=0, generic_pack_tf32=0)
 N_GENERIC_STEPS = 3              # full steps of the wide YAML step
 # blocks of the plain version on the card: batch rows, and points of a row
 # for the float64 K9 reference (a whole 24 x 32,768 float64 graph at width
@@ -362,11 +365,12 @@ def cuda_ms(fn, runs=10, warmup=3, calls=1):
     return statistics.median(times)
 
 
-def bound(flop, nbytes, mm_flop=0):
+def bound(flop, nbytes, mm_flop=0, tf32_flop=0):
     """(least ms on the card, 'operations' or 'bytes'): `flop` at the fp32
-    peak plus `mm_flop` (the bf16 products) at the bf16 tensor-core peak,
-    or `nbytes` at the memory rate."""
-    t_op = (flop / PEAK_FP32 + mm_flop / PEAK_BF16) * 1e3
+    peak plus `mm_flop` (the bf16 products) at the bf16 tensor-core peak
+    plus `tf32_flop` at the TF32 one, or `nbytes` at the memory rate."""
+    t_op = (flop / PEAK_FP32 + mm_flop / PEAK_BF16
+            + tf32_flop / PEAK_TF32) * 1e3
     t_b = nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
@@ -2851,7 +2855,7 @@ def reset_launches():
 def read_launches():
     """Every kernel's launches since `reset_launches` (`_bf16`: the bf16
     instantiations; k8 / k8_nograd / k9: the generic pair, generic_pack the
-    bf16 pack of its weights)."""
+    bf16 pack of its weights, generic_pack_tf32 their tf32 pack)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
     from shapeclipper_torch.ops import isosurface as I
@@ -2859,6 +2863,7 @@ def read_launches():
     return dict(k8=g["grad"], k8_bf16=g["grad_bf16"], k8_nograd=g["nograd"],
                 k8_nograd_bf16=g["nograd_bf16"], k9=g["bwd"],
                 k9_bf16=g["bwd_bf16"], generic_pack=g["pack_bf16"],
+                generic_pack_tf32=g["pack_tf32"],
                 k1=k["grad"], k3=k["nograd"], k2=b["float32"],
                 k1_bf16=k["grad_bf16"], k3_bf16=k["nograd_bf16"],
                 pack_bf16=k["pack_bf16"],
@@ -3929,32 +3934,37 @@ def generic_flop(arch, kind):
     return 2 * mac * (3 if kind == "bwd" else 1)
 
 
-def generic_bound(arch, B, N, kind, bf16=False):
+def generic_bound(arch, B, N, kind, mm="float32", fma=False):
     """(FLOPs, (bound ms, 'operations' or 'bytes')) of K8 / K8-nograd / K9
     at B x N: the FLOPs of `generic_flop`; the bytes of points, outputs,
     cotangents and point gradient once a point, the float32 weights and
-    biases once (K9 also writes their gradients); with `bf16` the products
-    at the bf16 peak and the elementwise FLOPs (ELEM_K*'s count for this
-    architecture) at the fp32 one."""
+    biases once (K9 also writes their gradients). The products run on the
+    tensor cores: bf16 at the bf16 peak, float32 as three tf32 products
+    each (3xTF32) at the TF32 peak, the elementwise FLOPs (ELEM_K*'s count
+    for this architecture) beside them at the fp32 one; with `fma` the
+    float32 products' FMA bound instead (all FLOPs at the fp32 peak)."""
     L, W, F_ = arch.n_hidden, arch.width, arch.n_freqs
     flop = generic_flop(arch, kind) * B * N
     per_point = dict(nograd=4 + W, grad=7 + W, bwd=10 + W)[kind]
     params = (arch.num_weights + B * arch.bias_width) * (
         2 if kind == "bwd" else 1)
     nbytes = 4 * (B * N * per_point + params)
-    if not bf16:
+    if fma:
         return flop, bound(flop, nbytes)
     elem = L * W * 11 + 9 * F_ + W + 1
     if kind != "nograd":
         elem += L * W * 3 + 12 * F_
     if kind == "bwd":
         elem += L * W * 14 + arch.bias_width
-    return flop, bound(elem * B * N, nbytes, mm_flop=flop)
+    if mm == "bfloat16":
+        return flop, bound(elem * B * N, nbytes, mm_flop=flop)
+    return flop, bound(elem * B * N, nbytes, tf32_flop=3 * flop)
 
 
 def generic_traffic(arch, B, N, mm):
-    """(partials' bytes, stash's bytes) that K9 (bf16 products with `mm`
-    "bfloat16") moves in a launch at B x N, modelled from its tiling, not
+    """(partials' bytes, stash's bytes) that K9 (3xTF32 products with `mm`
+    "float32", bf16 ones with "bfloat16", each form's own tile from the
+    library) moves in a launch at B x N, modelled from its tiling, not
     measured: each tile reads and writes its block's float32 partial of
     every weight (and its batch row's biases), plus the partials zeroed
     once and summed once; each point writes 16 bytes a hidden channel and
@@ -4063,9 +4073,9 @@ def with_wide_sdf(opt):
 
 
 def phase_generic_kernels(opt):
-    """K8, K8-nograd and K9 (`csrc/fused_sdf_generic.cu`) and their bf16
-    forms on the tensor cores (`csrc/fused_sdf_generic_bf16.cu`) against
-    their plain versions, float32 (SDF_TOL / GRAD_TOL; K9 against the
+    """K8, K8-nograd and K9 (`csrc/fused_sdf_generic.cu`, 3xTF32) and their
+    bf16 forms (`csrc/fused_sdf_generic_bf16.cu`), all on the tensor cores,
+    against their plain versions, float32 (SDF_TOL / GRAD_TOL; K9 against the
     float64 plain version at BWD_ATOL / BWD_RTOL, as K2 at the render
     shapes) and bf16 (`check_bf16`'s rule against the bf16 plain version,
     K9's in float64, beside the float32 kernel): at the narrow architecture
@@ -4075,8 +4085,9 @@ def phase_generic_kernels(opt):
     grid's 274,625 (K8-nograd); each timed over SDF_TIMED_CALLS launches
     between two events (once at the wide render shapes, whose launches take
     0.01-1 s) beside its plain version (over blocks of GENERIC_PLAIN_ROWS
-    batch rows where it would not fit whole) and its bound; the bf16 pack
-    bitwise against its plain version and timed at the wide architecture;
+    batch rows where it would not fit whole) and its bound (the float32
+    forms' FMA bound beside it); the bf16 and the tf32 pack each bitwise
+    against its plain version and timed at the wide architecture;
     K9's partials' and stash's bytes a launch at 24 x 32,768 -> {key:
     results at the main path's shape}, with `narrow_*` and `eikonal_*`
     readings."""
@@ -4085,12 +4096,13 @@ def phase_generic_kernels(opt):
     from shapeclipper_torch.ops import fused_sdf as F
 
     G = F.GENERIC
-    for label, name in (("K8", "fwd_kernelILb1EE"),
+    for label, name in (("K8", "fwd_tf32_kernelILb1EE"),
                         ("K8-bf16", "fwd_bf16_kernelILb1EE"),
-                        ("K8-nograd", "fwd_kernelILb0EE"),
+                        ("K8-nograd", "fwd_tf32_kernelILb0EE"),
                         ("K8-nograd-bf16", "fwd_bf16_kernelILb0EE"),
-                        ("K9", "bwd_kernelEPKf"),
+                        ("K9", "bwd_tf32_kernel"),
                         ("K9-bf16", "bwd_bf16_kernel"),
+                        ("tf32 pack", "pack_tf32_kernel"),
                         ("bf16 pack", "pack_bf16_kernel")):
         regs, st, ld, stack = ptxas_usage(G.ptxas_log, "sdf_generic_" + name,
                                           stack=True)
@@ -4132,9 +4144,12 @@ def phase_generic_kernels(opt):
                 plain_ms = cuda_ms(lambda: generic_forward_plain(
                     c, grad, mm, rows), runs=1 if wide else 5, warmup=1)
                 _, (bound_ms, bound_by) = generic_bound(
-                    c.arch, c.B, c.N, kind, mm == "bfloat16")
+                    c.arch, c.B, c.N, kind, mm)
                 out[mm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by)
+                if mm == "float32":
+                    out[mm]["fma_bound_ms"] = generic_bound(
+                        c.arch, c.B, c.N, kind, fma=True)[1][0]
         err32 = max(errs.values())
         err16 = max(e[0] for e in errs_b.values())
         log(f"[generic] K8 {kind} {tag} B={c.B} N={c.N}: max abs err "
@@ -4148,7 +4163,9 @@ def phase_generic_kernels(opt):
                 f"launches between two events), plain {r['plain_ms']:.4f} ms"
                 f" ({r['plain_ms'] / r['ms']:.2f}x), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it reached)")
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it reached)"
+                + (f", FMA bound {r['fma_bound_ms']:.4f} ms"
+                   if "fma_bound_ms" in r else ""))
         return err32, err16, out
 
     def backward_case(tag, c, wide=False, bf16=True, repeat=False,
@@ -4205,13 +4222,19 @@ def phase_generic_kernels(opt):
                 c.N), runs=1 if wide else 5, warmup=1)
             torch.cuda.empty_cache()
             _, (bound_ms, bound_by) = generic_bound(c.arch, c.B, c.N, "bwd",
-                                                    mm == "bfloat16")
+                                                    mm)
             out[mm] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
+            fma = ""
+            if mm == "float32":
+                out[mm]["fma_bound_ms"] = generic_bound(
+                    c.arch, c.B, c.N, "bwd", fma=True)[1][0]
+                fma = f", FMA bound {out[mm]['fma_bound_ms']:.4f} ms"
             log(f"[generic]   {mm}: {ms:.4f} ms ({SDF_TIMED_CALLS} launches "
                 f"between two events), plain {plain_ms:.4f} ms "
                 f"({plain_ms / ms:.2f}x), bound {bound_ms:.4f} ms "
-                f"({bound_by}, {100 * bound_ms / ms:.1f}% of it reached)")
+                f"({bound_by}, {100 * bound_ms / ms:.1f}% of it reached)"
+                + fma)
         return max(errs.values()), err16, out
 
     def entry(key, err, timing, **extra):
@@ -4273,26 +4296,30 @@ def phase_generic_kernels(opt):
     entry("k9", e32, t["float32"], shape=f"{c24.B}x{c24.N}")
     entry("k9_bf16", e16, dict(t["bfloat16"], f32_ms=t["float32"]["ms"]),
           shape=f"{c24.B}x{c24.N}")
-    # the bf16 pack: bitwise its plain version, timed beside it
-    got = G.pack_bf16(c24.w, c24.arch)
-    want = F.generic_pack_bf16_reference(c24.w, c24.arch)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-        raise AssertionError("the generic bf16 pack differs from its plain "
-                             "version")
-    packed = got.numel()
-    res["generic_pack"] = dict(
-        err=float((got.float() - want.float()).abs().max()),
-        ms=cuda_ms(lambda: G.pack_bf16(c24.w, c24.arch),
-                   calls=SDF_TIMED_CALLS),
-        plain_ms=cuda_ms(lambda: F.generic_pack_bf16_reference(c24.w,
-                                                               c24.arch)),
-        bound_ms=bound(0, 4 * c24.arch.num_weights + 2 * packed)[0],
-        bound_by="bytes", shape=f"{packed} bf16")
-    log(f"[generic] bf16 pack of {c24.arch.num_weights} weights into "
-        f"{packed}: bitwise its plain version; {res['generic_pack']['ms']:.4f}"
-        f" ms, plain {res['generic_pack']['plain_ms']:.4f} ms, bound "
-        f"{res['generic_pack']['bound_ms']:.4f} ms")
+    # the bf16 and the tf32 pack: each bitwise its plain version, timed
+    # beside it
+    for key, kind, pack, ref, bits, size in (
+            ("generic_pack", "bf16", G.pack_bf16,
+             F.generic_pack_bf16_reference, torch.int16, 2),
+            ("generic_pack_tf32", "tf32", G.pack_tf32,
+             F.generic_pack_tf32_reference, torch.int32, 4)):
+        got = pack(c24.w, c24.arch)
+        want = ref(c24.w, c24.arch)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(bits), want.view(bits)):
+            raise AssertionError(f"the generic {kind} pack differs from its "
+                                 "plain version")
+        packed = got.numel()
+        res[key] = dict(
+            err=float((got.float() - want.float()).abs().max()),
+            ms=cuda_ms(lambda: pack(c24.w, c24.arch), calls=SDF_TIMED_CALLS),
+            plain_ms=cuda_ms(lambda: ref(c24.w, c24.arch)),
+            bound_ms=bound(0, 4 * c24.arch.num_weights + size * packed)[0],
+            bound_by="bytes", shape=f"{packed} {kind}")
+        log(f"[generic] {kind} pack of {c24.arch.num_weights} weights into "
+            f"{packed}: bitwise its plain version; {res[key]['ms']:.4f} ms, "
+            f"plain {res[key]['plain_ms']:.4f} ms, bound "
+            f"{res[key]['bound_ms']:.4f} ms")
     del c24, got, want
     torch.cuda.empty_cache()
 
@@ -4314,12 +4341,13 @@ def phase_generic_paths():
     read just after each: the YAML's own step (bf16, merged; batch 12,
     224^2, 512 rays x 64 samples) for a camera and N_GENERIC_STEPS full
     steps (K8-bf16 2 / K9-bf16 1, then 2 / 2, the bf16 pack once before
-    each), a float32 camera and full step (K8 2 / K9 1, then 2 / 2), two
-    requests at the YAML's dtypes (K8-bf16 and the pack 1 + N_VIEWS,
-    K8-nograd 3 a request) and `Runner.evaluate` over 2
-    synthetic test samples at the full eval width pinned to float32 as
-    phase 8 (K8 1, K8-nograd 3, K4 2 a sample); K1 / K2 / K3, their bf16
-    forms and the pack never -> the launches of each path."""
+    each), a float32 camera and full step (K8 2 / K9 1, then 2 / 2, the
+    tf32 pack once before each), two requests at the YAML's dtypes
+    (K8-bf16 and the bf16 pack 1 + N_VIEWS, K8-nograd and the tf32 pack 3
+    a request) and `Runner.evaluate` over 2 synthetic test samples at the
+    full eval width pinned to float32 as phase 8 (K8 1, K8-nograd 3, the
+    tf32 pack 4, K4 2 a sample); K1 / K2 / K3, their bf16 forms and the
+    flagship's pack never -> the launches of each path."""
     import torch
     from shapeclipper_torch.eval3d import metrics as M
     from shapeclipper_torch.ops import fused_sdf as F
@@ -4355,9 +4383,9 @@ def phase_generic_paths():
             loss, ms = counted(
                 f"wide {dtype} step {step}",
                 lambda: runner.train_iteration(opt, var),
-                dict({k8: 2, k9: 1 if step == 0 else 2},
-                     **({"generic_pack": 3 if step == 0 else 4} if bf16
-                        else {})))
+                {k8: 2, k9: 1 if step == 0 else 2,
+                 "generic_pack" if bf16 else "generic_pack_tf32":
+                     3 if step == 0 else 4})
             check_loss(f"wide {dtype} step {step}", loss)
             times.append(ms)
             log(f"[generic-train] {dtype} step {step} ({'camera' if step == 0 else 'full'}): "
@@ -4378,8 +4406,9 @@ def phase_generic_paths():
     runner.build_networks(opt)
     runner.restore_checkpoint(opt)
     vox = opt.eval.vox_res
+    chunks = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
     per_request = dict(k8_bf16=1 + N_VIEWS, generic_pack=1 + N_VIEWS,
-                       k8_nograd=-(-(vox + 1) ** 3 // M.GRID_CHUNK))
+                       k8_nograd=chunks, generic_pack_tf32=chunks)
     reset_launches()
     latencies = []
     for i in range(2):
@@ -4401,10 +4430,11 @@ def phase_generic_paths():
     opt = with_wide_sdf(eval_opt("generic_eval", n_samples=n))
     runner = eval_runner(opt, "cuda")
     reset_launches()
+    chunks = -(-(opt.eval.vox_res + 1) ** 3 // M.GRID_CHUNK)
     (cd, rows, fs), ms = counted(
         "wide evaluation", lambda: evaluate_collect(runner, opt),
-        dict(k8=n, k8_nograd=-(-(opt.eval.vox_res + 1) ** 3 // M.GRID_CHUNK)
-             * n, k4=2 * n))
+        dict(k8=n, k8_nograd=chunks * n, generic_pack_tf32=(1 + chunks) * n,
+             k4=2 * n))
     if rows.shape != (n, 2) or not np.isfinite(rows).all() or \
             not np.isfinite(cd):
         raise AssertionError(f"wide evaluation: CD {cd}, chamfer rows "
@@ -4589,7 +4619,7 @@ def main():
              **{f"{k}_vox100": v for k, v in iso[ISO_VOX[1]]["k7"].items()}),
     ]
     def generic_entry(key, name, path, **more):
-        r = gen[key]
+        r = dict(gen[key])
         source = SOURCE_GENERIC_BF16 if key in (
             "k8_bf16", "k9_bf16", "generic_pack") else SOURCE_GENERIC
         return dict(name=name, route="cuda", source=source,
@@ -4599,7 +4629,8 @@ def main():
 
     summary += [
         generic_entry("k8", "fused_sdf_generic_fwd (K8, compute_grad=True, "
-                      "SDF MLPs off the flagship)", "eval",
+                      "SDF MLPs off the flagship; 3xTF32 on the tensor "
+                      "cores)", "eval",
                       train_launches=gen_launches["train_float32"]["k8"]),
         generic_entry("k8_bf16", "fused_sdf_generic_fwd_bf16 (K8-bf16, "
                       "compute_grad=True, bf16 products on the tensor "
@@ -4608,13 +4639,19 @@ def main():
         generic_entry("k8_nograd", "fused_sdf_generic_fwd (K8-nograd, "
                       "compute_grad=False)", "eval",
                       serve_launches=gen_launches["serve"]["k8_nograd"]),
-        generic_entry("k9", "fused_sdf_generic_bwd (K9)", "train_float32"),
+        generic_entry("k9", "fused_sdf_generic_bwd (K9, 3xTF32 on the "
+                      "tensor cores)", "train_float32"),
         generic_entry("k9_bf16", "fused_sdf_generic_bwd_bf16 (K9-bf16, bf16 "
                       "products on the tensor cores)", "train_bfloat16"),
         generic_entry("generic_pack", "fused_sdf_generic_pack_bf16 (K8-bf16 "
                       "/ K9-bf16's zero-padded bf16 weights)",
                       "train_bfloat16",
                       serve_launches=gen_launches["serve"]["generic_pack"]),
+        generic_entry("generic_pack_tf32", "fused_sdf_generic_pack_tf32 "
+                      "(K8 / K9's zero-padded (hi, lo) tf32 weights)",
+                      "train_float32",
+                      serve_launches=gen_launches["serve"][
+                          "generic_pack_tf32"]),
     ]
     for k in summary:
         if k["launches"] < 1:

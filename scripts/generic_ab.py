@@ -1,33 +1,38 @@
 #!/usr/bin/env python3
-"""Time versions of the generic fused SDF pair's bf16 forms (K8-bf16,
-K8-nograd-bf16 and K9-bf16 of `csrc/fused_sdf_generic_bf16.cu`) against
-each other on one NVIDIA GPU, at the wide SDF MLP (`chip_smoke.GENERIC_WIDE`,
-VolSDF's 8 x 256 with a skip at layer 4) at the eikonal's 12 x 1,024 and
-the merged render's 24 x 32,768.
+"""Time versions of the generic fused SDF pair against each other on one
+NVIDIA GPU, in its bf16 forms (K8-bf16, K8-nograd-bf16 and K9-bf16 of
+`csrc/fused_sdf_generic_bf16.cu`) or, with `--mm float32`, its float32
+forms (K8, K8-nograd and K9 of `csrc/fused_sdf_generic.cu`), at the wide
+SDF MLP (`chip_smoke.GENERIC_WIDE`, VolSDF's 8 x 256 with a skip at layer
+4) at the eikonal's 12 x 1,024 and the merged render's 24 x 32,768.
 
     mkdir -p build/v/old
     for f in fused_sdf_generic.cu fused_sdf_generic_bf16.cu fused_sdf_generic.cuh
     do git show <commit>:shapeclipper_torch/csrc/$f > build/v/old/$f; done
     python scripts/generic_ab.py --build new=shapeclipper_torch/csrc \\
-        --build old=build/v/old [--ablate nostash ...]
+        --build old=build/v/old [--mm float32] [--ablate nostash ...]
 
 Each `--build LABEL=DIR` names a directory that holds the library's three
-sources under their repository names; `--ablate NAME` adds a build of the
+sources under their repository names (a `fused_sdf_generic.cu` from before
+the tf32 pack, the float32 FMA forms of commit 66a08da and earlier, reads
+the float32 weights as they are); `--ablate NAME` adds a build of the
 repository's sources with one part of the bf16 kernels cut out (its results
 are wrong: it times what is left; `ABLATIONS` says what each cuts). All are
 compiled by nvcc for sm_90a at once (`ops/cuda_lib.py::CudaLibrary.build`)
-into `build/generic_ab/`; each build's registers and spills of its bf16
-kernels are printed from ptxas. At 12 x 1,024 every build's K9-bf16 is held
-against the float64 bf16 plain version (`chip_smoke.generic_backward_plain`;
-the largest error over max|ref| of each gradient is printed). Each shape
-times the builds in two rounds, in order and then in reverse (a, b, b, a):
-K8-bf16 and K8-nograd-bf16 over 20 launches (3 at 24 x 32,768) and K9-bf16
-over 20 (2) between two CUDA events, its bf16 pack included. Prints one
-line a build and round and the card, then one JSON line of the results.
-Imports no JAX.
+into `build/generic_ab/`; each build's registers and spills of its kernels
+are printed from ptxas. At 12 x 1,024 every build's K9 (in the chosen form)
+is held against the float64 plain version of that form
+(`chip_smoke.generic_backward_plain`; the largest error over max|ref| of
+each gradient is printed), and K8's largest error against the float32 plain
+version. Each shape times the builds in two rounds, in order and then in
+reverse (a, b, b, a): K8 and K8-nograd over 20 launches (3 at 24 x 32,768)
+and K9 over 20 (2) between two CUDA events, each with its weight pack.
+Prints one line a build and round and the card, then one JSON line of the
+results. Imports no JAX.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -114,13 +119,35 @@ def ablated(name, dest):
     return dest
 
 
+def _bind_fma(self, lib):
+    """The C interface of a library without the tf32 pack (float32 FMA
+    forms that read the float32 weights)."""
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.scl_sdf_generic_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.scl_sdf_generic_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.scl_sdf_generic_pack_bf16.argtypes = [p] * 2 + [i] * 4 + [p]
+    lib.scl_sdf_generic_tile_points.argtypes = [i] * 7
+    lib.scl_sdf_generic_stash_floats.argtypes = [i] * 5
+    lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
+    for name in ("fwd", "bwd", "pack_bf16", "tile_points", "stash_floats",
+                 "bwd_blocks_per_sm"):
+        getattr(lib, f"scl_sdf_generic_{name}").restype = i
+
+
+def _weights_fma(self, weights, arch, mm_dtype):
+    return (self.pack_bf16(weights, arch) if mm_dtype == "bfloat16"
+            else weights)
+
+
 def version(label, directory):
     from shapeclipper_torch.ops.fused_sdf import GenericSdfKernel
     paths = [os.path.join(directory, f) for f in FILES]
-    cls = type(f"Version_{label}", (GenericSdfKernel,), dict(
-        stem=f"generic_ab_{label}", source=paths[0],
-        extra_sources=(paths[1],), headers=(paths[2],)))
-    return cls(OUT)
+    attrs = dict(stem=f"generic_ab_{label}", source=paths[0],
+                 extra_sources=(paths[1],), headers=(paths[2],))
+    with open(paths[0]) as f:
+        if "scl_sdf_generic_pack_tf32" not in f.read():
+            attrs.update(_bind=_bind_fma, _weights=_weights_fma)
+    return type(f"Version_{label}", (GenericSdfKernel,), attrs)(OUT)
 
 
 def main():
@@ -129,6 +156,9 @@ def main():
                     metavar="LABEL=DIR")
     ap.add_argument("--ablate", action="append", default=[],
                     choices=sorted(ABLATIONS))
+    ap.add_argument("--mm", default="bfloat16", choices=("bfloat16",
+                                                          "float32"),
+                    help="the products' form to time (default bfloat16)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -148,7 +178,7 @@ def main():
     for label, g in builds.items():
         for entry in g.ptxas_log.split("Compiling entry function")[1:]:
             head = entry.split("\n")[0]
-            m = re.search(r"sdf_generic_(\w+?_bf16_kernel\w{0,8})", head)
+            m = re.search(r"sdf_generic_(\w+?_kernel\w{0,8})", head)
             regs = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", entry)
@@ -156,40 +186,53 @@ def main():
                 print(f"{label} {m.group(1)}: {regs.group(1)} registers, "
                       f"{spill.group(1)} / {spill.group(2)} bytes spill "
                       "stores / loads", flush=True)
+    mm = args.mm
+    sfx, tag = ("_bf16", "-bf16") if mm == "bfloat16" else ("", "")
     results = {label: [] for label in builds}
     for B, N in ((12, 1024), (24, 32768)):
         c = cs.generic_case(cs.GENERIC_WIDE, B, N, cs.SEED + 19)
         big = N > 2000
-        ref = None if big else cs.generic_backward_plain(
-            c, "bfloat16", torch.float64, 1, cs.GENERIC_F64_POINTS)
+        ref = fref = None
+        if not big:
+            ref = cs.generic_backward_plain(c, mm, torch.float64, 1,
+                                            cs.GENERIC_F64_POINTS)
+            fref = cs.generic_forward_plain(c, True, "float32")
         order = list(builds.items())
         for rnd, items in enumerate((order, order[::-1])):
             for label, g in items:
                 with torch.inference_mode():
                     k8 = cs.cuda_ms(lambda: g.forward(
-                        c.pts, c.w, c.b, c.arch, True, c.sym, "bfloat16"),
+                        c.pts, c.w, c.b, c.arch, True, c.sym, mm),
                         runs=1, warmup=1, calls=3 if big else 20)
                     k8n = cs.cuda_ms(lambda: g.forward(
-                        c.pts, c.w, c.b, c.arch, False, c.sym, "bfloat16"),
+                        c.pts, c.w, c.b, c.arch, False, c.sym, mm),
                         runs=1, warmup=1, calls=3 if big else 20)
                 k9 = cs.cuda_ms(lambda: g.backward(
-                    c.pts, c.w, c.b, c.arch, *c.cots, c.sym, "bfloat16"),
+                    c.pts, c.w, c.b, c.arch, *c.cots, c.sym, mm),
                     runs=1, warmup=1, calls=2 if big else 20)
-                row = dict(B=B, N=N, round=rnd, k8_bf16=k8,
-                           k8_nograd_bf16=k8n, k9_bf16=k9)
-                line = (f"{label} {B} x {N} round {rnd}: K8-bf16 {k8:.3f}, "
-                        f"K8-nograd-bf16 {k8n:.3f}, K9-bf16 {k9:.3f} ms")
+                row = {"B": B, "N": N, "round": rnd, f"k8{sfx}": k8,
+                       f"k8_nograd{sfx}": k8n, f"k9{sfx}": k9}
+                line = (f"{label} {B} x {N} round {rnd}: K8{tag} {k8:.3f}, "
+                        f"K8-nograd{tag} {k8n:.3f}, K9{tag} {k9:.3f} ms")
                 if ref is not None and rnd == 0:
                     got = g.backward(c.pts, c.w, c.b, c.arch, *c.cots, c.sym,
-                                     "bfloat16")
+                                     mm)
                     row["k9_err"] = [float((a.double() - r).abs().max()
                                            / r.abs().max())
                                      for a, r in zip(got, ref)]
-                    line += "; K9-bf16 max err / max|ref| " + " ".join(
+                    with torch.inference_mode():
+                        out = g.forward(c.pts, c.w, c.b, c.arch, True, c.sym,
+                                        mm)
+                    row["k8_err"] = [float((a - r).abs().max())
+                                     for a, r in zip(out, fref)]
+                    line += (f"; K9{tag} max err / max|ref| " + " ".join(
                         f"{e:.2e}" for e in row["k9_err"])
+                        + f"; K8{tag} max abs err (sdf, feat, grad) against "
+                        "float32 " + " ".join(f"{e:.2e}"
+                                              for e in row["k8_err"]))
                 print(line, flush=True)
                 results[label].append(row)
-        del c, ref
+        del c, ref, fref
         torch.cuda.empty_cache()
     print(f"card {cs.card_line()}")
     print(json.dumps(results))

@@ -1,8 +1,9 @@
 // What the generic fused SDF pair's two sources share
-// (`fused_sdf_generic.cu`, the float32 K8 / K9; `fused_sdf_generic_bf16.cu`,
-// their bf16 forms on the tensor cores): the envelope, the run-time
-// architecture and its packed float32 layout, the activation and the
-// posenc features, and the sum of K9's per-block partials.
+// (`fused_sdf_generic.cu`, the float32 K8 / K9 in 3xTF32;
+// `fused_sdf_generic_bf16.cu`, their bf16 forms; both on the tensor cores):
+// the envelope, the run-time architecture and its packed float32 layout, the
+// activation and the posenc features, and the sum of K9's per-block
+// partials.
 
 #pragma once
 
@@ -22,10 +23,6 @@ constexpr int kSmemLimit = 232448;  // bytes of shared memory a block can use
 struct Arch {
   int n_freqs, n_hidden, width, skip_mask;
   int pe_dim;      // D = 3 + 6 F
-  int rows;        // R: rows of a tile (the float32 kernels)
-  int points;      // P: points of a tile (R / 4 with tangents, R without)
-  int rs;          // shared row stride, R + 4
-  int cgroups;     // column groups: kThreads / (R / 4)
   int bias_width;  // L W + W + 1
   int num_weights;
   int woff[kMaxHidden + 2];  // each layer's offset in the packed weights

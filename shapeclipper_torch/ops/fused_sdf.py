@@ -3,10 +3,11 @@ the plain PyTorch version and the wrappers of the Hopper kernels
 `csrc/fused_sdf_fwd.cu` (K1 / K3) and `csrc/fused_sdf_bwd.cu` (K2), whose
 library also links `csrc/fused_sdf_bwd_bf16.cu` (K2-bf16), written for the
 flagship architecture (`FLAGSHIP`), and of the architecture-generic pair
-`csrc/fused_sdf_generic.cu` (K8 forward, K8-nograd, K9 backward) for every
-other SDF MLP inside `ENVELOPE`. `sdf_route` picks the pair from the
-network's architecture: a dispatch, never a fallback (a flagship whose
-kernels fail raises).
+`csrc/fused_sdf_generic.cu` (K8 forward, K8-nograd, K9 backward, their
+float32 products as 3xTF32 on the tensor cores, which read the weights'
+tf32 pack) for every other SDF MLP inside `ENVELOPE`. `sdf_route` picks
+the pair from the network's architecture: a dispatch, never a fallback (a
+flagship whose kernels fail raises).
 
 Counterpart of `shapeclipper_tpu/ops/fused_sdf.py` (forward half):
   * `prepare_fused_params`: the latent folded into per-sample biases and the
@@ -347,30 +348,28 @@ def pack_bf16_reference(weights):
     return frags, plain
 
 
-def _padded_widths(arch):
-    """(wp, dp, op): the width, 3 + 6 F and width + 1 rounded up to 16, as
-    the bf16 pack stores them."""
-    return tuple(-(-x // 16) * 16
+def _padded_widths(arch, multiple):
+    """(wp, dp, op): the width, 3 + 6 F and width + 1 rounded up to
+    `multiple` (16 in the bf16 pack, 8 in the tf32 one)."""
+    return tuple(-(-x // multiple) * multiple
                  for x in (arch.width, arch.pe_dim, arch.width + 1))
 
 
-def generic_packed_bf16(arch):
-    """bf16 elements of `generic_pack_bf16_reference`'s pack."""
-    wp, dp, op = _padded_widths(arch)
+def _padded_elems(arch, multiple):
+    wp, dp, op = _padded_widths(arch, multiple)
     return sum(((wp if l else 0) + (dp if l == 0 or l in arch.skip_in
                                     else 0)) * (op if l == arch.n_hidden
                                                 else wp)
                for l in range(arch.n_hidden + 1))
 
 
-def generic_pack_bf16_reference(weights, arch):
-    """The plain version of `GenericSdfKernel.pack_bf16`: the packed
-    float32 weights [arch.num_weights] -> K8-bf16 / K9-bf16's weights, bf16
-    (nearest even): each layer a zero-padded [kp][np] matrix, its rows the
-    h rows padded to wp then (layer 0 and the skip layers) the posenc rows
-    padded to dp, its columns padded to wp (the output layer: op,
-    `_padded_widths`); the layers back to back."""
-    wp, dp, op = _padded_widths(arch)
+def _padded_layers(weights, arch, multiple):
+    """The packed float32 weights [arch.num_weights] as the generic packs
+    lay them out, float32: each layer a zero-padded [kp][np] matrix, its
+    rows the h rows padded to wp then (layer 0 and the skip layers) the
+    posenc rows padded to dp, its columns padded to wp (the output layer:
+    op, `_padded_widths`); the layers back to back."""
+    wp, dp, op = _padded_widths(arch, multiple)
     kernels, _ = unpack_fused_params(
         weights, weights.new_zeros(1, arch.bias_width), arch)
     parts = []
@@ -384,7 +383,45 @@ def generic_pack_bf16_reference(weights, arch):
             m = weights.new_zeros(rows, n)
             m[:k.shape[0], :k.shape[1]] = k
             parts.append(m.reshape(-1))
-    return torch.cat(parts).to(torch.bfloat16)
+    return torch.cat(parts)
+
+
+def generic_packed_bf16(arch):
+    """bf16 elements of `generic_pack_bf16_reference`'s pack."""
+    return _padded_elems(arch, 16)
+
+
+def generic_pack_bf16_reference(weights, arch):
+    """The plain version of `GenericSdfKernel.pack_bf16`: the packed
+    float32 weights [arch.num_weights] -> K8-bf16 / K9-bf16's weights, bf16
+    (nearest even), in `_padded_layers`'s layout with widths padded to 16."""
+    return _padded_layers(weights, arch, 16).to(torch.bfloat16)
+
+
+def tf32_rna(x):
+    """float32 -> each element rounded to tf32 as `cvt.rna.tf32.f32` rounds
+    it (10 mantissa bits, nearest, ties away from zero; the low 13 bits
+    zero), float32; NaN as it is."""
+    u = x.contiguous().view(torch.int32)
+    r = torch.bitwise_and(u + 0x1000, -0x2000)
+    return torch.where((u & 0x7fffffff) > 0x7f800000, u, r).view(
+        torch.float32)
+
+
+def generic_packed_tf32(arch):
+    """float32 elements of `generic_pack_tf32_reference`'s pack."""
+    return 2 * _padded_elems(arch, 8)
+
+
+def generic_pack_tf32_reference(weights, arch):
+    """The plain version of `GenericSdfKernel.pack_tf32`: the packed
+    float32 weights [arch.num_weights] -> K8 / K9's weights, in
+    `_padded_layers`'s layout with widths padded to 8, each element x as
+    its pair (hi, lo) of tf32 halves, hi = `tf32_rna(x)`, lo =
+    `tf32_rna(x - hi)`: [generic_packed_tf32(arch)] float32."""
+    x = _padded_layers(weights, arch, 8)
+    hi = tf32_rna(x)
+    return torch.stack([hi, tf32_rna(x - hi)], dim=1).reshape(-1)
 
 
 def _product(mm_dtype):
@@ -729,13 +766,14 @@ class FusedSdfBackwardKernel(CudaLibrary):
 
 class GenericSdfKernel(CudaLibrary):
     """The architecture-generic pair: K8 (forward with tangents, 'grad'),
-    K8-nograd ('nograd') and K9 (the backward, 'bwd'), float32 FMA in
-    `csrc/fused_sdf_generic.cu`, and with '_bf16' their bf16 forms on the
-    tensor cores in `csrc/fused_sdf_generic_bf16.cu`, which read the
-    weights' bf16 pack ('pack_bf16', one launch before each bf16 launch).
-    One build serves every architecture of `ENVELOPE`, which arrives at
-    each launch. `launches` counts each where it is launched and nowhere
-    else."""
+    K8-nograd ('nograd') and K9 (the backward, 'bwd'), their float32
+    products as 3xTF32 on the tensor cores in `csrc/fused_sdf_generic.cu`,
+    which read the weights' tf32 pack ('pack_tf32', one launch before each
+    float32 launch), and with '_bf16' their bf16 forms on the tensor cores
+    in `csrc/fused_sdf_generic_bf16.cu`, which read the weights' bf16 pack
+    ('pack_bf16', one launch before each bf16 launch). One build serves
+    every architecture of `ENVELOPE`, which arrives at each launch.
+    `launches` counts each where it is launched and nowhere else."""
 
     stem = "scl_fused_sdf_generic"
     source = _SOURCE_GENERIC
@@ -746,27 +784,33 @@ class GenericSdfKernel(CudaLibrary):
         super().__init__(build_dir)
         self.launches = {k + m: 0 for k in ("grad", "nograd", "bwd")
                          for m in ("", "_bf16")}
-        self.launches["pack_bf16"] = 0
+        self.launches["pack_bf16"] = self.launches["pack_tf32"] = 0
 
     def _bind(self, lib):
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.scl_sdf_generic_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
         lib.scl_sdf_generic_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
-        lib.scl_sdf_generic_pack_bf16.argtypes = [p] * 2 + [i] * 4 + [p]
         lib.scl_sdf_generic_num_weights.argtypes = [i] * 4
-        lib.scl_sdf_generic_packed_bf16.argtypes = [i] * 4
         lib.scl_sdf_generic_tile_points.argtypes = [i] * 7
         lib.scl_sdf_generic_stash_floats.argtypes = [i] * 5
         lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
-        for name in ("fwd", "bwd", "pack_bf16", "num_weights", "packed_bf16",
-                     "tile_points", "stash_floats", "bwd_blocks_per_sm"):
+        for name in ("fwd", "bwd", "num_weights", "tile_points",
+                     "stash_floats", "bwd_blocks_per_sm"):
             getattr(lib, f"scl_sdf_generic_{name}").restype = i
+        for kind in ("bf16", "tf32"):
+            getattr(lib, f"scl_sdf_generic_pack_{kind}").argtypes = \
+                [p] * 2 + [i] * 4 + [p]
+            getattr(lib, f"scl_sdf_generic_packed_{kind}").argtypes = [i] * 4
+            getattr(lib, f"scl_sdf_generic_pack_{kind}").restype = i
+            getattr(lib, f"scl_sdf_generic_packed_{kind}").restype = i
         for arch in (FLAGSHIP, SdfArch(4, (2,), 4, 32),
                      SdfArch(0, (), 16, 512)):
             args = self._arch_args(arch)
             if lib.scl_sdf_generic_num_weights(*args) != arch.num_weights \
                     or lib.scl_sdf_generic_packed_bf16(*args) \
-                    != generic_packed_bf16(arch):
+                    != generic_packed_bf16(arch) \
+                    or lib.scl_sdf_generic_packed_tf32(*args) \
+                    != generic_packed_tf32(arch):
                 raise RuntimeError("the generic SDF library packs another "
                                    f"layout for {arch}")
 
@@ -792,48 +836,60 @@ class GenericSdfKernel(CudaLibrary):
                                 f"float32 {shape} on a CUDA device, got "
                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
-    def pack_bf16(self, weights, arch):
-        """weights [arch.num_weights] float32 -> what K8-bf16 / K9-bf16 read
-        ([generic_packed_bf16(arch)] bf16, `generic_pack_bf16_reference`'s
-        layout): on CUDA one launch of the pack kernel; CPU tensors take the
-        plain version."""
+    def _pack(self, kind, weights, arch):
+        """weights [arch.num_weights] float32 -> their `kind` ("bf16" or
+        "tf32") pack: on CUDA one launch of the pack kernel; CPU tensors
+        take the plain version."""
         if weights.dtype != torch.float32 \
                 or tuple(weights.shape) != (arch.num_weights,) \
                 or not weights.is_contiguous():
-            raise TypeError(f"the generic bf16 pack takes {arch.num_weights} "
-                            f"contiguous float32 weights, got {weights.dtype} "
-                            f"{tuple(weights.shape)}")
+            raise TypeError(f"the generic {kind} pack takes "
+                            f"{arch.num_weights} contiguous float32 weights, "
+                            f"got {weights.dtype} {tuple(weights.shape)}")
+        bf16 = kind == "bf16"
         if weights.device.type == "cpu":
-            return generic_pack_bf16_reference(weights, arch)
+            return (generic_pack_bf16_reference if bf16
+                    else generic_pack_tf32_reference)(weights, arch)
         if weights.device.type != "cuda":
-            raise ValueError(f"no generic bf16 pack for device "
+            raise ValueError(f"no generic {kind} pack for device "
                              f"{weights.device}")
         lib = self.build()
         dev = weights.device
-        packed = torch.empty(generic_packed_bf16(arch), device=dev,
-                             dtype=torch.bfloat16)
+        packed = torch.empty(
+            (generic_packed_bf16 if bf16 else generic_packed_tf32)(arch),
+            device=dev, dtype=torch.bfloat16 if bf16 else torch.float32)
         with torch.cuda.device(dev):
-            err = lib.scl_sdf_generic_pack_bf16(
+            err = getattr(lib, f"scl_sdf_generic_pack_{kind}")(
                 weights.data_ptr(), packed.data_ptr(),
                 *self._arch_args(arch),
                 torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"generic bf16 weight pack launch failed: "
+            raise RuntimeError(f"generic {kind} weight pack launch failed: "
                                f"cudaError {err}")
-        self.launches["pack_bf16"] += 1
+        self.launches[f"pack_{kind}"] += 1
         return packed
+
+    def pack_bf16(self, weights, arch):
+        """What K8-bf16 / K9-bf16 read: [generic_packed_bf16(arch)] bf16 in
+        `generic_pack_bf16_reference`'s layout (`_pack`)."""
+        return self._pack("bf16", weights, arch)
+
+    def pack_tf32(self, weights, arch):
+        """What K8 / K9 read: [generic_packed_tf32(arch)] float32, (hi, lo)
+        tf32 pairs in `generic_pack_tf32_reference`'s layout (`_pack`)."""
+        return self._pack("tf32", weights, arch)
 
     def _weights(self, weights, arch, mm_dtype):
         return (self.pack_bf16(weights, arch) if mm_dtype == "bfloat16"
-                else weights)
+                else self.pack_tf32(weights, arch))
 
     def forward(self, points, weights, biases, arch, compute_grad,
                 force_symmetry, mm_dtype="float32"):
         """points [B,N,3], weights [arch.num_weights], biases [B,
         arch.bias_width] (float32, contiguous, one CUDA device) -> (sdf
         [B,N], feat [B,N,W], grad [B,N,3] or None), float32: one launch of
-        K8 (K8-nograd without `compute_grad`), after the bf16 pack for bf16
-        products."""
+        K8 (K8-nograd without `compute_grad`), after the weights' tf32 pack
+        (bf16 pack for bf16 products)."""
         _check_mm_dtype(mm_dtype)
         self._check_operands(arch, points, weights, biases)
         lib = self.build()
@@ -884,8 +940,8 @@ class GenericSdfKernel(CudaLibrary):
         [B,N], fbar [B,N,W], gbar [B,N,3] -> (d weights [arch.num_weights],
         d biases [B, arch.bias_width], d points [B,N,3]), float32. Its
         blocks each add into their own slice of the partials, which a
-        second launch sums (`scratch_floats`); the bf16 pack first for bf16
-        products."""
+        second launch sums (`scratch_floats`); the weights' tf32 pack first
+        (bf16 pack for bf16 products)."""
         _check_mm_dtype(mm_dtype)
         self._check_operands(arch, points, weights, biases, sbar, fbar, gbar)
         lib = self.build()

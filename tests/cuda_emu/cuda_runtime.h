@@ -3,11 +3,11 @@
 // uses, for running that code on the CPU
 // (tests/test_torch_generic_emulated.py):
 // a block's threads are std::threads, __syncthreads a std::barrier over
-// them, blocks run in turn. The warp-collective fragment functions of
-// fused_sdf_generic_bf16.cu (ldmatrix, mma.sync m16n8k16 bf16, shuffles)
-// exchange through per-warp slots behind a per-warp std::barrier, with the
-// PTX ISA's fragment layouts; cp.async copies are queued per thread and
-// land when the thread waits for their group (harness.cpp).
+// them, blocks run in turn. The warp-collective fragment functions
+// (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k8 tf32, shuffles) exchange
+// through per-warp slots behind a per-warp std::barrier, with the PTX ISA's
+// fragment layouts; cp.async copies are queued per thread and land when the
+// thread waits for their group (harness.cpp).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -47,6 +47,16 @@ using std::min;
 inline float __expf(float x) { return std::exp(x); }
 inline float __logf(float x) { return std::log(x); }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 void __syncthreads();
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -56,7 +66,7 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return 0;
 }
 
-// the fragment plumbing of fused_sdf_generic_bf16.cu
+// the fragment plumbing of fused_sdf_generic.cu and fused_sdf_generic_bf16.cu
 #define SCL_EMULATED 1
 void __syncwarp(unsigned mask = 0xffffffffu);
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
@@ -77,7 +87,20 @@ inline void ldsm4t(uint32_t (&r)[4], const void* p) {
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, c += A B
 void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
               uint32_t b1);
+// cvt.rna.tf32.f32: x to 10 mantissa bits, nearest, ties away from zero
+// (the magnitude's bit 12 added, the low 13 bits cleared); NaN as it is
+inline uint32_t tf32_rna(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, c += A B, each
+// operand register read as the hardware reads it: its top 19 bits
+void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+             uint32_t b1);
 void cp_async16(void* dst, const void* src, bool valid);
+void cp_async4(void* dst, const void* src);
+void cp_async8(void* dst, const void* src);
 void cp_async_commit();
 void emu_cp_async_wait(int n);
 inline void prefetch_l2(const void*) {}

@@ -1,9 +1,9 @@
 // Runs the device code of shapeclipper_torch/csrc/fused_sdf_generic.cu
 // (copied above its C entry points into device_part.inc by the test) on the
-// CPU, and emulates the warp-collective functions that
-// fused_sdf_generic_bf16.cu uses (harness_bf16.cpp runs that file's device
-// part). The entry points mirror scl_sdf_generic_fwd / _bwd without the
-// stream.
+// CPU, and emulates the warp-collective functions that it and
+// fused_sdf_generic_bf16.cu use (harness_bf16.cpp runs that file's device
+// part). The entry points mirror scl_sdf_generic_pack_tf32 / _fwd / _bwd
+// without the stream.
 #include "cuda_runtime.h"
 #include "harness.h"
 
@@ -35,7 +35,7 @@ thread_local int t_slot = 0;
 struct Copy {
   void* dst;
   const void* src;
-  bool valid;
+  int bytes;  // 0: zero-fill 16
 };
 thread_local std::vector<Copy> t_pending;
 thread_local std::vector<std::vector<Copy>> t_groups;
@@ -124,8 +124,49 @@ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
   }
 }
 
+// A (16 x 8): a0 (row g, column t), a1 (row g + 8), a2 (row g, column
+// t + 4), a3 (row g + 8, column t + 4); B (8 x 8): b0 (row t, column g), b1
+// (row t + 4); C as mma16816's. Each operand register counts as its top 19
+// bits (the hardware ignores the low 13), so an operand that was not split
+// loses them; the products are exact in double, the sum is rounded once.
+void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+             uint32_t b1) {
+  int lane, s;
+  Warp& w = my_warp(lane, s);
+  uint32_t* mine = w.regs[s][lane];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  w.bar->arrive_and_wait();
+  auto tf32 = [](uint32_t v) {
+    return double(__uint_as_float(v & 0xffffe000u));
+  };
+  auto A = [&](int row, int k) {
+    return tf32(w.regs[s][4 * (row % 8) + k % 4]
+                          [(row >= 8 ? 1 : 0) + (k >= 4 ? 2 : 0)]);
+  };
+  auto B = [&](int k, int col) {
+    return tf32(w.regs[s][4 * col + k % 4][4 + (k >= 4 ? 1 : 0)]);
+  };
+  const int g = lane / 4, t = lane % 4;
+  for (int j = 0; j < 4; ++j) {
+    const int row = g + 8 * (j >> 1), col = 2 * t + (j & 1);
+    double sum = 0.0;
+    for (int k = 0; k < 8; ++k) sum += A(row, k) * B(k, col);
+    c[j] = float(double(c[j]) + sum);
+  }
+}
+
 void cp_async16(void* dst, const void* src, bool valid) {
-  t_pending.push_back({dst, src, valid});
+  t_pending.push_back({dst, src, valid ? 16 : 0});
+}
+
+void cp_async4(void* dst, const void* src) {
+  t_pending.push_back({dst, src, 4});
+}
+
+void cp_async8(void* dst, const void* src) {
+  t_pending.push_back({dst, src, 8});
 }
 
 void cp_async_commit() {
@@ -137,8 +178,8 @@ void cp_async_commit() {
 void emu_cp_async_wait(int n) {
   while ((int)t_groups.size() > n) {
     for (const Copy& c : t_groups.front()) {
-      if (c.valid)
-        std::memcpy(c.dst, c.src, 16);
+      if (c.bytes)
+        std::memcpy(c.dst, c.src, c.bytes);
       else
         std::memset(c.dst, 0, 16);
     }
@@ -177,25 +218,56 @@ bool run_grid(int grid, const std::function<void()>& body, void* smem,
   return clean;
 }
 
-// ------------------------------------------------------------- float32 K8 / K9
+// ------------------------------------------------- float32 (3xTF32) K8 / K9
 namespace {
 alignas(16) float smem[1 << 17];
 }
 #include "device_part.inc"
 
-static bool arch_of(Arch* a, int f, int l, int w, int m, bool grad,
+static bool tile_of(Arch* a, Tile* t, int f, int l, int w, int m, bool grad,
                     bool backward) {
-  if (!make_arch(a, f, l, w, m)) return false;
-  const int rows = choose_rows(*a, backward);
-  if (!rows) return false;
-  set_tile(a, rows, grad);
-  return true;
+  return make_arch(a, f, l, w, m) && make_tile(t, *a, grad, backward) &&
+         smem_bytes(*a, *t, backward) <= (int)sizeof(smem);
 }
 
 extern "C" int emu_tile_points(int f, int l, int w, int m, int grad,
                                int backward) {
   Arch a;
-  return arch_of(&a, f, l, w, m, grad || backward, backward) ? a.points : -1;
+  Tile t;
+  return tile_of(&a, &t, f, l, w, m, grad || backward, backward) ? t.points
+                                                                 : -1;
+}
+
+extern "C" int emu_stash_floats(int f, int l, int w, int m) {
+  Arch a;
+  Tile t;
+  return tile_of(&a, &t, f, l, w, m, true, true) ? stash_floats(a, t) : -1;
+}
+
+extern "C" int emu_packed(int f, int l, int w, int m) {
+  Arch a;
+  Tile t;
+  if (!make_arch(&a, f, l, w, m)) return -1;
+  make_layout(&t, a);
+  return 2 * t.boff[a.n_hidden + 1];
+}
+
+extern "C" int emu_pack(const float* w, float* out, int f, int l, int wd,
+                        int m) {
+  Arch a;
+  Tile t;
+  if (!make_arch(&a, f, l, wd, m)) return 1;
+  make_layout(&t, a);
+  const int n = t.boff[a.n_hidden + 1];
+  blockDim.x = kThreads;
+  for (int b = 0; b < (n + kThreads - 1) / kThreads; ++b) {
+    blockIdx.x = b;
+    for (int i = 0; i < kThreads; ++i) {
+      threadIdx.x = i;
+      sdf_generic_pack_tf32_kernel(w, reinterpret_cast<float2*>(out), a, t);
+    }
+  }
+  return 0;
 }
 
 extern "C" int emu_fwd(const float* p, const float* w, const float* bi,
@@ -203,14 +275,18 @@ extern "C" int emu_fwd(const float* p, const float* w, const float* bi,
                        int f, int l, int wd, int m, int compute_grad,
                        int sym) {
   Arch a;
-  if (!arch_of(&a, f, l, wd, m, compute_grad, false)) return 1;
+  Tile t;
+  if (!tile_of(&a, &t, f, l, wd, m, compute_grad, false)) return 1;
+  const float2* w2 = reinterpret_cast<const float2*>(w);
   const bool ok = run_grid(
-      B * ((N + a.points - 1) / a.points),
+      B * ((N + t.points - 1) / t.points),
       [&] {
         if (compute_grad)
-          sdf_generic_fwd_kernel<true>(p, w, bi, sdf, feat, grad, N, sym, a);
+          sdf_generic_fwd_tf32_kernel<true>(p, w2, bi, sdf, feat, grad, N,
+                                            sym, a, t);
         else
-          sdf_generic_fwd_kernel<false>(p, w, bi, sdf, feat, grad, N, sym, a);
+          sdf_generic_fwd_tf32_kernel<false>(p, w2, bi, sdf, feat, grad, N,
+                                             sym, a, t);
       },
       smem, sizeof(smem));
   return ok ? 0 : 2;
@@ -222,22 +298,92 @@ extern "C" int emu_bwd(const float* p, const float* w, const float* bi,
                        float* stash, int B, int N, int grid, int f, int l,
                        int wd, int m, int sym) {
   Arch a;
-  if (!arch_of(&a, f, l, wd, m, true, true)) return 1;
+  Tile t;
+  if (!tile_of(&a, &t, f, l, wd, m, true, true)) return 1;
+  const float2* w2 = reinterpret_cast<const float2*>(w);
   const bool ok = run_grid(
       grid,
       [&] {
-        sdf_generic_bwd_kernel(p, w, bi, sbar, fbar, gbar, dpoints, partials,
-                               stash, B, N, sym, a);
+        sdf_generic_bwd_tf32_kernel(p, w2, bi, sbar, fbar, gbar, dpoints,
+                                    partials, stash, B, N, sym, a, t);
       },
       smem, sizeof(smem));
   const size_t n = (size_t)a.num_weights + (size_t)B * a.bias_width;
   blockDim.x = 256;
   for (unsigned b = 0; b < (n + 255) / 256; ++b) {
     blockIdx.x = b;
-    for (int t = 0; t < 256; ++t) {
-      threadIdx.x = t;
+    for (int i = 0; i < 256; ++i) {
+      threadIdx.x = i;
       sum_partials_kernel(partials, out, n, grid);
     }
   }
+  return ok ? 0 : 2;
+}
+
+// cvt.rna.tf32.f32 of each of x[0 .. n - 1] -> its bits
+extern "C" void emu_tf32_rna(const float* x, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = tf32_rna(x[i]);
+}
+
+// One warp: D = C + A B by one mma.sync m16n8k8 tf32 on the registers as
+// given (A [16][8], B [8][8] as float32 bit patterns, C and D float32
+// [16][8]), through the fragment layout.
+extern "C" int emu_tf32_mma(const uint32_t* A, const uint32_t* B,
+                            const float* C, float* Dout) {
+  const bool ok = run_grid(
+      1,
+      [&] {
+        const int lane = threadIdx.x;
+        if (lane >= 32) return;
+        const int g = lane / 4, t = lane % 4;
+        const uint32_t a[4] = {A[g * 8 + t], A[(g + 8) * 8 + t],
+                               A[g * 8 + t + 4], A[(g + 8) * 8 + t + 4]};
+        float c[4];
+        for (int j = 0; j < 4; ++j)
+          c[j] = C[(g + 8 * (j >> 1)) * 8 + 2 * t + (j & 1)];
+        mma1688(c, a, B[t * 8 + g], B[(t + 4) * 8 + g]);
+        for (int j = 0; j < 4; ++j)
+          Dout[(g + 8 * (j >> 1)) * 8 + 2 * t + (j & 1)] = c[j];
+      },
+      smem, sizeof(smem));
+  return ok ? 0 : 2;
+}
+
+// One warp: D = A B for A [16][K] and B [K][8] float32 (K a multiple of 8)
+// as the kernels form a product: A staged as float32 rows in shared memory
+// and fetched by `load_a`, B's elements split as the pack splits them and
+// taken in the order of a W chunk (k-step index 2t for the mma's t, 2t + 1
+// for t + 4), summed by `mma3_tiles` (3xTF32; its tiles (m, 0)); with
+// `hi_only` one mma1688 of the hi halves a step instead (plain TF32).
+extern "C" int emu_tf32_dot(const float* A, const float* B, float* Dout,
+                            int K, int hi_only) {
+  const int ld = stride8(K);
+  if (16 * ld * 4 > (int)sizeof(smem)) return 1;
+  const bool ok = run_grid(
+      1,
+      [&] {
+        const int lane = threadIdx.x;
+        if (lane >= 32) return;
+        if (lane == 0)
+          for (int r = 0; r < 16; ++r)
+            for (int k = 0; k < K; ++k) smem[r * ld + k] = A[r * K + k];
+        __syncwarp();
+        const int g = lane / 4, t = lane % 4;
+        float acc[2][kNT][4] = {};
+        for (int k0 = 0; k0 < K; k0 += 8) {
+          uint32_t ah[2][4], al[2][4], bh[kNT][2] = {}, bl[kNT][2] = {};
+          for (int m = 0; m < 2; ++m)
+            load_a(ah[m], al[m], smem + k0, ld, lane);
+          split(B[(k0 + 2 * t) * 8 + g], bh[0][0], bl[0][0]);
+          split(B[(k0 + 2 * t + 1) * 8 + g], bh[0][1], bl[0][1]);
+          if (hi_only)
+            mma1688(acc[0][0], ah[0], bh[0][0], bh[0][1]);
+          else
+            mma3_tiles(acc, ah, al, bh, bl, 1);
+        }
+        for (int j = 0; j < 4; ++j)
+          Dout[(g + 8 * (j >> 1)) * 8 + 2 * t + (j & 1)] = acc[0][0][j];
+      },
+      smem, sizeof(smem));
   return ok ? 0 : 2;
 }

@@ -864,11 +864,12 @@ GENERIC_ARCHS = {"jax_test": (4, (2,), 4, 32, 16, False),
 
 @pytest.mark.parametrize("name", list(GENERIC_ARCHS))
 def test_generic_pair_matches_plain(dev, name):
-    """K8 (with and without tangents) against its plain version at SDF_TOL /
-    GRAD_TOL, K9 against the float64 plain version at atol 3e-5 * max|ref|,
-    rtol 2e-4, and two K9 launches bitwise equal; 2 x 300 points (a ragged
-    last tile), every third on the x0 = 0 plane; the routed entry points
-    launch K8 / K9 and not K1 / K2 / K3."""
+    """K8 (with and without tangents; 3xTF32 on the tensor cores) against
+    its plain version at SDF_TOL / GRAD_TOL, K9 against the float64 plain
+    version at atol 3e-5 * max|ref|, rtol 2e-4, and two K9 launches bitwise
+    equal; 2 x 300 points (a ragged last tile), every third on the x0 = 0
+    plane; the routed entry points launch K8 / K9, each after the weights'
+    tf32 pack, and not K1 / K2 / K3."""
     n_freqs, skips, hidden, width, latent, sym = GENERIC_ARCHS[name]
     g = torch.Generator().manual_seed(3)
     net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
@@ -910,7 +911,7 @@ def test_generic_pair_matches_plain(dev, name):
     after = (F.GENERIC.launches, F.KERNEL.launches, F.BACKWARD.launches)
     assert {k: after[0][k] - before[0][k] for k in after[0]} == dict(
         grad=1, nograd=1, bwd=1, grad_bf16=0, nograd_bf16=0, bwd_bf16=0,
-        pack_bf16=0)
+        pack_bf16=0, pack_tf32=3)
     assert after[1] == before[1] and after[2] == before[2]
 
 
@@ -927,7 +928,7 @@ def test_generic_pair_bf16_matches_plain(dev, name):
     architecture: max error within 1e-2 (a float32 sum one ulp apart can
     round to the neighbouring bf16 operand), mean error under half the
     mean distance from the float32 kernels; two K9-bf16 launches bitwise
-    equal; one pack launch before each bf16 launch."""
+    equal; one pack launch before each launch (bf16 and tf32)."""
     n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
     g = torch.Generator().manual_seed(4)
     net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
@@ -967,7 +968,7 @@ def test_generic_pair_bf16_matches_plain(dev, name):
     after = F.GENERIC.launches
     assert {k: after[k] - before[k] for k in after} == dict(
         grad=1, nograd=1, bwd=1, grad_bf16=1, nograd_bf16=1, bwd_bf16=2,
-        pack_bf16=4)
+        pack_bf16=4, pack_tf32=3)
 
 
 @pytest.mark.parametrize("name", list(GENERIC_BF16_ARCHS))
@@ -986,3 +987,30 @@ def test_generic_bf16_pack_matches_plain(dev, name):
     got = F.GENERIC.pack_bf16(w.to(dev), arch)
     want = F.generic_pack_bf16_reference(w, arch)
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("name", list(GENERIC_BF16_ARCHS))
+def test_generic_tf32_pack_matches_plain(dev, name):
+    """The generic pair's tf32 weight pack (each layer zero-padded to
+    multiples of 8, each element its (hi, lo) pair of cvt.rna.tf32 halves)
+    bitwise against its plain version; hi + lo gives every weight back to
+    within 2^-22 of its size."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
+    g = torch.Generator().manual_seed(6)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False, generator=g)
+    with torch.no_grad():
+        w, _ = F.pack_fused_params(*F.prepare_fused_params(
+            net, torch.zeros(1, latent)))
+    arch = F.sdf_arch(net)
+    before = F.GENERIC.launches["pack_tf32"]
+    got = F.GENERIC.pack_tf32(w.to(dev), arch)
+    torch.cuda.synchronize()
+    assert F.GENERIC.launches["pack_tf32"] == before + 1
+    want = F.generic_pack_tf32_reference(w, arch)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    pairs = want.view(-1, 2).double()
+    back = F._padded_layers(w, arch, 8).double()
+    assert torch.all((pairs.sum(1) - back).abs()
+                     <= 2.0 ** -22 * back.abs())

@@ -1,18 +1,22 @@
 """The generic fused SDF pair's device code (the float32 K8 / K8-nograd /
-K9 of `shapeclipper_torch/csrc/fused_sdf_generic.cu`, their bf16 forms on
-the tensor cores and the bf16 weight pack of `csrc/fused_sdf_generic_bf16.cu`)
-run on the CPU, against its plain versions in `ops/fused_sdf.py`.
+K9 of `shapeclipper_torch/csrc/fused_sdf_generic.cu`, 3xTF32 on the tensor
+cores, and their tf32 weight pack; their bf16 forms on the tensor cores and
+the bf16 weight pack of `csrc/fused_sdf_generic_bf16.cu`) run on the CPU,
+against its plain versions in `ops/fused_sdf.py`.
 
 There is no CUDA compiler here, so the test compiles each source's device
 part (everything above its C entry points) with g++ against the stub
 headers of `tests/cuda_emu/`, one translation unit each as nvcc builds
 them: a block's 256 threads are std::threads, `__syncthreads` a barrier
 over them, blocks run in turn, shared memory starts as NaN patterns. The
-bf16 file's warp collectives (ldmatrix x1 / x2 / x4 and .trans, mma.sync
-m16n8k16 bf16, shuffles) are emulated with the PTX ISA's fragment layouts
-behind a per-warp barrier, and its cp.async copies land only when their
-thread waits for them, so a read before the wait shows; the emulation is
-itself held to numpy through those layouts. This checks the kernels'
+warp collectives (ldmatrix x1 / x2 / x4 and .trans, mma.sync m16n8k16 bf16
+and m16n8k8 tf32, shuffles) are emulated with the PTX ISA's fragment
+layouts behind a per-warp barrier (the tf32 mma reads only the top 19 bits
+of each operand register, as the hardware does, so an operand left
+unsplit loses the rest), `cvt.rna.tf32.f32` as the ISA rounds, and
+cp.async copies land only when their thread waits for them, so a read
+before the wait shows; the emulation is itself held to numpy through those
+layouts. This checks the kernels'
 indexing, tiling, barriers and arithmetic at small sizes; whether nvcc
 builds them and how fast they run only the card shows (`tests/
 test_torch_cuda.py -k generic`, phase 16 of `chip_smoke.py`). It skips
@@ -78,7 +82,13 @@ def emu(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     emu.emu_fwd.argtypes = [p] * 6 + [i] * 8
     emu.emu_bwd.argtypes = [p] * 10 + [i] * 8
+    emu.emu_pack.argtypes = [p] * 2 + [i] * 4
     emu.emu_tile_points.argtypes = [i] * 6
+    emu.emu_stash_floats.argtypes = [i] * 4
+    emu.emu_packed.argtypes = [i] * 4
+    emu.emu_tf32_rna.argtypes = [p, p, i]
+    emu.emu_tf32_mma.argtypes = [p] * 4
+    emu.emu_tf32_dot.argtypes = [p] * 3 + [i] * 2
     emu.emu_bf16_fwd.argtypes = [p] * 6 + [i] * 8
     emu.emu_bf16_bwd.argtypes = [p] * 10 + [i] * 8
     emu.emu_bf16_pack.argtypes = [p] * 2 + [i] * 4
@@ -116,9 +126,9 @@ def _case(spec, B, N, seed):
 
 def _run(emu, case, bf16, grid=3):
     """K8 with and without tangents, then K9 over `grid` blocks, emulated
-    (float32, or the bf16 forms on the emulated pack, which must equal its
-    plain version bitwise) -> ((sdf, feat, grad), (sdf, feat)) and (d
-    weights, d biases, d points)."""
+    (3xTF32 on the emulated tf32 pack, or the bf16 forms on the emulated
+    bf16 pack; each pack must equal its plain version bitwise) -> ((sdf,
+    feat, grad), (sdf, feat)) and (d weights, d biases, d points)."""
     arch, sym, pts, w, b, cots = case
     B, N = pts.shape[:2]
     args = (arch.n_freqs, arch.n_hidden, arch.width, arch.skip_mask)
@@ -133,9 +143,14 @@ def _run(emu, case, bf16, grid=3):
         tile = emu.emu_bf16_tile_points(*args, 1, 1)
         stash_floats = emu.emu_bf16_stash_floats(*args)
     else:
-        weights, fwd_fn, bwd_fn = w, emu.emu_fwd, emu.emu_bwd
+        weights = torch.full((emu.emu_packed(*args),), float("nan"))
+        assert emu.emu_pack(_ptr(w), _ptr(weights), *args) == 0
+        assert torch.equal(weights.view(torch.int32),
+                           F.generic_pack_tf32_reference(w, arch)
+                           .view(torch.int32))
+        fwd_fn, bwd_fn = emu.emu_fwd, emu.emu_bwd
         tile = emu.emu_tile_points(*args, 1, 1)
-        stash_floats = arch.n_hidden * arch.width * 4 * tile
+        stash_floats = emu.emu_stash_floats(*args)
     fwd = []
     for grad in (True, False):
         out = [torch.full((B, N), float("nan")),
@@ -170,11 +185,15 @@ def _plain(case, mm, dtype):
 def test_emulated_generic_pair_matches_plain(emu, name):
     """K8 with and without tangents and K9 (three blocks over a ragged set
     of tiles, so that each block adds several tiles to its partials), with
-    float32 products and in their bf16 forms on the tensor cores (after
-    the bf16 pack, bitwise its plain version), against the plain versions.
+    float32 products (3xTF32, after the tf32 pack) and in their bf16 forms
+    (after the bf16 pack), both on the tensor cores, each pack bitwise its
+    plain version, against the plain versions: float32 at 2 x 37 points (2
+    x 12 at width 512, whose 8-point tiles still give K9 more tiles than
+    blocks and a ragged last one: every tf32 mma is a warp exchange here).
     The bf16 forms' tiles are larger (64 points but at width 512), so they
-    run 2 x 150 points there."""
-    case = _case(ARCHS[name], 2, 37, seed=7)
+    run 2 x 150 points there (2 x 37 at width 512)."""
+    case = _case(ARCHS[name], 2, 12 if ARCHS[name][3] == 512 else 37,
+                 seed=7)
     f32 = _run(emu, case, False)
     want = _plain(case, "float32", torch.float64)
     fwd_tol = (dict(atol=2e-5, rtol=0.0),) * 2 + (dict(atol=5e-4, rtol=5e-3),)
@@ -190,8 +209,8 @@ def test_emulated_generic_pair_matches_plain(emu, name):
     # chip_smoke.check_bf16) the largest error is held to 1e-2 of the
     # value's scale and the mean error under half the mean distance from
     # float32 (here the float32 plain version on the same inputs)
-    if ARCHS[name][3] < 512:
-        case = _case(ARCHS[name], 2, 150, seed=7)
+    case = _case(ARCHS[name], 2, 150 if ARCHS[name][3] < 512 else 37,
+                 seed=7)
     b16 = _run(emu, case, True)
     want = _plain(case, "bfloat16", torch.float32)
     away = _plain(case, "float32", torch.float32)
@@ -206,9 +225,12 @@ def test_emulated_generic_pair_matches_plain(emu, name):
 
 
 def test_emulated_tiles_follow_shared_memory(emu):
-    """The tile shrinks with the width so that its buffers fit a block's
-    227 KB: 16 / 64 points (K8 with / without tangents) and 16 for K9 at
-    width 256, 8 / 32 and 8 at 512; outside the envelope there is none."""
+    """The float32 (3xTF32) forms' tile is the largest of 128, 64, 32 rows
+    whose float32 buffers fit a block's 227 KB: at width 256 K8 / K8-nograd
+    / K9 take 16 / 64 / 16 points (64 rows; 128 rows of two float32 row
+    buffers would take 270 KB), at width 512 8 / 32 / 8, at width 32 32 /
+    128 / 32; outside the envelope there is none. The tf32 pack pads each
+    layer to multiples of 8, two floats an element."""
     def tiles(f, l, w, m):
         return (emu.emu_tile_points(f, l, w, m, 1, 0),
                 emu.emu_tile_points(f, l, w, m, 0, 0),
@@ -216,8 +238,12 @@ def test_emulated_tiles_follow_shared_memory(emu):
     assert tiles(6, 8, 256, 1 << 4) == (16, 64, 16)
     assert tiles(16, 2, 512, 0b110) == (8, 32, 8)
     assert tiles(16, 16, 512, 0) == (8, 32, 8)
+    assert tiles(4, 4, 32, 1 << 2) == (32, 128, 32)
     assert tiles(6, 8, 513, 0) == (-1, -1, -1)
     assert tiles(6, 8, 256, 1 << 9) == (-1, -1, -1)
+    for arch in (F.SdfArch(6, (4,), 8, 256), F.SdfArch(2, (2, 5, 6), 6, 13)):
+        assert emu.emu_packed(arch.n_freqs, arch.n_hidden, arch.width,
+                              arch.skip_mask) == F.generic_packed_tf32(arch)
 
 
 def test_emulated_bf16_tiles_follow_shared_memory(emu):
@@ -289,3 +315,84 @@ def test_emulated_mma_matches_numpy(emu, b_from_rows):
         *(ctypes.c_void_p(x.ctypes.data) for x in (a_bits, b_bits, c, d)),
         int(b_from_rows)) == 0
     np.testing.assert_allclose(d, c + a @ b, rtol=1e-6, atol=1e-6)
+
+
+def _tf32_rna_numpy(x):
+    """cvt.rna.tf32.f32 in numpy: the magnitude rounded to 10 mantissa
+    bits, ties away from zero, as bits (NaN as it is)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x1000) & 0xffffe000).astype(np.uint32)
+    nan = (u & 0x7fffffff) > 0x7f800000
+    return np.where(nan, u.astype(np.uint32), r)
+
+
+def test_emulated_tf32_rna_matches_numpy(emu):
+    """cvt.rna.tf32.f32 (the kernels' operand split) and the pack's plain
+    version `F.tf32_rna` against numpy: nearest, ties away from zero on
+    the magnitude, over random floats of every scale, exact ties of both
+    signs, subnormals, the largest float (to infinity) and infinities."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(4096) * np.exp2(rng.randint(-140, 120, 4096))).astype(
+        np.float32)
+    ties = (rng.randint(1, 1 << 10, 64) << 13 | 0x1000).astype(np.uint32)
+    ties |= (rng.randint(1, 254, 64) << 23).astype(np.uint32)
+    special = np.array([0.0, -0.0, 1e-45, -3e-39, np.finfo(np.float32).max,
+                        -np.finfo(np.float32).max, np.inf, -np.inf],
+                       np.float32)
+    x = np.concatenate([x, ties.view(np.float32), -ties.view(np.float32),
+                        special])
+    out = np.zeros(x.size, np.uint32)
+    emu.emu_tf32_rna(ctypes.c_void_p(x.ctypes.data),
+                     ctypes.c_void_p(out.ctypes.data), x.size)
+    want = _tf32_rna_numpy(x)
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(
+        F.tf32_rna(torch.from_numpy(x)).numpy().view(np.uint32), want)
+    assert ((want[4096:4096 + 64] & 0x1fff) == 0).all()
+    assert np.isinf(want[-4:-2].view(np.float32)).all()
+
+
+def test_emulated_tf32_mma_matches_numpy(emu):
+    """One mma.sync m16n8k8 tf32 through its fragment layout (a0 A[g][t],
+    a1 A[g + 8][t], a2 A[g][t + 4], a3 A[g + 8][t + 4]; b0 B[t][g], b1
+    B[t + 4][g]; C and D as m16n8k16's) on float32 operands that are not
+    tf32 values: D = C + A' B' in float64 to float32 rounding, A' and B'
+    each element cut to its top 19 bits, as the hardware reads them."""
+    rng = np.random.RandomState(5)
+    a = rng.randn(16, 8).astype(np.float32)
+    b = rng.randn(8, 8).astype(np.float32)
+    c = rng.randn(16, 8).astype(np.float32)
+    d = np.zeros((16, 8), np.float32)
+    a_bits, b_bits = a.view(np.uint32), b.view(np.uint32)
+    assert emu.emu_tf32_mma(*(ctypes.c_void_p(x.ctypes.data)
+                              for x in (a_bits, b_bits, c, d))) == 0
+
+    def cut(bits):
+        return (bits & np.uint32(0xffffe000)).view(np.float32).astype(
+            np.float64)
+    want = c + cut(a_bits) @ cut(b_bits)
+    np.testing.assert_allclose(d, want, rtol=1e-6, atol=1e-6)
+    # the low bits are dropped, not rounded: unsplit operands miss them
+    assert np.abs(d - (c + a.astype(np.float64) @ b)).max() > 1e-4
+
+
+def test_emulated_3xtf32_dot_keeps_float32_precision(emu):
+    """The kernels' product of 256-deep rows (A staged as float32 rows and
+    fetched by `load_a`, B split as the pack splits it, `mma3_tiles`'s
+    three tf32 products a k-step): within float32's error bound K u sum|a||b|
+    (u = 2^-24) of the float64 product everywhere, where the same
+    product of the hi halves alone (plain TF32) exceeds it."""
+    rng = np.random.RandomState(8)
+    K = 256
+    a = rng.randn(16, K).astype(np.float32)
+    b = rng.randn(K, 8).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    bound = K * 2.0 ** -24 * (np.abs(a).astype(np.float64) @ np.abs(b))
+    errs = []
+    for hi_only in (0, 1):
+        d = np.zeros((16, 8), np.float32)
+        assert emu.emu_tf32_dot(*(ctypes.c_void_p(x.ctypes.data)
+                                  for x in (a, b, d)), K, hi_only) == 0
+        errs.append(np.abs(d - ref) / bound)
+    assert errs[0].max() <= 1.0, errs[0].max()
+    assert errs[1].max() > 2.0, errs[1].max()
