@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import span
+
 
 def pose(R=None, t=None):
     """Build a [..., 3, 4] pose from rotation R [..., 3, 3] and/or t [..., 3]."""
@@ -56,7 +58,11 @@ def cam2world(X, p):  # X: [B, N, 3], p: [..., 3, 4]
 
 
 def img2cam(X, cam_intr):
-    return X @ torch.linalg.inv(cam_intr).transpose(-1, -2)
+    # torch.linalg.inv reads its error flags on the host: on CUDA, a
+    # synchronisation
+    with span("sync.inv"):
+        inv = torch.linalg.inv(cam_intr)
+    return X @ inv.transpose(-1, -2)
 
 
 def transform_normal(normals, p):

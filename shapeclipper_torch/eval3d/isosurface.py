@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..utils.trace import span
+
 
 class Mesh(NamedTuple):
     vertices: np.ndarray  # [V, 3] float32
@@ -142,6 +144,7 @@ def marching_tetrahedra(level, isovalue=0.0):
     return Mesh(V, F)
 
 
+@span("eval3d.mesh")
 def marching_cubes_world(level, range_min, range_max, isovalue=0.0):
     """Extract + rescale vertices to world units, matching the reference's
     convention vertices/S*(max-min)+min with S = grid points per axis

@@ -32,6 +32,7 @@ import torch
 
 from ..ops.chamfer import chamfer_dists_sq
 from ..ops.fused_sdf import fused_sdf_forward
+from ..utils.trace import span, to_host
 from . import device_isosurface, isosurface
 
 GRID_CHUNK = 131072
@@ -50,6 +51,7 @@ def dense_grid_points(opt, N=None, device=None):
     return pts.reshape(-1, 3)
 
 
+@span("eval3d.grid")
 def compute_level_grid(opt, sdf_network, proj_latent_sdf, N=None,
                        chunk=GRID_CHUNK):
     """proj_latent_sdf [B, C] -> SDF grid [B, N+1, N+1, N+1]."""
@@ -152,8 +154,8 @@ def consume_finish_outputs(var, outs):
     dpc_pred, pred, gt, f_score, cd_acc, cd_comp, _, _ = outs
     var.dpc_pred = dpc_pred
     var.dpc_pred_normalized, var.dpc_gt_normalized = pred, gt
-    host = torch.cat([f_score, cd_acc[:, None], cd_comp[:, None]],
-                     dim=1).cpu().numpy()
+    host = to_host(torch.cat([f_score, cd_acc[:, None], cd_comp[:, None]],
+                             dim=1), "metrics").numpy()
     n_thr = f_score.shape[1]
     var.f_score = host[:, :n_thr]
     var.cd_acc, var.cd_comp = host[:, n_thr], host[:, n_thr + 1]
@@ -185,9 +187,10 @@ def _start_host_copy(level):
 def _host_level(pending):
     """The grid on the host as numpy, waiting for its copy alone."""
     if pending.host is None:
-        return pending.level.cpu().numpy()
+        return to_host(pending.level, "level").numpy()
     if pending.ready is not None:
-        pending.ready.synchronize()
+        with span("sync.level"):
+            pending.ready.synchronize()
     return pending.host.numpy()
 
 

@@ -70,6 +70,7 @@ def main(argv=None):
 
     from .eval3d import isosurface
     from .train.trainer import Runner
+    from .utils import trace
     from . import vis as util_vis
 
     runner = Runner(opt, device)
@@ -89,7 +90,7 @@ def main(argv=None):
     H, W = opt_e.H, opt_e.W
 
     def host(t, *shape):
-        return t.reshape(*shape).cpu().numpy()
+        return trace.to_host(t.reshape(*shape), "image").numpy()
 
     util_vis.dump_images(opt, var.idx, "image_input", rgb, folder=folder)
     util_vis.dump_images(opt, var.idx, "image_recon",
@@ -102,8 +103,8 @@ def main(argv=None):
 
     log.info("extracting mesh...")
     range_min, range_max = opt.eval.range
-    mesh = isosurface.marching_cubes_world(level[0].cpu().numpy(),
-                                           range_min, range_max)
+    mesh = isosurface.marching_cubes_world(
+        trace.to_host(level[0], "level").numpy(), range_min, range_max)
     util_vis.dump_meshes(opt, var.idx, "mesh", [mesh], folder=folder)
 
     if n_rotate > 0:

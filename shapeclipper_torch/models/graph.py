@@ -63,6 +63,7 @@ from .implicit import Density, RGBNetwork, SDFNetwork, compute_dtype
 from .layers import (LatentProjection, batch_stats_frozen, bn_groups,
                      set_bn_mode)
 from ..utils.log import log
+from ..utils.trace import span
 from .resnet import load_pretrained_npz, make_encoder
 
 # canonical-frame permutation applied after Rz Rx Ry (reference
@@ -74,7 +75,9 @@ def _rotation(trig_azim, trig_elev, trig_theta):
     Ry = camera.azim_to_rotation_matrix(trig_azim, "trig")
     Rx = camera.elev_to_rotation_matrix(trig_elev, "trig")
     Rz = camera.roll_to_rotation_matrix(trig_theta, "trig")
-    perm = torch.tensor(R_PERMUTE, device=trig_azim.device)
+    # a host constant copied to the card: the copy waits for the stream
+    with span("sync.const"):
+        perm = torch.tensor(R_PERMUTE, device=trig_azim.device)
     return Rz @ Rx @ Ry @ perm[None]
 
 
@@ -244,6 +247,7 @@ class Graph(nn.Module):
         view.opt = opt
         return view
 
+    @span("graph.encode")
     def encode(self, images):
         """Image -> (proj_latent_sdf, proj_latent_rgb, latent_raw)."""
         latent_raw = self.encoder(images)
@@ -251,6 +255,7 @@ class Graph(nn.Module):
         return (self.latent_proj_shape(latent_raw[:, :d]),
                 self.latent_proj_rgb(latent_raw[:, d:]), latent_raw)
 
+    @span("graph.pose")
     def pred_pose(self, images):
         """Estimator -> (pose [B,3,4], intr [B,3,3], EstimatorOutputs)."""
         est = self.estimator(images)
@@ -406,14 +411,15 @@ class Graph(nn.Module):
         B = var.rgb_input_map.shape[0]
         V = len(sels)
         d = opt.arch.latent_dim_shape
-        with bn_groups(self.encoder, 1 + V):
-            latent_all = self.encoder(torch.cat(
-                [var.rgb_input_map] + [s.rgb_input_map for s in sels]))
-        # the views project their own RGB latents; the SDF latent is the
-        # query's alone
-        proj_sdf = self.latent_proj_shape(latent_all[:B, :d])
-        with bn_groups(self.latent_proj_rgb, 1 + V):
-            proj_rgb_all = self.latent_proj_rgb(latent_all[:, d:])
+        with span("graph.encode"):
+            with bn_groups(self.encoder, 1 + V):
+                latent_all = self.encoder(torch.cat(
+                    [var.rgb_input_map] + [s.rgb_input_map for s in sels]))
+            # the views project their own RGB latents; the SDF latent is the
+            # query's alone
+            proj_sdf = self.latent_proj_shape(latent_all[:B, :d])
+            with bn_groups(self.latent_proj_rgb, 1 + V):
+                proj_rgb_all = self.latent_proj_rgb(latent_all[:, d:])
         f = int(flip)
         G = 1 + f + V
         est_imgs = ([var.rgb_input_map]
@@ -654,8 +660,9 @@ class Graph(nn.Module):
 
         pose = camera.pose(R=_rotation(trig(angle_azim), trig(angle_elev),
                                        trig(angle_theta)))
-        pose_cam = camera.pose(t=torch.tensor(
-            [0.0, 0.0, float(opt.camera.dist)], device=dev))
+        with span("sync.const"):
+            t = torch.tensor([0.0, 0.0, float(opt.camera.dist)], device=dev)
+        pose_cam = camera.pose(t=t)
         return camera.compose([pose, pose_cam.expand(pose.shape)])
 
 

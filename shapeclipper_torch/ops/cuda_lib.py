@@ -17,6 +17,9 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from ..utils.log import log
+from ..utils.trace import timed
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
@@ -47,7 +50,6 @@ class CudaLibrary:
     def __init__(self, build_dir=BUILD_DIR):
         self.build_dir = build_dir
         self.lib = None
-        self.build_seconds = None
         self.ptxas_log = None
 
     def sources(self):
@@ -63,32 +65,38 @@ class CudaLibrary:
 
     def build(self, force=False):
         """Compile the source (once per content hash, or again when `force`)
-        and load it; `ptxas_log` holds nvcc's register report of a compile
-        in this process."""
+        and load it, inside `timed("setup.kernels.<stem>")`; a compile logs
+        one line (the library, nvcc's seconds), and `ptxas_log` holds nvcc's
+        register report of a compile in this process."""
         if self.lib is not None:
             return self.lib
-        path = self.library_path()
-        t0 = time.perf_counter()
-        if force or not os.path.isfile(path):
-            os.makedirs(self.build_dir, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
-            os.close(fd)
-            cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", tmp, *self.sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {self.sources()} "
-                                   f"({proc.returncode}):\n{proc.stdout}\n"
-                                   f"{proc.stderr}")
-            self.ptxas_log = proc.stderr
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        self._bind(lib)
-        self.build_seconds = time.perf_counter() - t0
+        with timed("setup.kernels." + self.stem):
+            path = self.library_path()
+            if force or not os.path.isfile(path):
+                self._compile(path)
+            lib = ctypes.CDLL(path)
+            self._bind(lib)
         self.lib = lib
         return lib
+
+    def _compile(self, path):
+        t0 = time.perf_counter()
+        os.makedirs(self.build_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+        os.close(fd)
+        cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, *self.sources()]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {self.sources()} "
+                               f"({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        self.ptxas_log = proc.stderr
+        os.replace(tmp, path)
+        log.info(f"nvcc built {os.path.basename(path)} in "
+                 f"{time.perf_counter() - t0:.1f} s")
 
     def _bind(self, lib):
         raise NotImplementedError

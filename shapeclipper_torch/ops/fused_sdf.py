@@ -52,6 +52,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.trace import span
 from .cuda_lib import BUILD_DIR, CSRC_DIR, CudaLibrary
 
 INV_SQRT2 = 0.7071067811865476
@@ -92,6 +93,14 @@ BWD_TILE_POINTS_BF16 = 64
 BWD_STASH_FLOATS_BF16 = 8 * 4 * 18 * 32 * 4
 # the products' operand types of the pair (`_mm_cast` in the JAX package)
 MM_DTYPES = ("float32", "bfloat16")
+# the profiler range (`utils/trace.py`) of a launch with its weight pack,
+# named as PERF.md's kernel table names the kernel: (route, 'grad' |
+# 'nograd' | 'bwd', mm_dtype) -> 'sdf.K8-bf16', ...
+LAUNCH_SPANS = {(route, kind, m): f"sdf.{name}"
+                + ("-bf16" if m == "bfloat16" else "")
+                for route, names in ROUTES.items()
+                for kind, name in zip(("grad", "nograd", "bwd"), names)
+                for m in MM_DTYPES}
 
 
 def _coord_masks(n_freqs, device=None):
@@ -1019,17 +1028,23 @@ def fused_sdf_forward(sdf_network, points, latent, compute_grad=False,
         raise RuntimeError("fused_sdf_forward has no backward; call it under "
                            "torch.inference_mode() / torch.no_grad(), or "
                            "use fused_sdf_train for gradients")
-    route = _check_cuda_inputs(sdf_network, points, latent)
-    weights, bias = pack_fused_params(
-        *prepare_fused_params(sdf_network, latent))
-    if route == "flagship":
-        sdf, feat, grad = KERNEL.launch(points, weights, bias, compute_grad,
-                                        sdf_network.force_symmetry, mm_dtype)
-    else:
-        sdf, feat, grad = GENERIC.forward(points, weights, bias,
-                                          sdf_arch(sdf_network), compute_grad,
-                                          sdf_network.force_symmetry,
-                                          mm_dtype)
+    with span("sdf.prepare"):
+        route = _check_cuda_inputs(sdf_network, points, latent)
+        weights, bias = pack_fused_params(
+            *prepare_fused_params(sdf_network, latent))
+    kind = "grad" if compute_grad else "nograd"
+    with span(LAUNCH_SPANS[route, kind, mm_dtype]):
+        if route == "flagship":
+            sdf, feat, grad = KERNEL.launch(points, weights, bias,
+                                            compute_grad,
+                                            sdf_network.force_symmetry,
+                                            mm_dtype)
+        else:
+            sdf, feat, grad = GENERIC.forward(points, weights, bias,
+                                              sdf_arch(sdf_network),
+                                              compute_grad,
+                                              sdf_network.force_symmetry,
+                                              mm_dtype)
     return sdf[..., None], feat, grad
 
 
@@ -1045,18 +1060,20 @@ class _FusedSdfTrain(torch.autograd.Function):
                 arch=None):
         ctx.force_symmetry, ctx.mm_dtype, ctx.arch = (force_symmetry,
                                                       mm_dtype, arch)
-        if arch is not None:
-            ctx.save_for_backward(points, weights.detach(), biases)
-            return GENERIC.forward(points, weights.detach(), biases, arch,
-                                   True, force_symmetry, mm_dtype)
-        if mm_dtype == "bfloat16":
-            # one launch writes both bf16 layouts: the fragments that
-            # K1-bf16 reads and the plain copy that K2-bf16 reads
-            w_fwd, w_bwd = KERNEL.pack_bf16(weights.detach())
-        else:
-            w_fwd = w_bwd = weights.detach()
-        sdf, feat, grad = KERNEL.launch(points, w_fwd, biases, True,
-                                        force_symmetry, mm_dtype)
+        route = "flagship" if arch is None else "generic"
+        with span(LAUNCH_SPANS[route, "grad", mm_dtype]):
+            if arch is not None:
+                ctx.save_for_backward(points, weights.detach(), biases)
+                return GENERIC.forward(points, weights.detach(), biases, arch,
+                                       True, force_symmetry, mm_dtype)
+            if mm_dtype == "bfloat16":
+                # one launch writes both bf16 layouts: the fragments that
+                # K1-bf16 reads and the plain copy that K2-bf16 reads
+                w_fwd, w_bwd = KERNEL.pack_bf16(weights.detach())
+            else:
+                w_fwd = w_bwd = weights.detach()
+            sdf, feat, grad = KERNEL.launch(points, w_fwd, biases, True,
+                                            force_symmetry, mm_dtype)
         ctx.save_for_backward(points, w_bwd, biases)
         return sdf, feat, grad
 
@@ -1066,14 +1083,16 @@ class _FusedSdfTrain(torch.autograd.Function):
         points, w_bwd, biases = ctx.saved_tensors
         # unused outputs arrive as zeros (autograd materializes them)
         cots = (sbar.contiguous(), fbar.contiguous(), gbar.contiguous())
-        if ctx.arch is not None:
-            dweights, dbiases, dpoints = GENERIC.backward(
-                points, w_bwd, biases, ctx.arch, *cots, ctx.force_symmetry,
-                ctx.mm_dtype)
-        else:
-            dweights, dbiases, dpoints = BACKWARD.launch(
-                points, w_bwd, biases, *cots, ctx.force_symmetry,
-                ctx.mm_dtype)
+        route = "flagship" if ctx.arch is None else "generic"
+        with span(LAUNCH_SPANS[route, "bwd", ctx.mm_dtype]):
+            if ctx.arch is not None:
+                dweights, dbiases, dpoints = GENERIC.backward(
+                    points, w_bwd, biases, ctx.arch, *cots,
+                    ctx.force_symmetry, ctx.mm_dtype)
+            else:
+                dweights, dbiases, dpoints = BACKWARD.launch(
+                    points, w_bwd, biases, *cots, ctx.force_symmetry,
+                    ctx.mm_dtype)
         return dweights, dbiases, dpoints, None, None, None
 
 
@@ -1100,9 +1119,10 @@ def fused_sdf_train(sdf_network, points, latent, detach_latent=False,
                               mm_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"no fused SDF path for device {points.device}")
-    route = _check_cuda_inputs(sdf_network, points, latent)
-    weights, bias = pack_fused_params(
-        *prepare_fused_params(sdf_network, latent))
+    with span("sdf.prepare"):
+        route = _check_cuda_inputs(sdf_network, points, latent)
+        weights, bias = pack_fused_params(
+            *prepare_fused_params(sdf_network, latent))
     arch = None if route == "flagship" else sdf_arch(sdf_network)
     sdf, feat, grad = _FusedSdfTrain.apply(weights, bias, points,
                                            sdf_network.force_symmetry,

@@ -32,6 +32,7 @@ from ..models.implicit import (cast_call, compute_dtype, laplace_density,
                                laplace_density_dsdf)
 from ..ops.fused_sdf import fused_sdf_forward, fused_sdf_train
 from ..utils.easydict import EasyDict as edict
+from ..utils.trace import span
 
 
 class RenderOutputs(NamedTuple):
@@ -116,6 +117,7 @@ def volume_rendering(z_vals, density):
     return alpha * transmittance, alpha
 
 
+@span("render")
 def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
            proj_latent_sdf, proj_latent_rgb, ray_idx=None, training=False,
            compute_eikonal=None, draws=None, implicit_dtype="float32",
@@ -137,26 +139,30 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
                          "render.normal_model=volume only; got "
                          f"{opt.render.sampler!r}, {opt.render.normal_model!r}")
 
-    cam_loc, ray_raw = camera.get_center_and_ray(opt, pose, intr=intr,
-                                                 ray_idx=ray_idx)
-    ray_dirs = _safe_normalize(ray_raw)
-    depth_fac = 1.0 / torch.sqrt(torch.clamp(
-        (ray_raw * ray_raw).sum(dim=-1, keepdim=True), min=1e-24))  # [B,R,1]
-    R = ray_dirs.shape[1]
-    if opt.camera.model == "perspective":
-        cam_loc = cam_loc.expand(B, R, 3)
+    with span("render.rays"):
+        cam_loc, ray_raw = camera.get_center_and_ray(opt, pose, intr=intr,
+                                                     ray_idx=ray_idx)
+        ray_dirs = _safe_normalize(ray_raw)
+        depth_fac = 1.0 / torch.sqrt(torch.clamp(
+            (ray_raw * ray_raw).sum(dim=-1, keepdim=True),
+            min=1e-24))                                          # [B,R,1]
+        R = ray_dirs.shape[1]
+        if opt.camera.model == "perspective":
+            cam_loc = cam_loc.expand(B, R, 3)
 
-    if training:
-        keys = ("t_rand",) + (("eik_idx", "eik_uniform") if compute_eikonal
-                              else ())
-        missing = [k for k in keys if (draws or {}).get(k) is None]
-        if missing:
-            raise ValueError(f"a training render needs the draws {missing} "
-                             "(`draw`, models/graph.py::step_draws)")
-    z_vals, z_eik = sample_z_vals(opt, R, scale_dist,
-                                  draws if training else None)
-    points = cam_loc[:, :, None, :] + z_vals[..., None] * ray_dirs[:, :, None, :]
-    points_flat = points.reshape(B, R * S, 3).contiguous()
+        if training:
+            keys = ("t_rand",) + (("eik_idx", "eik_uniform")
+                                  if compute_eikonal else ())
+            missing = [k for k in keys if (draws or {}).get(k) is None]
+            if missing:
+                raise ValueError(f"a training render needs the draws "
+                                 f"{missing} (`draw`, models/graph.py::"
+                                 "step_draws)")
+        z_vals, z_eik = sample_z_vals(opt, R, scale_dist,
+                                      draws if training else None)
+        points = (cam_loc[:, :, None, :]
+                  + z_vals[..., None] * ray_dirs[:, :, None, :])
+        points_flat = points.reshape(B, R * S, 3).contiguous()
 
     if training:
         sdf, sdf_feat, grad_sdf = fused_sdf_train(
@@ -166,38 +172,42 @@ def render(opt, sdf_network, rgb_network, beta, pose, intr, scale_dist,
         sdf, sdf_feat, grad_sdf = fused_sdf_forward(
             sdf_network, points_flat, proj_latent_sdf, compute_grad=True,
             mm_dtype=implicit_dtype)
-    density = laplace_density(sdf, beta).reshape(B, R, S)
-    normal_flat = -laplace_density_dsdf(sdf, beta) * grad_sdf         # [B,RS,3]
 
-    rgb = cast_call(rgb_network, rgb_dtype, points_flat, proj_latent_rgb,
-                    sdf_feat).reshape(B, R, S, 3)
+    with span("render.rgb"):
+        rgb = cast_call(rgb_network, rgb_dtype, points_flat, proj_latent_rgb,
+                        sdf_feat).reshape(B, R, S, 3)
 
-    weights, _ = volume_rendering(z_vals, density)                   # [B,R,S]
-    depth_values = (weights * (z_vals * depth_fac)).sum(dim=-1, keepdim=True)
-    normal = _safe_normalize(normal_flat).reshape(B, R, S, 3)
-    normal_weights = weights[..., None] ** opt.reg.normal_pow
-    normal_values = _safe_normalize((normal_weights * normal).sum(dim=-2))
+    with span("render.composite"):
+        density = laplace_density(sdf, beta).reshape(B, R, S)
+        normal_flat = -laplace_density_dsdf(sdf, beta) * grad_sdf    # [B,RS,3]
+        weights, _ = volume_rendering(z_vals, density)               # [B,R,S]
+        depth_values = (weights * (z_vals * depth_fac)).sum(dim=-1,
+                                                            keepdim=True)
+        normal = _safe_normalize(normal_flat).reshape(B, R, S, 3)
+        normal_weights = weights[..., None] ** opt.reg.normal_pow
+        normal_values = _safe_normalize((normal_weights * normal).sum(dim=-2))
 
-    acc_map = weights.sum(dim=-1)                                    # [B,R]
-    rgb_values = (weights[..., None] * rgb).sum(dim=-2)              # [B,R,3]
-    bg = float(opt.data.bgcolor) if opt.data.bgcolor is not None else 0.0
-    rgb_output = rgb_values + (1.0 - acc_map[..., None]) * bg
-    mask = acc_map[..., None]
-    mask_hard = (mask > 0.5).to(rgb_output.dtype)
+        acc_map = weights.sum(dim=-1)                                # [B,R]
+        rgb_values = (weights[..., None] * rgb).sum(dim=-2)          # [B,R,3]
+        bg = float(opt.data.bgcolor) if opt.data.bgcolor is not None else 0.0
+        rgb_output = rgb_values + (1.0 - acc_map[..., None]) * bg
+        mask = acc_map[..., None]
+        mask_hard = (mask > 0.5).to(rgb_output.dtype)
 
     grad_eikonal = None
     if compute_eikonal:
-        Be = B if eikonal_batch is None else eikonal_batch
-        eik_near = cam_loc[:Be] + z_eik[:Be] * ray_dirs[:Be]        # [Be,R,3]
-        eik_points = torch.cat([draws.eik_uniform, eik_near],
-                               dim=1).contiguous()
-        _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,
-                                         proj_latent_sdf[:Be],
-                                         detach_latent=True,
-                                         mm_dtype=implicit_dtype)
-        # sqrt(max(.)) keeps the gradient finite at a zero SDF gradient
-        grad_eikonal = torch.sqrt(torch.clamp(
-            (grad_eik * grad_eik).sum(dim=-1), min=1e-24))          # [Be,2R]
+        with span("render.eikonal"):
+            Be = B if eikonal_batch is None else eikonal_batch
+            eik_near = cam_loc[:Be] + z_eik[:Be] * ray_dirs[:Be]    # [Be,R,3]
+            eik_points = torch.cat([draws.eik_uniform, eik_near],
+                                   dim=1).contiguous()
+            _, _, grad_eik = fused_sdf_train(sdf_network, eik_points,
+                                             proj_latent_sdf[:Be],
+                                             detach_latent=True,
+                                             mm_dtype=implicit_dtype)
+            # sqrt(max(.)) keeps the gradient finite at a zero SDF gradient
+            grad_eikonal = torch.sqrt(torch.clamp(
+                (grad_eik * grad_eik).sum(dim=-1), min=1e-24))      # [Be,2R]
     return RenderOutputs(rgb=rgb_output, mask=mask, mask_hard=mask_hard,
                          depth=depth_values, normal=normal_values,
                          grad_eikonal=grad_eikonal)

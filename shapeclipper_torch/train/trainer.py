@@ -18,6 +18,17 @@ their per-sample metrics, so that every rank takes the same best epoch.
 Rank 0 alone cleans the output folder and writes checkpoints, TensorBoard
 events, the training dumps and the evaluation reports; each rank dumps
 its own evaluated samples; every rank restores.
+
+Profiler ranges (`utils/trace.py`, recorded only while a profiler runs):
+a step's `sc.step.batch` (`batch_to_var`, a `sc.sync.batch` a copy),
+`sc.step.forward`, `sc.step.backward`, `sc.step.optimizer` (the zero-fill
+and the optimizer's step) and `sc.sync.finite` (the delayed finite check)
+are read in the
+Chrome trace of the operator's `tpu.profile_iters` window
+(`_profile_window`); the turntable's `sc.vis.rotate`, `sc.vis.view` and
+`sc.sync.view` (its three host copies a view) are read by the benchmark's
+request cell (`benchmark/metrics/`); `build_networks` is
+`timed("setup.networks")`.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from ..ops.fused_sdf import arch_from_opt, route_note
 from ..utils import checkpoint as ckpt
 from ..utils.easydict import EasyDict as edict
 from ..utils.log import Timer, log
+from ..utils import trace
 from .. import vis as util_vis
 from .pretrainer import make_optimizer
 
@@ -95,10 +107,16 @@ def tpu_keys_note(opt):
             + ("pipelined" if tpu.get("eval_pipeline", True) else "serial"))
 
 
+@trace.span("step.batch")
 def batch_to_var(batch, device):
-    """A collated numpy batch -> EasyDict of tensors on `device`."""
-    return edict({k: torch.from_numpy(np.asarray(v)).to(device)
-                  for k, v in batch.items()})
+    """A collated numpy batch -> EasyDict of tensors on `device`. On CUDA
+    each copy from pageable memory waits for the stream: a `sync.batch`
+    range each."""
+    var = edict()
+    for k, v in batch.items():
+        with trace.span("sync.batch"):
+            var[k] = torch.from_numpy(np.asarray(v)).to(device)
+    return var
 
 
 def to_host(var):
@@ -107,7 +125,7 @@ def to_host(var):
     out = edict()
     for k, v in var.items():
         if torch.is_tensor(v):
-            out[k] = v.detach().cpu().numpy()
+            out[k] = trace.to_host(v.detach(), "to_host").numpy()
         elif isinstance(v, dict):
             out[k] = to_host(v)
         else:
@@ -216,6 +234,7 @@ class Runner:
                 break
         return [sample for r in picks for sample in r]
 
+    @trace.timed("setup.networks")
     def build_networks(self, opt):
         """Graph at the training resolution + a view of it at
         eval.image_size; weights from a generator seeded with opt.seed, then
@@ -371,25 +390,29 @@ class Runner:
                     + tuple(f"pose_NN_{v}" for v in range(opt.reg.n_views))
                     + tuple(f"scale_dist_NN_{v}"
                             for v in range(opt.reg.n_views)))
-        loss_all, loss, aux_var = self._train_model()(
-            var, CAMERA_PHASE_INACTIVE if camera_phase else (), aux_keys,
-            draws=draws, generator=self.generator)
+        with trace.span("step.forward"):
+            loss_all, loss, aux_var = self._train_model()(
+                var, CAMERA_PHASE_INACTIVE if camera_phase else (), aux_keys,
+                draws=draws, generator=self.generator)
         # under DDP the backward also averages the gradients over the ranks,
         # before the zero-fill and the step
-        loss_all.backward()
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                # optax updates every parameter, zero gradient or not
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        optimizer.step()
+        with trace.span("step.backward"):
+            loss_all.backward()
+        with trace.span("step.optimizer"):
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    # optax updates every parameter, zero gradient or not
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            optimizer.step()
         loss.all = loss_all.detach()
         loss = self._global_loss(loss)
 
         # one-step-delayed finite check: reading this step's flag would
         # synchronise with the device every step
         pending = getattr(self, "_pending_loss", None)
-        if pending is not None and not bool(pending[1].finite):
+        if pending is not None and not bool(
+                trace.to_host(pending[1].finite, "finite")):
             terms = {k: float(v.mean()) for k, v in pending[1].items()
                      if k != "finite"}
             raise AssertionError(f"non-finite loss at iter {pending[0]}: "
@@ -780,6 +803,7 @@ class Runner:
                                            var.proj_latent_sdf)
         return var, level
 
+    @trace.span("vis.rotate")
     @torch.inference_mode()
     def vis_rotate(self, opt, var, n_views=50):
         """Rotating-azimuth views at eval.image_size -> var with
@@ -791,15 +815,18 @@ class Runner:
         H, W = opt_e.H, opt_e.W
         imgs, masks, normals = [], [], []
         for i in range(n_views):
-            pose_i = vis_pose[i][None].expand(B, 3, 4)
-            out = self.graph_eval.render(pose_i, var.intr,
-                                         torch.ones_like(var.scale_dist),
-                                         var.proj_latent_sdf,
-                                         var.proj_latent_rgb)
-            imgs.append(out.rgb.reshape(B, H, W, 3).cpu().numpy())
-            masks.append(out.mask.reshape(B, H, W, 1).cpu().numpy())
-            normals.append(out.normal.reshape(B, H, W, 3).cpu().numpy() / 2
-                           + 0.5)
+            with trace.span("vis.view"):
+                pose_i = vis_pose[i][None].expand(B, 3, 4)
+                out = self.graph_eval.render(pose_i, var.intr,
+                                             torch.ones_like(var.scale_dist),
+                                             var.proj_latent_sdf,
+                                             var.proj_latent_rgb)
+                imgs.append(trace.to_host(out.rgb.reshape(B, H, W, 3),
+                                          "view").numpy())
+                masks.append(trace.to_host(out.mask.reshape(B, H, W, 1),
+                                           "view").numpy())
+                normals.append(trace.to_host(out.normal.reshape(B, H, W, 3),
+                                             "view").numpy() / 2 + 0.5)
         var.rotating_imgs = imgs
         var.rotating_masks = masks
         var.rotating_normals = normals

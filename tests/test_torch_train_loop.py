@@ -278,7 +278,8 @@ def test_profile_window_writes_one_trace(tmp_path):
     """`--tpu.profile_iters=[1,3]` through the train CLI over one epoch of
     four iterations: torch.profiler opens before iteration 1 and closes
     before iteration 3, and one Chrome trace of iterations 1-2 lands in
-    `output_path/profile/`, holding the steps' operators."""
+    `output_path/profile/`, holding the steps' operators and the port's
+    ranges of a step (`utils/trace.py`)."""
     import json
     tiny = [a for a in TINY if not a.startswith("--data.max_img_cat")]
     out = _cli("shapeclipper_torch.train",
@@ -292,3 +293,7 @@ def test_profile_window_writes_one_trace(tmp_path):
     with open(run / "profile" / traces[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"aten::convolution", "aten::lerp_"} <= names
+    assert {"sc.step.batch", "sc.step.forward", "sc.step.backward",
+            "sc.step.optimizer", "sc.sync.finite", "sc.graph.encode",
+            "sc.render", "sc.render.eikonal", "sc.sync.batch",
+            "sc.sync.inv", "sc.sync.const"} <= names
