@@ -324,8 +324,12 @@ GENERIC_WIDE = (6, (4,), 8, 256, 64, True)
 GENERIC_WIDE_ARGS = ("--arch.impl_sdf.n_hidden_layers=8",
                      "--arch.impl_sdf.n_channels=256",
                      "--arch.impl_sdf.skip_connection=[4]")
-GENERIC_NONE = dict(k8=0, k8_bf16=0, k8_nograd=0, k8_nograd_bf16=0, k9=0,
-                    k9_bf16=0, generic_pack=0, generic_pack_tf32=0)
+GENERIC_NONE = dict(k8=0, k8_bf16=0, k8_bf16_wgmma=0, k8_nograd=0,
+                    k8_nograd_bf16=0, k9=0, k9_bf16=0, generic_pack=0,
+                    generic_pack_tf32=0)
+# K8-bf16's serving shape: a render of the benchmark's request (eval and
+# turntable views alike), 1 x 262,144 points
+GENERIC_SERVE_POINTS = 262144
 N_GENERIC_STEPS = 3              # full steps of the wide YAML step
 # blocks of the plain version on the card: batch rows, and points of a row
 # for the float64 K9 reference (a whole 24 x 32,768 float64 graph at width
@@ -2854,13 +2858,15 @@ def reset_launches():
 
 def read_launches():
     """Every kernel's launches since `reset_launches` (`_bf16`: the bf16
-    instantiations; k8 / k8_nograd / k9: the generic pair, generic_pack the
-    bf16 pack of its weights, generic_pack_tf32 their tf32 pack)."""
+    instantiations; k8 / k8_nograd / k9: the generic pair, k8_bf16_wgmma
+    K8-bf16's wgmma form, generic_pack the bf16 pack of its weights,
+    generic_pack_tf32 their tf32 pack)."""
     from shapeclipper_torch.ops import chamfer as C
     from shapeclipper_torch.ops import fused_sdf as F
     from shapeclipper_torch.ops import isosurface as I
     k, b, g = F.KERNEL.launches, F.BACKWARD.launches, F.GENERIC.launches
-    return dict(k8=g["grad"], k8_bf16=g["grad_bf16"], k8_nograd=g["nograd"],
+    return dict(k8=g["grad"], k8_bf16=g["grad_bf16"],
+                k8_bf16_wgmma=g["grad_bf16_wgmma"], k8_nograd=g["nograd"],
                 k8_nograd_bf16=g["nograd_bf16"], k9=g["bwd"],
                 k9_bf16=g["bwd_bf16"], generic_pack=g["pack_bf16"],
                 generic_pack_tf32=g["pack_tf32"],
@@ -4081,8 +4087,10 @@ def phase_generic_kernels(opt):
     K9's in float64, beside the float32 kernel): at the narrow architecture
     at 12 x 1,024; at the wide one at the eikonal's 12 x 1,024, at 12 x
     32,768, the merged render's 24 x 32,768 (K9 and K9-bf16 also bitwise
-    over two launches at the narrow and the merged shape) and the vox-64
-    grid's 274,625 (K8-nograd); each timed over SDF_TIMED_CALLS launches
+    over two launches at the narrow and the merged shape), a request's
+    render 1 x GENERIC_SERVE_POINTS (K8 and K8-bf16, `serve_*` readings)
+    and the vox-64 grid's 274,625 (K8-nograd); each timed over
+    SDF_TIMED_CALLS launches
     between two events (once at the wide render shapes, whose launches take
     0.01-1 s) beside its plain version (over blocks of GENERIC_PLAIN_ROWS
     batch rows where it would not fit whole) and its bound (the float32
@@ -4322,6 +4330,13 @@ def phase_generic_kernels(opt):
             f"{res[key]['bound_ms']:.4f} ms")
     del c24, got, want
     torch.cuda.empty_cache()
+    # K8-bf16's serving shape, a render of the benchmark's request
+    cs1 = generic_case(GENERIC_WIDE, 1, GENERIC_SERVE_POINTS, SEED + 21)
+    _, e16, t = forward_case("wide, serving render", cs1, True, wide=True)
+    entry("k8_bf16", e16, {f"serve_{k}": v for k, v in t["bfloat16"].items()},
+          serve_f32_ms=t["float32"]["ms"])
+    del cs1
+    torch.cuda.empty_cache()
 
     grid = dense_grid_points(opt, 64, torch.device("cuda"))[None]
     cg = generic_case(GENERIC_WIDE, 1, grid.shape[1], SEED + 20, points=grid)
@@ -4340,10 +4355,11 @@ def phase_generic_paths():
     through the port's entry points, launch counts reset just before and
     read just after each: the YAML's own step (bf16, merged; batch 12,
     224^2, 512 rays x 64 samples) for a camera and N_GENERIC_STEPS full
-    steps (K8-bf16 2 / K9-bf16 1, then 2 / 2, the bf16 pack once before
-    each), a float32 camera and full step (K8 2 / K9 1, then 2 / 2, the
-    tf32 pack once before each), two requests at the YAML's dtypes
-    (K8-bf16 and the bf16 pack 1 + N_VIEWS, K8-nograd and the tf32 pack 3
+    steps (K8-bf16 2 in its wgmma form / K9-bf16 1, then 2 / 2, the bf16
+    pack once before each), a float32 camera and full step (K8 2 / K9 1,
+    then 2 / 2, the tf32 pack once before each), two requests at the YAML's
+    dtypes (K8-bf16's wgmma form and the bf16 pack 1 + N_VIEWS, K8-nograd
+    and the tf32 pack 3
     a request) and `Runner.evaluate` over 2 synthetic test samples at the
     full eval width pinned to float32 as phase 8 (K8 1, K8-nograd 3, the
     tf32 pack 4, K4 2 a sample); K1 / K2 / K3, their bf16 forms and the
@@ -4367,8 +4383,9 @@ def phase_generic_paths():
             raise AssertionError(f"{tag}: launches {got}, expected {want}")
         return out, ms
 
-    for dtype, steps, k8, k9 in (("bfloat16", N_GENERIC_STEPS, "k8_bf16",
-                                  "k9_bf16"), ("float32", 1, "k8", "k9")):
+    for dtype, steps, k8, k9 in (("bfloat16", N_GENERIC_STEPS,
+                                  "k8_bf16_wgmma", "k9_bf16"),
+                                 ("float32", 1, "k8", "k9")):
         bf16 = dtype == "bfloat16"
         opt = with_wide_sdf(flagship_opt(dtype=dtype, merged=True))
         runner = train_runner(opt, "cuda")
@@ -4407,7 +4424,7 @@ def phase_generic_paths():
     runner.restore_checkpoint(opt)
     vox = opt.eval.vox_res
     chunks = -(-(vox + 1) ** 3 // M.GRID_CHUNK)
-    per_request = dict(k8_bf16=1 + N_VIEWS, generic_pack=1 + N_VIEWS,
+    per_request = dict(k8_bf16_wgmma=1 + N_VIEWS, generic_pack=1 + N_VIEWS,
                        k8_nograd=chunks, generic_pack_tf32=chunks)
     reset_launches()
     latencies = []
@@ -4618,13 +4635,14 @@ def main():
              max_abs_err=err7, **iso[ISO_VOX[0]]["k7"], library_ms=None,
              **{f"{k}_vox100": v for k, v in iso[ISO_VOX[1]]["k7"].items()}),
     ]
-    def generic_entry(key, name, path, **more):
+    def generic_entry(key, name, path, launch_key=None, **more):
         r = dict(gen[key])
         source = SOURCE_GENERIC_BF16 if key in (
             "k8_bf16", "k9_bf16", "generic_pack") else SOURCE_GENERIC
         return dict(name=name, route="cuda", source=source,
                     replaces=REPLACES_BWD if key.startswith("k9")
-                    else REPLACES, launches=gen_launches[path][key],
+                    else REPLACES,
+                    launches=gen_launches[path][launch_key or key],
                     max_abs_err=r.pop("err"), **r, library_ms=None, **more)
 
     summary += [
@@ -4634,8 +4652,9 @@ def main():
                       train_launches=gen_launches["train_float32"]["k8"]),
         generic_entry("k8_bf16", "fused_sdf_generic_fwd_bf16 (K8-bf16, "
                       "compute_grad=True, bf16 products on the tensor "
-                      "cores)", "train_bfloat16",
-                      serve_launches=gen_launches["serve"]["k8_bf16"]),
+                      "cores; at width 256 its wgmma form)",
+                      "train_bfloat16", launch_key="k8_bf16_wgmma",
+                      serve_launches=gen_launches["serve"]["k8_bf16_wgmma"]),
         generic_entry("k8_nograd", "fused_sdf_generic_fwd (K8-nograd, "
                       "compute_grad=False)", "eval",
                       serve_launches=gen_launches["serve"]["k8_nograd"]),

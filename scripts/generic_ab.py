@@ -4,7 +4,8 @@ NVIDIA GPU, in its bf16 forms (K8-bf16, K8-nograd-bf16 and K9-bf16 of
 `csrc/fused_sdf_generic_bf16.cu`) or, with `--mm float32`, its float32
 forms (K8, K8-nograd and K9 of `csrc/fused_sdf_generic.cu`), at the wide
 SDF MLP (`chip_smoke.GENERIC_WIDE`, VolSDF's 8 x 256 with a skip at layer
-4) at the eikonal's 12 x 1,024 and the merged render's 24 x 32,768.
+4) at the eikonal's 12 x 1,024 and the merged render's 24 x 32,768, or at
+the shapes `--shape BxN` names (1x262144: a request's render).
 
     mkdir -p build/v/old
     for f in fused_sdf_generic.cu fused_sdf_generic_bf16.cu fused_sdf_generic.cuh
@@ -15,7 +16,9 @@ SDF MLP (`chip_smoke.GENERIC_WIDE`, VolSDF's 8 x 256 with a skip at layer
 Each `--build LABEL=DIR` names a directory that holds the library's three
 sources under their repository names (a `fused_sdf_generic.cu` from before
 the tf32 pack, the float32 FMA forms of commit 66a08da and earlier, reads
-the float32 weights as they are); `--ablate NAME` adds a build of the
+the float32 weights as they are; one from before K8-bf16's wgmma form
+runs its mma.sync form at every width, on the same pack, whose chunk
+images it leaves unread); `--ablate NAME` adds a build of the
 repository's sources with one part of the bf16 kernels cut out (its results
 are wrong: it times what is left; `ABLATIONS` says what each cuts). All are
 compiled by nvcc for sm_90a at once (`ops/cuda_lib.py::CudaLibrary.build`)
@@ -24,7 +27,9 @@ are printed from ptxas. At 12 x 1,024 every build's K9 (in the chosen form)
 is held against the float64 plain version of that form
 (`chip_smoke.generic_backward_plain`; the largest error over max|ref| of
 each gradient is printed), and K8's largest error against the float32 plain
-version. Each shape times the builds in two rounds, in order and then in
+version; at a shape of 100,000 points or more each build's K8 (in the
+chosen form) against its plain version in that form (max and mean error
+of sdf, feature, gradient). Each shape times the builds in two rounds, in order and then in
 reverse (a, b, b, a): K8 and K8-nograd over 20 launches (3 at 24 x 32,768)
 and K9 over 20 (2) between two CUDA events, each with its weight pack.
 Prints one line a build and round and the card, then one JSON line of the
@@ -93,6 +98,25 @@ ABLATIONS = {
                     stash_at(passes, l - 2, pass, warp, 2 * nt + e, lane));""",
         """                const float4 s4 = make_float4(0.01f * n, 0.1f, 0.2f,
                                               0.3f);""")]),
+    "wgnoepi": ("K8-bf16 wgmma form: the hidden layers' activation and its "
+                "shuffles (the sums stored as they are)", [(
+                    """          const float sent = __shfl_xor_sync(0xffffffffu, v1, 16);
+          float act = 0.f, sig = 0.f;
+          if ((prim_lane ? c0 : c0 + 1) < W)
+            act_pair_fast(prim_lane ? v0 : sent, act, sig);
+          const float sig_o = __shfl_xor_sync(0xffffffffu, sig, 16);
+          const float act_o = __shfl_xor_sync(0xffffffffu, act, 16);""",
+                    """          const float act = v0, sig = 1.f, sig_o = 1.f, act_o = v1;""")]),
+    "wgnomma": ("K8-bf16 wgmma form: its wgmma products (ring, waits and "
+                "epilogues kept)", [(
+                    """          wgmma_n256(d, da + 2 * ks, db + 2 * ks, acc);
+          if (wide) wgmma_n16(d16, da + 2 * ks, db + kWgN * 8 + 2 * ks, acc);""",
+                    """          d[ks] += (float)(da + db + acc);""")]),
+    "wgnoload": ("K8-bf16 wgmma form: the weight chunks' bulk copies (the "
+                 "full barriers arrived on without bytes)", [(
+                     """            mbar_expect_tx(full + stage, bytes);
+            bulk_g2s(ring + stage * w.stage_bytes, src, bytes, full + stage);""",
+                     """            mbar_arrive(full + stage);""")]),
     "noprefetch": ("the L2 prefetch of the stash before each input-cotangent "
                    "pass", [(
                        "              prefetch_l2(stash + ",
@@ -134,6 +158,28 @@ def _bind_fma(self, lib):
         getattr(lib, f"scl_sdf_generic_{name}").restype = i
 
 
+def _bind_mma_sync(self, lib):
+    """The C interface of a library from before K8-bf16's wgmma form (no
+    `scl_sdf_generic_fwd_form`; its bf16 pack has no chunk images)."""
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.scl_sdf_generic_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.scl_sdf_generic_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.scl_sdf_generic_tile_points.argtypes = [i] * 7
+    lib.scl_sdf_generic_stash_floats.argtypes = [i] * 5
+    lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
+    for kind in ("bf16", "tf32"):
+        getattr(lib, f"scl_sdf_generic_pack_{kind}").argtypes = \
+            [p] * 2 + [i] * 4 + [p]
+    for name in ("fwd", "bwd", "tile_points", "stash_floats",
+                 "bwd_blocks_per_sm", "pack_bf16", "pack_tf32"):
+        getattr(lib, f"scl_sdf_generic_{name}").restype = i
+
+
+def _key_mma_sync(self, lib, arch, compute_grad, mm_dtype):
+    return ("grad" if compute_grad else "nograd") + (
+        "_bf16" if mm_dtype == "bfloat16" else "")
+
+
 def _weights_fma(self, weights, arch, mm_dtype):
     return (self.pack_bf16(weights, arch) if mm_dtype == "bfloat16"
             else weights)
@@ -145,8 +191,12 @@ def version(label, directory):
     attrs = dict(stem=f"generic_ab_{label}", source=paths[0],
                  extra_sources=(paths[1],), headers=(paths[2],))
     with open(paths[0]) as f:
-        if "scl_sdf_generic_pack_tf32" not in f.read():
-            attrs.update(_bind=_bind_fma, _weights=_weights_fma)
+        text = f.read()
+    if "scl_sdf_generic_pack_tf32" not in text:
+        attrs.update(_bind=_bind_fma, _weights=_weights_fma,
+                     _launch_key=_key_mma_sync)
+    elif "scl_sdf_generic_fwd_form" not in text:
+        attrs.update(_bind=_bind_mma_sync, _launch_key=_key_mma_sync)
     return type(f"Version_{label}", (GenericSdfKernel,), attrs)(OUT)
 
 
@@ -159,7 +209,12 @@ def main():
     ap.add_argument("--mm", default="bfloat16", choices=("bfloat16",
                                                           "float32"),
                     help="the products' form to time (default bfloat16)")
+    ap.add_argument("--shape", action="append", default=[],
+                    metavar="BxN", help="batch rows x points (default "
+                    "12x1024 and 24x32768)")
     args = ap.parse_args()
+    shapes = [tuple(int(x) for x in s.split("x")) for s in args.shape] \
+        or [(12, 1024), (24, 32768)]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -189,14 +244,16 @@ def main():
     mm = args.mm
     sfx, tag = ("_bf16", "-bf16") if mm == "bfloat16" else ("", "")
     results = {label: [] for label in builds}
-    for B, N in ((12, 1024), (24, 32768)):
+    for B, N in shapes:
         c = cs.generic_case(cs.GENERIC_WIDE, B, N, cs.SEED + 19)
         big = N > 2000
-        ref = fref = None
+        ref = fref = sref = None
         if not big:
             ref = cs.generic_backward_plain(c, mm, torch.float64, 1,
                                             cs.GENERIC_F64_POINTS)
             fref = cs.generic_forward_plain(c, True, "float32")
+        if B * N >= 100000 and B * N * c.arch.width <= 2 ** 27:
+            sref = cs.generic_forward_plain(c, True, mm)
         order = list(builds.items())
         for rnd, items in enumerate((order, order[::-1])):
             for label, g in items:
@@ -230,9 +287,22 @@ def main():
                         + f"; K8{tag} max abs err (sdf, feat, grad) against "
                         "float32 " + " ".join(f"{e:.2e}"
                                               for e in row["k8_err"]))
+                if sref is not None and rnd == 0:
+                    with torch.inference_mode():
+                        out = g.forward(c.pts, c.w, c.b, c.arch, True, c.sym,
+                                        mm)
+                    row["k8_plain_err"] = [
+                        (float((a - r).abs().max()), float((a - r).abs()
+                                                           .mean()))
+                        for a, r in zip(out, sref)]
+                    line += (f"; K8{tag} against its plain version, max / "
+                             "mean (sdf, feat, grad) " + " ".join(
+                                 f"{m:.2e}/{e:.2e}"
+                                 for m, e in row["k8_plain_err"]))
+                    del out
                 print(line, flush=True)
                 results[label].append(row)
-        del c, ref, fref
+        del c, ref, fref, sref
         torch.cuda.empty_cache()
     print(f"card {cs.card_line()}")
     print(json.dumps(results))

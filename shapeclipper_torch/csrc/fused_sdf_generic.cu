@@ -1143,6 +1143,19 @@ extern "C" int scl_sdf_generic_packed_bf16(int n_freqs, int n_hidden,
   return sdf_generic_bf16_packed(n_freqs, n_hidden, width, skip_mask);
 }
 
+// Which form a K8 launch takes: 1 for K8-bf16's wgmma form (bf16 products
+// with tangents at a width that pads to 256), 0 for the mma.sync forms, -1
+// outside the envelope.
+extern "C" int scl_sdf_generic_fwd_form(int n_freqs, int n_hidden, int width,
+                                        int skip_mask, int compute_grad,
+                                        int mm_bf16) {
+  if (mm_bf16)
+    return sdf_generic_bf16_fwd_form(n_freqs, n_hidden, width, skip_mask,
+                                     compute_grad != 0);
+  Arch a;
+  return make_arch(&a, n_freqs, n_hidden, width, skip_mask) ? 0 : -1;
+}
+
 // Points of a tile: K8 (`backward` 0, with or without tangents) or K9, with
 // float32 (3xTF32) or (mm_bf16) bf16 products, or -1 outside the envelope.
 extern "C" int scl_sdf_generic_tile_points(int n_freqs, int n_hidden,

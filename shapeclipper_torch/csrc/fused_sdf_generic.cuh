@@ -115,6 +115,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // architecture (F, L, W, skip mask); the launches return a cudaError_t, the
 // sizes -1 outside the envelope.
 int sdf_generic_bf16_packed(int f, int l, int w, int m);
+int sdf_generic_bf16_fwd_form(int f, int l, int w, int m, bool grad);
 int sdf_generic_bf16_tile_points(int f, int l, int w, int m, bool grad,
                                  bool backward);
 int sdf_generic_bf16_stash_floats(int f, int l, int w, int m);

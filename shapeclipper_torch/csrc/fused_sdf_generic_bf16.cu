@@ -74,6 +74,50 @@
 // rebuild = 74 GB, as in the FMA form: a float32 state the VJP reads,
 // whatever the tile. Both counts are modelled (`chip_smoke.generic_traffic`). Both run near
 // the memory rate; they, not the tensor cores, hold K9 (PERF.md).
+//
+// K8-bf16's wgmma form (`wg_form`: the width pads to 256, VolSDF's 8 x 256
+// among them; every other width, and K8-nograd-bf16 and K9-bf16 at every
+// width, keep the mma.sync form above). The mma.sync form stays at a tenth
+// of the bf16 rate there: 8 warps an SM issuing m16n8k16 products one
+// ldmatrix pair at a time, one barrier a weight chunk, and a block a tile
+// of 32 points, so 8,192 blocks a render each stream all nine layers. The
+// wgmma form computes the same function with the same rounding points:
+//   * Blocks of 288 threads, one an SM, persistent over the tiles of 32
+//     points: two consumer warpgroups of 64 rows (16 points x 4 kinds: row
+//     16 (p / 4) + 4 q + p % 4 for point p's kind q) and a producer warp.
+//   * Each hidden layer is one m64n256k16 wgmma a k-step of 16 (bf16
+//     operands, float32 sums in 128 registers a thread); the output layer
+//     adds an m64n16 product for columns 256 .. 271 (width 256). Both
+//     operands are K-major under the 128-byte swizzle (`sw_off`): A is the
+//     warpgroup's rows in shared memory, h (4 atoms of [64 rows][64 k]) and
+//     the posenc rows (dp / 64 atoms, up); B is a weight chunk.
+//   * The weights reach shared memory as chunk images: the pack writes,
+//     after the [kp][np] layers, each layer's 64 reduction rows at a time as
+//     the [np][64] swizzled image the ring holds, in the order the kernel
+//     takes them. One producer lane streams them by `cp.async.bulk` into a
+//     ring of up to 4 buffers (an mbarrier pair each: full, with the
+//     copy's bytes; empty, one arrival a consumer warp), across tiles, so
+//     the next tile's first chunks load while this tile's output layer
+//     writes. Both warpgroups read each chunk: it serves the block's 128
+//     rows, and a render reads ~9 GB of weights from L2.
+//   * Each warpgroup starts a chunk's k-steps, commits, and releases the
+//     previous chunk's buffer once `wgmma.wait_group 1` says it is read.
+//     After a layer's last chunk the epilogue adds the bias and applies
+//     the activation over the accumulators and writes h_l (bf16) over
+//     h_(l-1) in place (a named barrier per warpgroup first; the
+//     generic-to-async proxy fence after).
+//   * sigma' stays float32: lanes g < 4 hold a point's primal and y-tangent
+//     rows, lane ^ 16 the x- and z-tangent rows of the same point and
+//     columns; of each column pair the primal lane takes the activation of
+//     the first, its partner (sent the second primal by a shuffle) the
+//     second, and two shuffles trade sigma and the activation back.
+// What bounds it (PERF.md): registers. ptxas budgets a wgmma kernel by
+// whole warpgroups, so 288 threads get 168 registers a thread (65,536 /
+// 384), and the 128 float32 sums spill: the products run ~7x below the
+// tensor rate, far from the L2 weight traffic's limit. A producer
+// warpgroup that hands its registers to the consumers (`setmaxnreg`, 232
+// a consumer thread) is the next step; then the L2 traffic (a 2-block
+// cluster with TMA multicast would halve it) and the epilogue.
 
 #include "fused_sdf_generic.cuh"
 
@@ -924,17 +968,501 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------ K8-bf16 on wgmma
+// K8-bf16's form for padded width 256 (the note at the head of the file):
+// two consumer warpgroups of 64 rows (16 points x 4 kinds) and a producer
+// warp a block, one block an SM, walking the tiles of 32 points.
+constexpr int kWgN = 256;            // the padded width the form takes
+constexpr int kWgPoints = 32;        // a block's tile: two warpgroups
+constexpr int kWgThreads = 288;      // two warpgroups and the producer
+constexpr int kAtom = 64 * 64;       // bf16 of a [64 rows][64 k] atom
+constexpr int kWgMaxStages = 4;
+constexpr int kWgConsumerWarps = 8;  // each releases a ring buffer
+
+struct WgTile {
+  int stages;       // chunk buffers of the ring
+  int npe;          // posenc atoms of a warpgroup's rows: dp / 64, up
+  int stage_bytes;  // a chunk buffer: the largest chunk image, op x 128
+};
+
+// Does K8-bf16 take the wgmma form? For a width that pads to 256: one
+// m64n256 product covers a hidden layer's columns, so its float32 sums fit
+// the registers and a weight chunk serves 128 rows (PERF.md measured this
+// width alone; every other width keeps the mma.sync form).
+__host__ __device__ inline bool wg_form(const Arch& a) {
+  return round16(a.width) == kWgN;
+}
+
+// Chunks of layer l: 64 reduction rows each, the h rows (wp / 64), then
+// the posenc rows (dp / 64, up) of layer 0 and the skip layers.
+__host__ __device__ inline int wg_chunks(const Arch& a, const Tile& t,
+                                         int l) {
+  return (l > 0 ? t.wp / 64 : 0) + (layer_pe(a, l) ? (t.dp + 63) / 64 : 0);
+}
+
+// bf16 of layer l's chunk images: each [np][64] (`sw_off`).
+__host__ __device__ inline int wg_layer_elems(const Arch& a, const Tile& t,
+                                              int l) {
+  return wg_chunks(a, t, l) * np_of(a, t, l) * 64;
+}
+
+// bf16 of the whole pack: the [kp][np] layers of every bf16 form, then,
+// where K8-bf16 takes the wgmma form, each layer's chunk images.
+__host__ __device__ inline int packed_elems(const Arch& a, const Tile& t) {
+  int n = t.boff[a.n_hidden + 1];
+  if (wg_form(a))
+    for (int l = 0; l <= a.n_hidden; ++l) n += wg_layer_elems(a, t, l);
+  return n;
+}
+
+inline int wg_smem_bytes(const WgTile& w) {
+  return 1024 + w.stages * w.stage_bytes +
+         2 * (kWgN / 64 + w.npe) * kAtom * 2 + 2 * w.stages * 8;
+}
+
+// The ring's depth: the most buffers, up to 4, that fit beside the two
+// warpgroups' rows, or false where the form does not apply.
+inline bool make_wg(WgTile* w, const Arch& a, const Tile& t) {
+  if (!wg_form(a)) return false;
+  w->npe = (t.dp + 63) / 64;
+  w->stage_bytes = t.op * 128;
+  for (int s = kWgMaxStages; s >= 2; --s) {
+    w->stages = s;
+    if (wg_smem_bytes(*w) <= kSmemLimit) return true;
+  }
+  return false;
+}
+
+// bf16 offset of (row, k) in a K-major operand of 128-byte rows under
+// wgmma's 128-byte swizzle: atom k / 64 of [64 rows][64 k] (a chunk image:
+// [np][64]), its 16-byte chunk k % 64 / 8 XOR row % 8. The buffers start
+// 1024-aligned, so this is the hardware's address swizzle (bits 4-6 XOR
+// bits 7-9).
+__host__ __device__ __forceinline__ int sw_off(int row, int k) {
+  return (k >> 6) * kAtom + row * 64 + ((((k >> 3) & 7) ^ (row & 7)) << 3) +
+         (k & 7);
+}
+
+// A shared-memory matrix descriptor of a K-major bf16 operand under the
+// 128-byte swizzle at shared address `addr`: start address >> 4 (bits
+// 0-13), leading offset 1 (unused by swizzled K-major operands), 1024
+// bytes between 8-row groups (bits 32-45), swizzle mode 1 (bits 62-63). A
+// k-step of 16 adds 2 (32 bytes) to the start.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3fff) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#ifndef SCL_EMULATED
+// wgmma, mbarriers and the bulk copy (tests/cuda_emu/ emulates them on the
+// CPU under the same names).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrives and expects `bytes` more of asynchronous copies in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the copy
+// engine, completing on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N of the warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The generic proxy's shared stores before it, visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup `id - 1` meet (named barrier `id`).
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The accumulators as the compiler must see them around the asynchronous
+// products: written here, so no read moves above a wait nor a write below
+// a product's start.
+template <int N>
+__device__ __forceinline__ void wg_keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B over one k-step of 16: A the 64 x 16 K-major rows at `da`, B
+// the 16 x N (N-row K-major image) at `db`, both in shared memory;
+// `accumulate` 0 overwrites d. Thread (warp w of the warpgroup, g = lane /
+// 4, t = lane % 4) holds rows 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8
+// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t, 8 j + 2 t + 1.
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#endif
+
+// A warpgroup's posenc rows: its 16 points from p0, point p's kind q
+// (0 the primal, 1-3 the tangents along x, y, z) at row 16 (p / 4) + 4 q +
+// p % 4, columns 0 .. dp - 1 (zero past D); values as `build_posenc`.
+__device__ void wg_posenc(const Arch& a, const Tile& t, const float* points,
+                          int b, int N, int p0, int force_symmetry,
+                          uint16_t* pe) {
+  const int D = a.pe_dim, dp = t.dp;
+  for (int e = threadIdx.x & 127; e < 16 * dp; e += 128) {
+    const int p = e / dp, d = e % dp, n = p0 + p;
+    float v = 0.f, dv = 0.f;
+    int coord = -1;
+    if (d < D) {
+      int kind;
+      float freq;
+      pe_feature(d, coord, kind, freq);
+      float x = n < N ? points[((size_t)b * N + n) * 3 + coord] : 0.f;
+      if (force_symmetry && coord == 0 && x < 0.f) x = -x;
+      if (kind == 0) {
+        v = x;
+        dv = 1.f;
+      } else {
+        const float xf = x * freq;
+        const float s = sinf(xf), c = cosf(xf);
+        v = kind == 1 ? s : c;
+        dv = kind == 1 ? freq * c : -freq * s;
+      }
+    }
+    const int row = 16 * (p >> 2) + (p & 3);
+    pe[sw_off(row, d)] = bf16_bits(v);
+    for (int q = 0; q < 3; ++q)
+      pe[sw_off(row + 4 * (q + 1), d)] = q == coord ? bf16_bits(dv) : 0;
+  }
+}
+
+// K8-bf16's wgmma form (with tangents): persistent blocks over the tiles
+// of 32 points. `img` is the pack's chunk images (`packed_elems`).
+__global__ void __launch_bounds__(kWgThreads, 1)
+    sdf_generic_fwd_bf16_kernel(const float* __restrict__ points,
+                                const uint16_t* __restrict__ img,
+                                const float* __restrict__ biases,
+                                float* __restrict__ sdf,
+                                float* __restrict__ feat,
+                                float* __restrict__ grad, int B, int N,
+                                int force_symmetry, Arch a, Tile t,
+                                WgTile w) {
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = smem_u32(smem);
+  char* ring = reinterpret_cast<char*>(smem) +
+               (((base + 1023u) & ~1023u) - base);
+  const int wg_elems = (kWgN / 64 + w.npe) * kAtom;
+  uint16_t* rows = reinterpret_cast<uint16_t*>(ring + w.stages *
+                                               w.stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 2 * wg_elems);
+  uint64_t* empty = full + w.stages;
+  const int L = a.n_hidden, W = a.width;
+  const int tiles_per_batch = (N + kWgPoints - 1) / kWgPoints;
+  const int tiles = B * tiles_per_batch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWgConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWgConsumerWarps) {
+    // the producer: one lane streams each tile's chunk images, in the
+    // order the warpgroups take them, through the ring
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const uint16_t* src = img;
+        for (int l = 0; l <= L; ++l) {
+          const int bytes = np_of(a, t, l) * 128;
+          for (int c = wg_chunks(a, t, l); c > 0; --c) {
+            mbar_wait(empty + stage, phase ^ 1);
+            mbar_expect_tx(full + stage, bytes);
+            bulk_g2s(ring + stage * w.stage_bytes, src, bytes, full + stage);
+            src += bytes / 2;
+            if (++stage == w.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes points 16 wg .. 16 wg + 15 of each
+  // tile; its lanes with g < 4 hold point g % 4's primal and y-tangent
+  // rows, their partners (lane ^ 16) its x- and z-tangent rows
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool prim_lane = g < 4;
+  const int pw = 4 * wq + (g & 3);
+  const int r_lo = 16 * wq + g, r_hi = r_lo + 8;
+  uint16_t* h = rows + wg * wg_elems;
+  uint16_t* pe = h + (kWgN / 64) * kAtom;
+  const uint64_t hdesc = wg_desc(smem_u32(h));
+  const uint64_t pedesc = wg_desc(smem_u32(pe));
+  const uint32_t ring_addr = smem_u32(ring);
+  const int nh = t.wp / 64;
+  int stage = 0, phase = 0;
+  float d[128], d16[8];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_batch;
+    const int p0 = (tile % tiles_per_batch) * kWgPoints + 16 * wg;
+    const float* bias_row = biases + (size_t)b * a.bias_width;
+    wg_posenc(a, t, points, b, N, p0, force_symmetry, pe);
+    fence_async_smem();
+    wg_bar(1 + wg);
+    for (int l = 0; l <= L; ++l) {
+      const bool last = l == L;
+      const bool wide = last && t.op > kWgN;  // columns 256 .. op - 1
+      const int hch = l > 0 ? nh : 0, nch = wg_chunks(a, t, l);
+      wg_keep(d);
+      wg_keep(d16);
+      wg_fence();
+      int prev = 0;
+      for (int c = 0; c < nch; ++c) {
+        mbar_wait(full + stage, phase);
+        const bool on_h = c < hch;
+        const int k0 = (on_h ? c : c - hch) * 64;
+        const int ksteps = (min(64, (on_h ? t.wp : t.dp) - k0)) / 16;
+        // atom k0 / 64: 8192 bytes, 512 in the descriptor's units
+        const uint64_t da = (on_h ? hdesc : pedesc) + (uint64_t)(k0 * 8);
+        const uint64_t db = wg_desc(ring_addr + stage * w.stage_bytes);
+        for (int ks = 0; ks < ksteps; ++ks) {
+          const int acc = c > 0 || ks > 0;
+          wgmma_n256(d, da + 2 * ks, db + 2 * ks, acc);
+          if (wide) wgmma_n16(d16, da + 2 * ks, db + kWgN * 8 + 2 * ks, acc);
+        }
+        wg_commit();
+        if (c > 0) {
+          wg_wait<1>();  // chunk c - 1's products are done with its buffer
+          if (lane == 0) mbar_arrive(empty + prev);
+        }
+        prev = stage;
+        if (++stage == w.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait<0>();
+      wg_keep(d);
+      wg_keep(d16);
+      if (lane == 0) mbar_arrive(empty + prev);
+      wg_bar(1 + wg);  // every warp's products are done with h
+      if (!last) {
+        // h_l = act(prim) and the tangents times sigma(100 prim), bf16,
+        // over h_(l-1): each lane pair splits the activations of its two
+        // columns (the primal lane c, its partner c + 1) by shuffles
+        const float* bias = bias_row + l * W;
+#pragma unroll
+        for (int j = 0; j < kWgN / 8; ++j) {
+          const int c0 = 8 * j + 2 * tq;
+          float v0 = d[4 * j], v1 = d[4 * j + 1];
+          const float u0 = d[4 * j + 2], u1 = d[4 * j + 3];
+          if (prim_lane) {
+            if (c0 < W) v0 += bias[c0];
+            if (c0 + 1 < W) v1 += bias[c0 + 1];
+          }
+          const float sent = __shfl_xor_sync(0xffffffffu, v1, 16);
+          float act = 0.f, sig = 0.f;
+          if ((prim_lane ? c0 : c0 + 1) < W)
+            act_pair_fast(prim_lane ? v0 : sent, act, sig);
+          const float sig_o = __shfl_xor_sync(0xffffffffu, sig, 16);
+          const float act_o = __shfl_xor_sync(0xffffffffu, act, 16);
+          const float s0 = prim_lane ? sig : sig_o;
+          const float s1 = prim_lane ? sig_o : sig;
+          *reinterpret_cast<uint32_t*>(h + sw_off(r_lo, c0)) =
+              prim_lane ? pack2(act, act_o) : pack2(v0 * s0, v1 * s1);
+          *reinterpret_cast<uint32_t*>(h + sw_off(r_hi, c0)) =
+              pack2(u0 * s0, u1 * s1);
+        }
+        fence_async_smem();
+        wg_bar(1 + wg);
+      } else {
+        // [sdf | feature] from the primal rows, the gradient from the
+        // tangent rows' sdf column
+        const int n = p0 + pw;
+        if (n < N) {
+          const size_t pn = (size_t)b * N + n;
+          const float* bias = bias_row + L * W;
+          float sign = 1.f;
+          if (!prim_lane && force_symmetry && points[pn * 3] < 0.f)
+            sign = -1.f;
+#pragma unroll
+          for (int j = 0; j < kWgN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * tq + e;
+              if (c > W) continue;
+              if (prim_lane) {
+                const float prim = d[4 * j + e] + bias[c];
+                if (c == 0) {
+                  sdf[pn] = prim;
+                  grad[pn * 3 + 1] = d[4 * j + 2 + e];
+                } else {
+                  feat[pn * W + c - 1] = prim;
+                }
+              } else if (c == 0) {
+                grad[pn * 3] = d[4 * j + e] * sign;
+                grad[pn * 3 + 2] = d[4 * j + 2 + e];
+              }
+            }
+          if (wide && prim_lane)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = kWgN + 8 * j + 2 * tq + e;
+                if (c <= W) feat[pn * W + c - 1] = d16[4 * j + e] + bias[c];
+              }
+        }
+      }
+    }
+  }
+}
+
 // The pack: the packed float32 weights -> each layer as a zero-padded bf16
-// [kp_h + kp_pe][np] matrix (rows: h, then posenc).
+// [kp_h + kp_pe][np] matrix (rows: h, then posenc); then, where K8-bf16
+// takes the wgmma form, each layer's chunk images: chunk c of layer l holds
+// reduction rows 64 c' .. 64 c' + 63 of its operand (h, then posenc; zero
+// past wp / dp) as the [np][64] K-major image that the ring receives
+// (`sw_off`), the layers' chunks in the order the kernel takes them.
 __global__ void sdf_generic_pack_bf16_kernel(const float* __restrict__ w,
                                              uint16_t* __restrict__ out,
                                              Arch a, Tile t) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= t.boff[a.n_hidden + 1]) return;
-  int l = 0;
-  while (i >= t.boff[l + 1]) ++l;
-  const int Np = np_of(a, t, l), khp = kp_h(t, l), Nl = layer_out(a, l);
-  const int k = (i - t.boff[l]) / Np, n = (i - t.boff[l]) % Np;
+  const int nl = t.boff[a.n_hidden + 1];
+  if (i >= packed_elems(a, t)) return;
+  int l = 0, k, n;
+  if (i < nl) {
+    while (i >= t.boff[l + 1]) ++l;
+    const int Np = np_of(a, t, l);
+    k = (i - t.boff[l]) / Np;
+    n = (i - t.boff[l]) % Np;
+  } else {
+    int j = i - nl;
+    while (j >= wg_layer_elems(a, t, l)) j -= wg_layer_elems(a, t, l++);
+    const int Np = np_of(a, t, l), hch = l > 0 ? t.wp / 64 : 0;
+    const int c = j / (Np * 64), r = j % (Np * 64), pos = r % 64;
+    n = r / 64;
+    const int kk = ((((pos >> 3) ^ n) & 7) << 3) | (pos & 7);
+    const bool on_h = c < hch;
+    const int kop = (on_h ? c : c - hch) * 64 + kk;
+    if (kop >= (on_h ? t.wp : t.dp)) {
+      out[i] = 0;
+      return;
+    }
+    k = on_h ? kop : kp_h(t, l) + kop;
+  }
+  const int khp = kp_h(t, l), Nl = layer_out(a, l);
   int kr = -1;
   if (n < Nl) {
     if (k < khp)
@@ -956,6 +1484,40 @@ bool arch_tile(Arch* a, Tile* t, int f, int l, int w, int m, bool grad,
   return make_arch(a, f, l, w, m) && make_tile(t, *a, grad, backward);
 }
 
+// The SMs of the current device (K8-bf16's wgmma form: one block each),
+// or 0 if the runtime cannot say.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// K8-bf16's wgmma form: a block an SM (at most one a tile), reading the
+// pack's chunk images.
+int wg_fwd(const float* points, const uint16_t* wts, const float* biases,
+           float* sdf, float* feat, float* grad, int B, int N,
+           int force_symmetry, const Arch& a, const Tile& t,
+           const WgTile& wt, cudaStream_t s) {
+  const long long tiles = (long long)B * ((N + kWgPoints - 1) / kWgPoints);
+  const int sms = sm_count();
+  if (tiles > 0x7fffffffLL || sms <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes(wt);
+  void (*kernel)(const float*, const uint16_t*, const float*, float*, float*,
+                 float*, int, int, int, Arch, Tile, WgTile) =
+      sdf_generic_fwd_bf16_kernel;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  sdf_generic_fwd_bf16_kernel<<<(int)(tiles < sms ? tiles : sms), kWgThreads,
+                                smem, s>>>(points,
+                                           wts + t.boff[a.n_hidden + 1],
+                                           biases, sdf, feat, grad, B, N,
+                                           force_symmetry, a, t, wt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int sdf_generic_bf16_packed(int f, int l, int w, int m) {
@@ -963,7 +1525,16 @@ int sdf_generic_bf16_packed(int f, int l, int w, int m) {
   Tile t;
   if (!make_arch(&a, f, l, w, m)) return -1;
   make_layout(&t, a);
-  return t.boff[a.n_hidden + 1];
+  return packed_elems(a, t);
+}
+
+int sdf_generic_bf16_fwd_form(int f, int l, int w, int m, bool grad) {
+  Arch a;
+  Tile t;
+  WgTile wt;
+  if (!make_arch(&a, f, l, w, m)) return -1;
+  make_layout(&t, a);
+  return grad && make_wg(&wt, a, t) ? 1 : 0;
 }
 
 int sdf_generic_bf16_tile_points(int f, int l, int w, int m, bool grad,
@@ -998,7 +1569,7 @@ int sdf_generic_bf16_pack(const float* weights, void* packed, int f, int l,
   Tile t;
   if (!make_arch(&a, f, l, w, m)) return (int)cudaErrorInvalidValue;
   make_layout(&t, a);
-  const int n = t.boff[a.n_hidden + 1];
+  const int n = packed_elems(a, t);
   sdf_generic_pack_bf16_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                                  s>>>(weights, static_cast<uint16_t*>(packed),
                                       a, t);
@@ -1011,9 +1582,15 @@ int sdf_generic_bf16_fwd(const float* points, const void* packed,
                          int force_symmetry, int f, int l, int w, int m,
                          cudaStream_t s) {
   Arch a;
-  Tile t;
-  if (B <= 0 || N <= 0 ||
-      !arch_tile(&a, &t, f, l, w, m, compute_grad, false))
+  Tile t{};
+  WgTile wt;
+  if (B <= 0 || N <= 0 || !make_arch(&a, f, l, w, m))
+    return (int)cudaErrorInvalidValue;
+  make_layout(&t, a);
+  if (compute_grad && make_wg(&wt, a, t))
+    return wg_fwd(points, static_cast<const uint16_t*>(packed), biases, sdf,
+                  feat, grad, B, N, force_symmetry, a, t, wt, s);
+  if (!make_tile(&t, a, compute_grad, false))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)B * ((N + t.points - 1) / t.points);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

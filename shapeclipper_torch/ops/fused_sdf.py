@@ -71,6 +71,9 @@ BIAS_WIDTH = 5 * 64 + 65
 # what K8 / K9 take (`csrc/fused_sdf_generic.cu`): inclusive ranges, and
 # skip layers anywhere in 1 .. n_hidden
 ENVELOPE = dict(width=(1, 512), n_hidden=(1, 16), n_freqs=(0, 16))
+# the padded width at which K8-bf16 takes its wgmma form
+# (`csrc/fused_sdf_generic_bf16.cu::wg_form`)
+GENERIC_WGMMA_WIDTH = 256
 # the kernels of each route: forward with tangents, without, backward
 ROUTES = {"flagship": ("K1", "K3", "K2"),
           "generic": ("K8", "K8-nograd", "K9")}
@@ -395,16 +398,56 @@ def _padded_layers(weights, arch, multiple):
     return torch.cat(parts)
 
 
+def _wgmma_layers(arch):
+    """[(np, [(first row, rows)] of its operands)] of each layer of the
+    bf16 pack where K8-bf16 takes its wgmma form (the width pads to
+    `GENERIC_WGMMA_WIDTH`), else []: the h rows (wp), then the posenc rows
+    (dp) of layer 0 and the skip layers."""
+    wp, dp, op = _padded_widths(arch, 16)
+    if wp != GENERIC_WGMMA_WIDTH:
+        return []
+    out = []
+    for l in range(arch.n_hidden + 1):
+        kh = wp if l else 0
+        ops = [(0, kh)] if l else []
+        if l == 0 or l in arch.skip_in:
+            ops.append((kh, dp))
+        out.append((op if l == arch.n_hidden else wp, ops))
+    return out
+
+
 def generic_packed_bf16(arch):
     """bf16 elements of `generic_pack_bf16_reference`'s pack."""
-    return _padded_elems(arch, 16)
+    return _padded_elems(arch, 16) + sum(
+        n * 64 * -(-rows // 64) for n, ops in _wgmma_layers(arch)
+        for _, rows in ops)
 
 
 def generic_pack_bf16_reference(weights, arch):
     """The plain version of `GenericSdfKernel.pack_bf16`: the packed
     float32 weights [arch.num_weights] -> K8-bf16 / K9-bf16's weights, bf16
-    (nearest even), in `_padded_layers`'s layout with widths padded to 16."""
-    return _padded_layers(weights, arch, 16).to(torch.bfloat16)
+    (nearest even), in `_padded_layers`'s layout with widths padded to 16;
+    then, where K8-bf16 takes its wgmma form, each layer's chunk images:
+    its operands' rows 64 at a time (zero past the operand), each chunk as
+    the [np][64] K-major matrix of the 128-byte swizzle (the 16-byte group
+    k // 8 of row n at group (k // 8) ^ (n % 8)), the chunks in the order
+    K8-bf16 takes them."""
+    flat = _padded_layers(weights, arch, 16)
+    parts, off = [flat], 0
+    for n, ops in _wgmma_layers(arch):
+        rows = sum(r for _, r in ops)
+        m = flat[off:off + rows * n].view(rows, n)
+        off += rows * n
+        pos = torch.arange(64, device=flat.device)
+        row = torch.arange(n, device=flat.device)[:, None]
+        src = ((pos // 8) ^ (row % 8)) * 8 + pos % 8     # [n][64]
+        for first, count in ops:
+            for k0 in range(0, count, 64):
+                chunk = m.new_zeros(64, n)
+                kl = min(64, count - k0)
+                chunk[:kl] = m[first + k0:first + k0 + kl]
+                parts.append(chunk.t().gather(1, src).reshape(-1))
+    return torch.cat(parts).to(torch.bfloat16)
 
 
 def tf32_rna(x):
@@ -780,9 +823,12 @@ class GenericSdfKernel(CudaLibrary):
     which read the weights' tf32 pack ('pack_tf32', one launch before each
     float32 launch), and with '_bf16' their bf16 forms on the tensor cores
     in `csrc/fused_sdf_generic_bf16.cu`, which read the weights' bf16 pack
-    ('pack_bf16', one launch before each bf16 launch). One build serves
-    every architecture of `ENVELOPE`, which arrives at each launch.
-    `launches` counts each where it is launched and nowhere else."""
+    ('pack_bf16', one launch before each bf16 launch). K8-bf16 launches
+    in one of two forms, which the library reports for the architecture:
+    'grad_bf16' counts the mma.sync form, 'grad_bf16_wgmma' the wgmma form.
+    One build serves every architecture of `ENVELOPE`, which arrives at
+    each launch. `launches` counts each where it is launched and nowhere
+    else."""
 
     stem = "scl_fused_sdf_generic"
     source = _SOURCE_GENERIC
@@ -793,6 +839,7 @@ class GenericSdfKernel(CudaLibrary):
         super().__init__(build_dir)
         self.launches = {k + m: 0 for k in ("grad", "nograd", "bwd")
                          for m in ("", "_bf16")}
+        self.launches["grad_bf16_wgmma"] = 0
         self.launches["pack_bf16"] = self.launches["pack_tf32"] = 0
 
     def _bind(self, lib):
@@ -803,8 +850,9 @@ class GenericSdfKernel(CudaLibrary):
         lib.scl_sdf_generic_tile_points.argtypes = [i] * 7
         lib.scl_sdf_generic_stash_floats.argtypes = [i] * 5
         lib.scl_sdf_generic_bwd_blocks_per_sm.argtypes = [i] * 5
+        lib.scl_sdf_generic_fwd_form.argtypes = [i] * 6
         for name in ("fwd", "bwd", "num_weights", "tile_points",
-                     "stash_floats", "bwd_blocks_per_sm"):
+                     "stash_floats", "bwd_blocks_per_sm", "fwd_form"):
             getattr(lib, f"scl_sdf_generic_{name}").restype = i
         for kind in ("bf16", "tf32"):
             getattr(lib, f"scl_sdf_generic_pack_{kind}").argtypes = \
@@ -813,7 +861,7 @@ class GenericSdfKernel(CudaLibrary):
             getattr(lib, f"scl_sdf_generic_pack_{kind}").restype = i
             getattr(lib, f"scl_sdf_generic_packed_{kind}").restype = i
         for arch in (FLAGSHIP, SdfArch(4, (2,), 4, 32),
-                     SdfArch(0, (), 16, 512)):
+                     SdfArch(0, (), 16, 512), SdfArch(6, (4,), 8, 256)):
             args = self._arch_args(arch)
             if lib.scl_sdf_generic_num_weights(*args) != arch.num_weights \
                     or lib.scl_sdf_generic_packed_bf16(*args) \
@@ -920,9 +968,19 @@ class GenericSdfKernel(CudaLibrary):
         if err != 0:
             raise RuntimeError(f"generic SDF forward launch failed: "
                                f"cudaError {err}")
-        key = "grad" if compute_grad else "nograd"
-        self.launches[key + ("_bf16" if mm_dtype == "bfloat16" else "")] += 1
+        self.launches[self._launch_key(lib, arch, compute_grad,
+                                       mm_dtype)] += 1
         return sdf, feat, grad
+
+    def _launch_key(self, lib, arch, compute_grad, mm_dtype):
+        """The `launches` key of a K8 launch: its kind and products, and
+        '_wgmma' where the library says it took the wgmma form."""
+        key = ("grad" if compute_grad else "nograd") + (
+            "_bf16" if mm_dtype == "bfloat16" else "")
+        form = lib.scl_sdf_generic_fwd_form(
+            *self._arch_args(arch), int(bool(compute_grad)),
+            int(mm_dtype == "bfloat16"))
+        return key + ("_wgmma" if form == 1 else "")
 
     def scratch_floats(self, arch, B, N, mm_dtype="float32"):
         """(grid, partial floats a block, stash floats a block) of a K9

@@ -7,7 +7,10 @@
 // (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k8 tf32, shuffles) exchange
 // through per-warp slots behind a per-warp std::barrier, with the PTX ISA's
 // fragment layouts; cp.async copies are queued per thread and land when the
-// thread waits for their group (harness.cpp).
+// thread waits for their group. K8-bf16's wgmma form: wgmma reads its
+// operands through their descriptors when its group is waited for,
+// mbarriers count arrivals and transaction bytes, and a bulk copy lands
+// when a thread waits on its barrier (harness.cpp).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -68,6 +71,12 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 
 // the fragment plumbing of fused_sdf_generic.cu and fused_sdf_generic_bf16.cu
 #define SCL_EMULATED 1
+// the block's shared memory (run_grid's `smem`); a shared address is the
+// offset into it
+extern char* emu_smem;
+inline uint32_t smem_u32(const void* p) {
+  return uint32_t(static_cast<const char*>(p) - emu_smem);
+}
 void __syncwarp(unsigned mask = 0xffffffffu);
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
 // ldmatrix.m8n8 .x{count} (.trans): `row` is this lane's row address
@@ -108,3 +117,38 @@ template <int N>
 inline void cp_async_wait() {
   emu_cp_async_wait(N);
 }
+// mbarrier.init / arrive / arrive.expect_tx / try_wait.parity (blocking
+// until the phase of `parity` has completed); fence.mbarrier_init is
+// implied
+void mbar_init(uint64_t* bar, int count);
+inline void mbar_fence_init() {}
+void mbar_arrive(uint64_t* bar);
+void mbar_expect_tx(uint64_t* bar, int bytes);
+void mbar_wait(uint64_t* bar, int parity);
+// cp.async.bulk global -> shared, completing on `bar`: queued on the
+// barrier, copied when a thread waits on it after its arrivals are in
+void bulk_g2s(void* dst, const void* src, int bytes, uint64_t* bar);
+// wgmma.mma_async m64nNk16 bf16 -> f32 (N 256 or 16), K-major operands
+// through their descriptors (128-byte swizzle), queued in this thread's
+// open group and evaluated when the group is waited for
+void emu_wgmma(float* d, int n, uint64_t da, uint64_t db, int accumulate);
+inline void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db,
+                       int accumulate) {
+  emu_wgmma(d, 256, da, db, accumulate);
+}
+inline void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db,
+                      int accumulate) {
+  emu_wgmma(d, 16, da, db, accumulate);
+}
+inline void wg_fence() {}
+void wg_commit();
+void emu_wg_wait(int n);
+template <int N>
+inline void wg_wait() {
+  emu_wg_wait(N);
+}
+inline void fence_async_smem() {}
+template <int N>
+inline void wg_keep(float (&)[N]) {}
+// bar.sync id, 128
+void wg_bar(int id);

@@ -7,18 +7,22 @@
 #include "cuda_runtime.h"
 #include "harness.h"
 
+#include <condition_variable>
+#include <map>
+#include <mutex>
 #include <thread>
 #include <vector>
 
 thread_local dim3 threadIdx;
 dim3 blockIdx, gridDim, blockDim;
+char* emu_smem;
 static std::barrier<>* g_barrier;
 void __syncthreads() { g_barrier->arrive_and_wait(); }
 
 // ------------------------------------------------------------------ warps
 namespace {
 
-constexpr int kEmuWarps = 8;
+constexpr int kEmuWarps = 12;  // the most a block has here
 
 // Two slots of each exchange, used in turn by consecutive collectives: a
 // lane can write slot k % 2 only after every lane passed collective k - 1's
@@ -187,33 +191,193 @@ void emu_cp_async_wait(int n) {
   }
 }
 
+// ------------------------------------------- wgmma, mbarriers, bulk copies
+namespace {
+
+struct WgOp {
+  float* d;
+  int n;
+  uint64_t da, db;
+  int accumulate;
+};
+thread_local std::vector<WgOp> t_wg_open;
+thread_local std::vector<std::vector<WgOp>> t_wg_groups;
+
+struct Bar {
+  int count = 0, pending = 0, phase = 0;
+  long tx = 0;
+  std::vector<Copy> copies;
+};
+std::mutex g_mu;
+std::condition_variable g_cv;
+std::map<uint32_t, Bar> g_bars;
+std::map<int, std::barrier<>*> g_named;
+
+// A K-major bf16 operand's element (row, k < 16) through descriptor `desc`:
+// start address (bits 0-13, 16-byte units), stride between 8-row groups
+// (bits 32-45), 128-byte swizzle (bits 62-63 = 1, the only mode the kernels
+// use): the byte address's bits 4-6 XOR its bits 7-9.
+bool g_bad_desc = false;  // a descriptor of another mode: the block fails
+
+float desc_elem(uint64_t desc, int row, int k) {
+  if ((desc >> 62) != 1 || (desc >> 49 & 7) != 0) {
+    g_bad_desc = true;
+    return 0.f;
+  }
+  const uint32_t start = uint32_t(desc & 0x3fff) << 4;
+  const uint32_t sbo = uint32_t((desc >> 32) & 0x3fff) << 4;
+  uint32_t addr = start + (row / 8) * sbo + (row % 8) * 128 + 2 * k;
+  addr ^= ((addr >> 7) & 7) << 4;
+  uint16_t v;
+  std::memcpy(&v, emu_smem + addr, 2);
+  return bf16_value(v);
+}
+
+// This thread's part of D (+)= A B: warp w of the warpgroup, lane (g, t)
+// holds rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t, + 1
+// (d[4 j + 2 i + e]: row 16 w + g + 8 i, column 8 j + 2 t + e).
+void wg_eval(const WgOp& op) {
+  const int tw = threadIdx.x % 128, w = tw / 32, lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int i = 0; i < 2; ++i)
+      for (int e = 0; e < 2; ++e) {
+        const int row = 16 * w + g + 8 * i, col = 8 * j + 2 * t + e;
+        double sum = 0.0;
+        for (int k = 0; k < 16; ++k)
+          sum += double(desc_elem(op.da, row, k)) * desc_elem(op.db, col, k);
+        float& d = op.d[4 * j + 2 * i + e];
+        d = float((op.accumulate ? double(d) : 0.0) + sum);
+      }
+}
+
+// the phase completes once its arrivals are in and its bytes have landed
+void bar_settle(Bar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+  }
+}
+
+}  // namespace
+
+void emu_wgmma(float* d, int n, uint64_t da, uint64_t db, int accumulate) {
+  t_wg_open.push_back({d, n, da, db, accumulate});
+}
+
+void wg_commit() {
+  t_wg_groups.push_back(std::move(t_wg_open));
+  t_wg_open.clear();
+}
+
+// .sync.aligned: the warp's lanes meet before and after, as converged
+// lanes do on the card, so a lane that arrives on a barrier after the wait
+// speaks for a warp whose products are all done
+void emu_wg_wait(int n) {
+  __syncwarp();
+  while ((int)t_wg_groups.size() > n) {
+    for (const WgOp& op : t_wg_groups.front()) wg_eval(op);
+    t_wg_groups.erase(t_wg_groups.begin());
+  }
+  __syncwarp();
+}
+
+void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  Bar& b = g_bars[smem_u32(bar)];
+  b = Bar();
+  b.count = b.pending = count;
+}
+
+void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  Bar& b = g_bars.at(smem_u32(bar));
+  --b.pending;
+  bar_settle(b);
+  g_cv.notify_all();
+}
+
+void mbar_expect_tx(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  Bar& b = g_bars.at(smem_u32(bar));
+  b.tx += bytes;
+  --b.pending;
+  bar_settle(b);
+  g_cv.notify_all();
+}
+
+void bulk_g2s(void* dst, const void* src, int bytes, uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  g_bars.at(smem_u32(bar)).copies.push_back({dst, src, bytes});
+  g_cv.notify_all();
+}
+
+// A waiter lands the copies of a phase whose arrivals are in.
+void mbar_wait(uint64_t* bar, int parity) {
+  std::unique_lock<std::mutex> lock(g_mu);
+  Bar& b = g_bars.at(smem_u32(bar));
+  for (;;) {
+    if (b.pending == 0 && !b.copies.empty()) {
+      for (const Copy& c : b.copies) {
+        std::memcpy(c.dst, c.src, c.bytes);
+        b.tx -= c.bytes;
+      }
+      b.copies.clear();
+      bar_settle(b);
+      g_cv.notify_all();
+    }
+    if (b.phase != parity) return;
+    g_cv.wait(lock);
+  }
+}
+
+void wg_bar(int id) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    std::barrier<>*& b = g_named[id];
+    if (!b) b = new std::barrier<>(128);
+    bar = b;
+  }
+  bar->arrive_and_wait();
+}
+
 bool run_grid(int grid, const std::function<void()>& body, void* smem,
-              size_t bytes) {
-  constexpr int kBlock = 32 * kEmuWarps;
+              size_t bytes, int threads) {
+  const int warps = threads / 32;
+  if (threads % 32 || warps > kEmuWarps) return false;
   gridDim.x = grid;
-  blockDim.x = kBlock;
+  blockDim.x = threads;
+  emu_smem = static_cast<char*>(smem);
   bool clean = true;
   for (int b = 0; b < grid; ++b) {
     blockIdx.x = b;
-    std::barrier<> barrier(kBlock);
+    std::barrier<> barrier(threads);
     g_barrier = &barrier;
     std::vector<std::barrier<>*> warp_bars;
-    for (int i = 0; i < kEmuWarps; ++i) {
+    for (int i = 0; i < warps; ++i) {
       warp_bars.push_back(new std::barrier<>(32));
       g_warps[i].bar = warp_bars.back();
     }
     std::memset(smem, 0xff, bytes);
-    std::vector<char> done(kBlock, 1);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kBlock; ++t)
-      threads.emplace_back([&, t] {
+    std::vector<char> done(threads, 1);
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, t] {
         threadIdx.x = t;
         body();
-        done[t] = t_pending.empty() && t_groups.empty();
+        done[t] = t_pending.empty() && t_groups.empty() &&
+                  t_wg_open.empty() && t_wg_groups.empty();
       });
-    for (auto& t : threads) t.join();
+    for (auto& t : pool) t.join();
     for (auto* bar : warp_bars) delete bar;
     for (char d : done) clean = clean && d;
+    for (auto& kv : g_bars) clean = clean && kv.second.copies.empty();
+    clean = clean && !g_bad_desc;
+    g_bad_desc = false;
+    g_bars.clear();
+    for (auto& kv : g_named) delete kv.second;
+    g_named.clear();
   }
   return clean;
 }

@@ -910,8 +910,8 @@ def test_generic_pair_matches_plain(dev, name):
     torch.cuda.synchronize()
     after = (F.GENERIC.launches, F.KERNEL.launches, F.BACKWARD.launches)
     assert {k: after[0][k] - before[0][k] for k in after[0]} == dict(
-        grad=1, nograd=1, bwd=1, grad_bf16=0, nograd_bf16=0, bwd_bf16=0,
-        pack_bf16=0, pack_tf32=3)
+        grad=1, nograd=1, bwd=1, grad_bf16=0, grad_bf16_wgmma=0,
+        nograd_bf16=0, bwd_bf16=0, pack_bf16=0, pack_tf32=3)
     assert after[1] == before[1] and after[2] == before[2]
 
 
@@ -928,7 +928,8 @@ def test_generic_pair_bf16_matches_plain(dev, name):
     architecture: max error within 1e-2 (a float32 sum one ulp apart can
     round to the neighbouring bf16 operand), mean error under half the
     mean distance from the float32 kernels; two K9-bf16 launches bitwise
-    equal; one pack launch before each launch (bf16 and tf32)."""
+    equal; one pack launch before each launch (bf16 and tf32); K8-bf16
+    counted under its wgmma form at the wide one."""
     n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
     g = torch.Generator().manual_seed(4)
     net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
@@ -966,15 +967,86 @@ def test_generic_pair_bf16_matches_plain(dev, name):
             assert float(err.max()) <= 1e-2 * scale
             assert float(err.mean()) < 0.5 * float(gap)
     after = F.GENERIC.launches
+    wgmma = int(width == 256)
     assert {k: after[k] - before[k] for k in after} == dict(
-        grad=1, nograd=1, bwd=1, grad_bf16=1, nograd_bf16=1, bwd_bf16=2,
-        pack_bf16=4, pack_tf32=3)
+        grad=1, nograd=1, bwd=1, grad_bf16=1 - wgmma, grad_bf16_wgmma=wgmma,
+        nograd_bf16=1, bwd_bf16=2, pack_bf16=4, pack_tf32=3)
+
+
+def _wide_net(generator):
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS["wide"]
+    return SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                      n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                      force_symmetry=sym, geometric_init=False,
+                      generator=generator), latent, sym
+
+
+@pytest.mark.parametrize("shape", [(1, 262144), (12, 1024), (2, 1000)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_generic_wgmma_form_matches_plain(dev, shape):
+    """K8-bf16's wgmma form (VolSDF's 8 x 256) against the bf16 plain
+    version at a request's render (1 x 262,144), the eikonal's 12 x 1,024
+    and a ragged 2 x 1,000 (each row's last tile of 32 points partial):
+    max error within 1e-2 of the value's scale (a float32 sum one ulp apart
+    can round to the neighbouring bf16 operand), mean error under half the
+    mean distance from the float32 kernel (3xTF32)."""
+    g = torch.Generator().manual_seed(7)
+    net, latent, sym = _wide_net(g)
+    B, N = shape
+    pts = (torch.rand(B, N, 3, generator=g) * 2 - 1).to(dev)
+    pts[:, ::5, 0] = 0.0
+    lat = (torch.randn(B, latent, generator=g) * 0.3).to(dev)
+    with torch.no_grad():
+        w, b = F.pack_fused_params(*F.prepare_fused_params(net, lat.cpu()))
+    w, b, arch = w.to(dev), b.to(dev), F.sdf_arch(net)
+    with torch.inference_mode():
+        got = F.GENERIC.forward(pts, w, b, arch, True, sym, "bfloat16")
+        want = F.generic_forward_reference(pts, w, b, arch, True, sym,
+                                           "bfloat16")
+        f32 = F.GENERIC.forward(pts, w, b, arch, True, sym)
+    torch.cuda.synchronize()
+    for k, r, k32 in zip(got, want, f32):
+        scale = max(float(r.abs().max()), 1.0)
+        err = (k.double() - r.double()).abs()
+        gap = (k.double() - k32.double()).abs().mean()
+        assert torch.isfinite(k).all()
+        assert float(err.max()) <= 1e-2 * scale
+        assert float(err.mean()) < 0.5 * float(gap)
+
+
+@pytest.mark.parametrize("name", ["wide", "narrow"])
+def test_generic_bf16_forward_counts_its_form(dev, name):
+    """A K8-bf16 launch counts under the form the library says it took:
+    'grad_bf16_wgmma' at width 256 (and not 'grad_bf16'), 'grad_bf16' at
+    width 32 (and not 'grad_bf16_wgmma'); K8-nograd-bf16 under
+    'nograd_bf16' at both."""
+    n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
+    g = torch.Generator().manual_seed(8)
+    net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,
+                     n_channels=width, skip_in=skips, posenc_res=n_freqs,
+                     force_symmetry=sym, geometric_init=False, generator=g)
+    pts = (torch.rand(1, 100, 3, generator=g) * 2 - 1).to(dev)
+    with torch.no_grad():
+        w, b = F.pack_fused_params(*F.prepare_fused_params(
+            net, torch.zeros(1, latent)))
+    w, b, arch = w.to(dev), b.to(dev), F.sdf_arch(net)
+    before = dict(F.GENERIC.launches)
+    with torch.inference_mode():
+        for grad in (True, False):
+            F.GENERIC.forward(pts, w, b, arch, grad, sym, "bfloat16")
+    torch.cuda.synchronize()
+    wgmma = int(name == "wide")
+    assert {k: F.GENERIC.launches[k] - before[k] for k in before
+            if k.startswith(("grad", "nograd"))} == dict(
+        grad=0, nograd=0, grad_bf16=1 - wgmma, grad_bf16_wgmma=wgmma,
+        nograd_bf16=1)
 
 
 @pytest.mark.parametrize("name", list(GENERIC_BF16_ARCHS))
 def test_generic_bf16_pack_matches_plain(dev, name):
     """The generic pair's bf16 weight pack (each layer zero-padded to
-    multiples of 16) bitwise against its plain version."""
+    multiples of 16; at the wide architecture K8-bf16's chunk images after
+    them) bitwise against its plain version."""
     n_freqs, skips, hidden, width, latent, sym = GENERIC_BF16_ARCHS[name]
     g = torch.Generator().manual_seed(5)
     net = SDFNetwork(proj_latent_dim=latent, n_hidden=hidden,

@@ -15,8 +15,13 @@ layouts behind a per-warp barrier (the tf32 mma reads only the top 19 bits
 of each operand register, as the hardware does, so an operand left
 unsplit loses the rest), `cvt.rna.tf32.f32` as the ISA rounds, and
 cp.async copies land only when their thread waits for them, so a read
-before the wait shows; the emulation is itself held to numpy through those
-layouts. This checks the kernels'
+before the wait shows. K8-bf16's wgmma form adds wgmma (m64n256k16 and
+m64n16k16 from shared-memory descriptors under the 128-byte swizzle,
+evaluated when their group is waited for; fence, commit, and a wait that
+meets the warp as `.sync.aligned` does), mbarriers (arrivals, expected
+transaction bytes, parity waits), the bulk copy (landing only when a
+thread waits on its barrier) and named barriers; the emulation is itself
+held to numpy through the ISA's layouts. This checks the kernels'
 indexing, tiling, barriers and arithmetic at small sizes; whether nvcc
 builds them and how fast they run only the card shows (`tests/
 test_torch_cuda.py -k generic`, phase 16 of `chip_smoke.py`). It skips
@@ -97,6 +102,10 @@ def emu(tmp_path_factory):
     emu.emu_bf16_packed.argtypes = [i] * 4
     emu.emu_ldmatrix_rows.argtypes = [p, i, i, p]
     emu.emu_fragment_product.argtypes = [p] * 4 + [i]
+    emu.emu_bf16_wgmma_form.argtypes = [i] * 4
+    emu.emu_sw_off.argtypes = [i, i, p]
+    emu.emu_wgmma_product.argtypes = [p, p, i, i, p, i]
+    emu.emu_mbar_ring.argtypes = [p, i, i, p, p]
     return emu
 
 
@@ -122,6 +131,40 @@ def _case(spec, B, N, seed):
     cots = [torch.from_numpy(rng.randn(B, N, *c).astype(np.float32))
             for c in ((), (width,), (3,))]
     return F.sdf_arch(net), sym, pts, w, b, cots
+
+
+def _bf16_forward(emu, case, grad):
+    """K8-bf16 (`grad`) or K8-nograd-bf16, emulated on the emulated bf16
+    pack, which must equal its plain version bitwise -> (sdf, feat, grad or
+    None)."""
+    arch, sym, pts, w, b, _ = case
+    B, N = pts.shape[:2]
+    args = (arch.n_freqs, arch.n_hidden, arch.width, arch.skip_mask)
+    weights = torch.full((emu.emu_bf16_packed(*args),), float("nan"),
+                         dtype=torch.bfloat16)
+    assert emu.emu_bf16_pack(_ptr(w), _ptr(weights), *args) == 0
+    assert torch.equal(weights.view(torch.int16),
+                       F.generic_pack_bf16_reference(w, arch)
+                       .view(torch.int16))
+    out = [torch.full((B, N), float("nan")),
+           torch.full((B, N, arch.width), float("nan")),
+           torch.full((B, N, 3), float("nan"))]
+    assert emu.emu_bf16_fwd(_ptr(pts), _ptr(weights), _ptr(b),
+                            *map(_ptr, out), B, N, *args, int(grad),
+                            int(sym)) == 0
+    return out if grad else out[:2] + [None]
+
+
+def _check_bf16(got, ref, away):
+    """`chip_smoke.check_bf16`'s rule: the largest error within 1e-2 of the
+    value's scale, the mean error under half the mean distance from
+    float32 (a float32 sum one ulp apart may round to the neighbouring bf16
+    operand and move a value by far more than float32 noise)."""
+    for g, r, a in zip(got, ref, away):
+        err = (g - r).abs()
+        assert torch.isfinite(g).all()
+        assert float(err.max()) <= 1e-2 * max(float(r.abs().max()), 1.0)
+        assert float(err.mean()) < 0.5 * float((g - a).abs().mean())
 
 
 def _run(emu, case, bf16, grid=3):
@@ -211,17 +254,47 @@ def test_emulated_generic_pair_matches_plain(emu, name):
     # float32 (here the float32 plain version on the same inputs)
     case = _case(ARCHS[name], 2, 150 if ARCHS[name][3] < 512 else 37,
                  seed=7)
+    arch = case[0]
+    assert emu.emu_bf16_wgmma_form(arch.n_freqs, arch.n_hidden, arch.width,
+                                   arch.skip_mask) == 0
     b16 = _run(emu, case, True)
     want = _plain(case, "bfloat16", torch.float32)
     away = _plain(case, "float32", torch.float32)
-    got = [t for part in b16[0] for t in part] + list(b16[1])
-    ref = [t for part in want[0] for t in part] + list(want[1])
-    away = [t for part in away[0] for t in part] + list(away[1])
-    for g, r, a in zip(got, ref, away):
-        err = (g - r).abs()
-        assert torch.isfinite(g).all()
-        assert float(err.max()) <= 1e-2 * max(float(r.abs().max()), 1.0)
-        assert float(err.mean()) < 0.5 * float((g - a).abs().mean())
+    _check_bf16([t for part in b16[0] for t in part] + list(b16[1]),
+                [t for part in want[0] for t in part] + list(want[1]),
+                [t for part in away[0] for t in part] + list(away[1]))
+
+
+# architectures whose K8-bf16 takes the wgmma form (width padded to 256):
+# one whose output layer is a skip layer, with 80 posenc columns (two
+# atoms, the second a single k-step; a 3-buffer ring) and 272 output
+# columns (the m64n16 product beside the m64n256 one); and VolSDF's depth
+# at width 250 (padding columns inside the form's 256, 256 output columns)
+WGMMA_ARCHS = {
+    "skip_out": (12, (2, 3), 3, 256, 8, True),
+    "deep_250": (6, (4,), 8, 250, 16, False),
+}
+
+
+@pytest.mark.parametrize("name", list(WGMMA_ARCHS))
+def test_emulated_wgmma_form_matches_plain(emu, name):
+    """K8-bf16's wgmma form (warp-specialised persistent blocks: a producer
+    lane bulk-copying each layer's chunk images into an mbarrier ring, two
+    consumer warpgroups of m64n256k16 wgmma, sigma' shared by shuffles)
+    against the bf16 plain version by `check_bf16`'s rule, beside the
+    float32 plain version: 2 x 45 points, so each batch row ends in a
+    ragged tile, over three persistent blocks that walk the four tiles
+    (the first takes two). The pack with its chunk images is bitwise its
+    plain version."""
+    case = _case(WGMMA_ARCHS[name], 2, 45, seed=9)
+    arch = case[0]
+    assert emu.emu_bf16_wgmma_form(arch.n_freqs, arch.n_hidden, arch.width,
+                                   arch.skip_mask) == 1
+    got = _bf16_forward(emu, case, True)
+    ops = case[2:5]
+    want = F.generic_forward_reference(*ops, arch, True, case[1], "bfloat16")
+    away = F.generic_forward_reference(*ops, arch, True, case[1], "float32")
+    _check_bf16(got, want, away)
 
 
 def test_emulated_tiles_follow_shared_memory(emu):
@@ -396,3 +469,87 @@ def test_emulated_3xtf32_dot_keeps_float32_precision(emu):
         errs.append(np.abs(d - ref) / bound)
     assert errs[0].max() <= 1.0, errs[0].max()
     assert errs[1].max() > 2.0, errs[1].max()
+
+
+def _swizzled(rows_k, n_rows):
+    """[atoms][n_rows][64] bf16 bits -> the bytes of each atom as the
+    128-byte swizzle lays them out: row r at r * 128, the 16-byte group k
+    // 8 at byte address bits 4-6 XOR bits 7-9 (r % 8), as uint16."""
+    atoms = rows_k.shape[0]
+    out = np.zeros((atoms, n_rows * 64), np.uint16)
+    r = np.arange(n_rows)[:, None]
+    k = np.arange(64)[None, :]
+    byte = r * 128 + 2 * k
+    byte = byte ^ (((byte >> 7) & 7) << 4)
+    for a in range(atoms):
+        out[a, byte // 2] = rows_k[a]
+    return out
+
+
+def test_emulated_sw_off_is_the_128byte_swizzle(emu):
+    """`sw_off`, where the kernel stores its operand rows and the pack its
+    chunk images, is the 128-byte swizzle of the PTX ISA's K-major layout:
+    atom k // 64 of [64 rows][64 k] 8192 bytes on, row r 128 bytes on, and
+    the byte address's bits 4-6 XOR its bits 7-9; for a chunk image (k <
+    64) at every one of its 272 rows."""
+    for rows, ks in ((64, 128), (272, 64)):
+        got = np.zeros((rows, ks), np.int32)
+        emu.emu_sw_off(rows, ks, ctypes.c_void_p(got.ctypes.data))
+        r = np.arange(rows)[:, None]
+        k = np.arange(ks)[None, :]
+        byte = (k // 64) * 8192 + r * 128 + 2 * (k % 64)
+        want = (byte ^ (((byte >> 7) & 7) << 4)) // 2
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [256, 16])
+@pytest.mark.parametrize("atoms", [1, 2])
+def test_emulated_wgmma_matches_numpy(emu, n, atoms):
+    """wgmma.mma_async m64nNk16 bf16 -> f32 through the kernels'
+    descriptors (`wg_desc`: start, 1024 bytes between 8-row groups, the
+    128-byte swizzle; + 2 a k-step of 16, + 512 an atom), 4 x `atoms`
+    k-steps, the first overwriting D: D = A B^T for A [64][64 atoms] and B
+    [n][64 atoms] laid out by numpy as the ISA swizzles them, D read back
+    through the accumulator layout (warp w, lane (g, t): rows 16 w + g,
+    + 8, columns 8 j + 2 t, + 1), within one float32 rounding a k-step of
+    the float64 product (bf16 products are exact; the sum is float32); read
+    before the wait, D still holds what it held (the products land at the
+    wait)."""
+    rng = np.random.RandomState(n + atoms)
+    a_bits, a = _bf16_bits(rng.randn(64, 64 * atoms))
+    b_bits, b = _bf16_bits(rng.randn(n, 64 * atoms))
+    a_img = _swizzled(a_bits.reshape(64, atoms, 64).transpose(1, 0, 2), 64)
+    b_img = _swizzled(b_bits.reshape(n, atoms, 64).transpose(1, 0, 2), n)
+    for late in (0, 1):
+        d = np.zeros((64, n), np.float32)
+        assert emu.emu_wgmma_product(
+            ctypes.c_void_p(a_img.ctypes.data),
+            ctypes.c_void_p(b_img.ctypes.data), atoms, n,
+            ctypes.c_void_p(d.ctypes.data), late) == 0
+        if late:
+            assert (d == -1.0).all()
+        else:
+            bound = 4 * atoms * 2.0 ** -24 * (np.abs(a) @ np.abs(b).T)
+            assert (np.abs(d - a @ b.T) <= bound).all()
+
+
+def test_emulated_mbarrier_ring_lands_at_the_wait(emu):
+    """The wgmma form's ring as its mbarriers drive it, emulated: a
+    producer lane waits on a buffer's empty barrier (the parity flipped,
+    so a fresh barrier passes), expects the round's bytes on the full
+    barrier and bulk-copies them; 32 consumer lanes wait on the full
+    barrier, read, and arrive on the empty one. Over 5 rounds of two
+    buffers each lane reads round r's words after its wait, and before it
+    what the buffer held: the NaN fill in rounds 0 and 1, round r - 2's
+    words after (a bulk copy lands only at a wait on its barrier)."""
+    rounds, words = 5, 64
+    src = np.arange(rounds * words, dtype=np.float32).reshape(rounds, words)
+    before = np.zeros((rounds, 32), np.float32)
+    after = np.zeros((rounds, 32), np.float32)
+    assert emu.emu_mbar_ring(*(ctypes.c_void_p(x.ctypes.data)
+                               for x in (src,)), rounds, words,
+                             ctypes.c_void_p(before.ctypes.data),
+                             ctypes.c_void_p(after.ctypes.data)) == 0
+    np.testing.assert_array_equal(after, src[:, :32])
+    assert np.isnan(before[:2]).all()
+    np.testing.assert_array_equal(before[2:], src[:-2, :32])
